@@ -8,16 +8,26 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   kernels    K1 (dense flash forward) and K2 (sliding-window forward)
              against their plain PyTorch versions at the flagship shapes,
              with kernel / plain / SDPA (yardstick only) times
+  kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
+             against their plain versions at the training step's shapes
   reference  a tiny T2V run on the card (bf16, kernels) against the same
              weights on the CPU (float32, plain versions)
+  train_reference  a tiny LoRA step and a tiny SFT step, the same way
   dense      two requests to V5.1-12B (random bf16 weights, full depth and
              width) + the full MagViT decoder at 384x672x49f, CFG 6.0
   swa        one request with swa_layers = 1..47 on the same weights
-Then the per-kernel JSON line and, last, the device line.
+  lora_dense 3 LoRA steps (rank 128) on the same 12B at 384x672x49f
+  lora_swa   3 LoRA steps on its swa_layers = 1..47 variant
+  sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
+             4 layers: layer 0 dense, 1-3 SWA
+Each main-path phase sets the kernels' launch counts to 0 just before it
+and checks them just after. Then the per-kernel JSON line and, last, the
+device line.
 """
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -30,16 +40,34 @@ from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.vae import AutoencoderKLMagvit, MagvitVAEConfig
 from easyanimate_tpu_torch.ops import _build
 from easyanimate_tpu_torch.ops.flash_attention import (
-    LOG2E, flash_attention_fwd, flash_attention_plain)
-from easyanimate_tpu_torch.ops.swa import sliding_window_fwd, sliding_window_plain
+    LOG2E, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_plain, row_dot)
+from easyanimate_tpu_torch.ops.swa import (
+    sliding_window_bwd, sliding_window_bwd_plain, sliding_window_fwd,
+    sliding_window_plain)
 from easyanimate_tpu_torch.pipeline import EasyAnimatePipeline
+from easyanimate_tpu_torch.pipeline.t2v import build_rope
+from easyanimate_tpu_torch.training import lora as tlora
+from easyanimate_tpu_torch.training import trainer as ttrainer
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
 O_BOUND = 2e-2    # bf16 o (8-bit mantissa) and the kernel's bf16 p before p @ v
 LSE_BOUND = 1e-3  # float32 sums of the same float32 scores, another order
+# backward, max |kernel - plain| over max |plain| per gradient: the kernels
+# round p and ds to bf16 before the products and store bf16 (relative
+# rounding 2^-9 each); over thousands of terms of mixed sign the sums keep
+# that relative size, and the bound leaves a 5x margin
+BWD_BOUND = 2e-2
 # tiny pipeline, bf16 on the card vs float32 on the CPU, latents ~ N(0, 1):
 # CFG 6 scales the bf16 rounding of both halves by up to 1 + 2 * 6 = 13
 REF_BOUND = 0.25
+# tiny training step, bf16 on the card vs float32 on the CPU: loss relative
+# 1e-2, gradients 5e-2 of the largest |gradient|. bf16 weights and
+# activations alone (the plain versions in bf16 on the CPU) move the
+# gradients by ~1e-2 of the largest; the kernels' bf16 p and ds add as much
+TRAIN_LOSS_BOUND = 1e-2
+TRAIN_GRAD_BOUND = 5e-2
+TRAIN_STEPS = 3
 
 
 def emit(obj):
@@ -148,6 +176,123 @@ def phase_kernels(gen):
     return stats
 
 
+def _bwd_case(name, bwd, plain, fwd_args, extra, gen, kv_valid=None):
+    """Run the kernel pair and its plain version on the same residuals and
+    cotangent do ~ N(0, 1); check each gradient within BWD_BOUND of the
+    plain version's max |value|, and dk/dv exactly 0 past kv_valid."""
+    qf, kf, vf = fwd_args
+    o, lse = (flash_attention_fwd(qf, kf, vf, kv_valid) if kv_valid is not None
+              else sliding_window_fwd(qf, kf, vf, *extra))
+    do = torch.randn(o.shape, generator=gen, device=o.device).to(torch.bfloat16)
+    args = (qf, kf, vf, o, lse, do, *extra)
+    got = bwd(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    diff = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+    rel = {f"rel_err_{n}": d / w.float().abs().max().item()
+           for n, d, w in zip(("dq", "dk", "dv"), diff, want)}
+    pad_zero = (kv_valid is None or
+                not (got[1][:, kv_valid:].any() or got[2][:, kv_valid:].any()))
+    ok = max(rel.values()) <= BWD_BOUND and pad_zero
+    emit({"phase": "kernels_bwd", "case": name,
+          "shape": [list(a.shape) for a in fwd_args], **rel,
+          "max_abs_err": max(diff), "bound": BWD_BOUND,
+          "dk_dv_zero_past_kv_valid": pad_zero, "ok": ok})
+    if not ok:
+        raise AssertionError(f"backward {name} disagrees with its plain version")
+    return (max(diff), max(rel.values())), args
+
+
+def _entry_ms(name, args, outs, sizes, iters=5):
+    """ms of one C entry point alone on prepared tensors (no counter)."""
+    ptrs = [x.data_ptr() for x in args] + [x.data_ptr() for x in outs]
+    return cuda_ms(lambda: _build.launch(name, args[0].device, *ptrs, *sizes),
+                   iters)
+
+
+def phase_kernels_bwd(gen):
+    dev = torch.device("cuda")
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    qs = 64 ** -0.5 * LOG2E
+    stats = {"K3": {}, "K4": {}, "K6": {}, "K7": {}}
+
+    def time_pair(tag, prefix, args, sizes, bwd, plain, sdpa=None):
+        qf, kf, vf, o, lse, do = args[:6]
+        di = row_dot(o, do)
+        ins = (qf, kf, vf, do, lse, di)
+        dq, dk, dv = (torch.empty_like(x) for x in (qf, kf, vf))
+        k_dq, k_dkv = ("K3", "K4") if prefix == "flash" else ("K6", "K7")
+        t = {k_dq: _entry_ms(f"ea_{prefix}_bwd_dq_bf16", ins, (dq,), sizes),
+             k_dkv: _entry_ms(f"ea_{prefix}_bwd_dkv_bf16", ins, (dk, dv), sizes),
+             "pair_ms": cuda_ms(lambda: bwd(*args), 5),
+             "plain_ms": cuda_ms(lambda: plain(*args), 2)}
+        for k in (k_dq, k_dkv):
+            stats[k][tag + "ms"] = t[k]
+            stats[k][tag + "plain_ms"] = t["plain_ms"]  # one plain pass: both
+        stats[k_dq][tag + "pair_ms"] = stats[k_dkv][tag + "pair_ms"] = t["pair_ms"]
+        if sdpa is not None:
+            stats[k_dq]["sdpa_bwd_ms"] = stats[k_dkv]["sdpa_bwd_ms"] = sdpa
+
+    # K3 + K4: dense joint attention, SWA cross pass, ragged + kv_valid < S
+    q, k, v = rand(96, 13360, 64, scale=qs), rand(96, 13360, 64), rand(96, 13360, 64)
+    errs = []
+    err, args = _bwd_case("K3+K4 dense", flash_attention_bwd,
+                          flash_attention_bwd_plain, (q, k, v), (13360,), gen,
+                          kv_valid=13360)
+    errs.append(err)
+    q4, k4, v4 = (x.view(2, 48, 13360, 64).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = args[5].view(2, 48, 13360, 64)
+    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 3)
+    full_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4), 3)
+    time_pair("", "flash", args, (96, 13360, 13360, 13360, 64),
+              flash_attention_bwd, flash_attention_bwd_plain,
+              sdpa=full_ms - fwd_ms)
+    del args, q4, k4, v4, do4
+    kc, vc = rand(96, 1027, 64), rand(96, 1027, 64)
+    err, args = _bwd_case("K3+K4 cross", flash_attention_bwd,
+                          flash_attention_bwd_plain, (q, kc, vc), (1027,), gen,
+                          kv_valid=1027)
+    errs.append(err)
+    time_pair("cross_", "flash", args, (96, 13360, 1027, 1027, 64),
+              flash_attention_bwd, flash_attention_bwd_plain)
+    del q, k, v, kc, vc, args
+    qr, kr, vr = rand(16, 1001, 64, scale=qs), rand(16, 1100, 64), rand(16, 1100, 64)
+    errs.append(_bwd_case("K3+K4 ragged kv_valid 1037", flash_attention_bwd,
+                          flash_attention_bwd_plain, (qr, kr, vr), (1037,),
+                          gen, kv_valid=1037)[0])
+    for key in ("K3", "K4"):
+        stats[key]["max_abs_err"] = max(e[0] for e in errs)
+        stats[key]["max_rel_err"] = max(e[1] for e in errs)
+
+    # K6 + K7: all 6 permuted head groups in one call, window = one frame
+    q, k, v = rand(96, 13104, 64, scale=qs), rand(96, 13104, 64), rand(96, 13104, 64)
+    err, args = _bwd_case("K6+K7 window 1008", sliding_window_bwd,
+                          sliding_window_bwd_plain, (q, k, v), (1008,), gen)
+    errs = [err]
+    time_pair("", "swa", args, (96, 13104, 1008, 64), sliding_window_bwd,
+              sliding_window_bwd_plain)
+    del q, k, v, args
+    qr, kr, vr = rand(8, 3001, 64, scale=qs), rand(8, 3001, 64), rand(8, 3001, 64)
+    errs.append(_bwd_case("K6+K7 ragged 3001 window 300", sliding_window_bwd,
+                          sliding_window_bwd_plain, (qr, kr, vr), (300,),
+                          gen)[0])
+    for key in ("K6", "K7"):
+        stats[key]["max_abs_err"] = max(e[0] for e in errs)
+        stats[key]["max_rel_err"] = max(e[1] for e in errs)
+    emit({"phase": "kernels_bwd", "times_ms": stats,
+          "note": "ms: one kernel alone; pair_ms: the wrapper (di + both "
+                  "kernels); plain_ms: the plain backward (both gradients); "
+                  "sdpa_bwd_ms is a yardstick, not on the path"})
+    torch.cuda.empty_cache()
+    return stats
+
+
 def _tiny_models(dtype):
     """Tiny MMDiT (6 heads x 16, one dense + one SWA layer) and a 4-block
     MagViT decoder, random float32 weights from a fixed seed, cast to dtype."""
@@ -190,6 +335,95 @@ def phase_reference():
           "bound": REF_BOUND, "ok": ok})
     if not ok:
         raise AssertionError("tiny pipeline on the card disagrees with the CPU")
+
+
+def _tiny_train_inputs():
+    """One batch and one set of draws for the tiny training checks, made on
+    the CPU from a seed (the card and the CPU get the same numbers)."""
+    gen = torch.Generator().manual_seed(13)
+    lat = torch.randn(1, 4, 3, 16, 16, generator=gen)
+    batch = {"latents": lat, "text": torch.randn(1, 5, 24, generator=gen)}
+    draws = ttrainer.draw_flow_inputs(gen, lat, ttrainer.TrainConfig().loss)
+    return batch, draws
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def _rel_err(got, want):
+    """max |got - want| over all tensors, relative to max |want|."""
+    scale = max(w.abs().max().item() for w in want.values())
+    return max((got[k].float().cpu() - w).abs().max().item()
+               for k, w in want.items()) / scale
+
+
+def phase_train_reference():
+    """A tiny SFT step and a tiny LoRA step, on the card in bf16 through the
+    kernels and on the CPU in float32 through the plain versions, from the
+    same weights and draws: loss and gradients, then one step each."""
+    batch, draws = _tiny_train_inputs()
+    tcfg = ttrainer.TrainConfig()
+    lcfg = tlora.LoRAConfig(rank=4)
+    res = {}
+    lora = tlora.lora_init(_tiny_models("float32")[0], lcfg,
+                           torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(6)
+    for f in lora.values():  # non-zero up: the down factors get gradients
+        f["up"].normal_(0.0, 0.01, generator=gen)
+    for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
+        model, _ = _tiny_models(dtype)
+        model = model.to(device)
+        b, d = _to(batch, device), ttrainer.FlowDraws(*_to(tuple(draws), device))
+        b["rope"] = build_rope(model.cfg, 128, 128, 3, device=device)
+        loss, _ = ttrainer.make_loss_fn(model, tcfg)(b, d)
+        loss.backward()
+        sft_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                     if p.grad is not None}
+        state, sft_m = ttrainer.make_train_step(model, tcfg)(
+            ttrainer.create_train_state(model, tcfg), b, draws=d)
+
+        model, _ = _tiny_models(dtype)
+        model = model.to(device)
+        init, step = tlora.make_lora_train_step(model, tcfg, lcfg)
+        lstate = init(lora={p: {k: t.clone().to(device) for k, t in f.items()}
+                            for p, f in lora.items()})
+        with tlora.attach_lora(model, lstate.params, lcfg):
+            pred, target = ttrainer.flow_prediction(model, b, d)
+            lloss = ttrainer.masked_mse_loss(pred, target)
+            lloss.backward()
+        lora_grads = {k: t.grad.float().cpu() for k, t
+                      in tlora.flatten_lora(lstate.params).items()
+                      if t.grad is not None}
+        lstate, lora_m = step(lstate, b, draws=d)
+        res[device] = dict(sft_loss=loss.item(), sft_grads=sft_grads,
+                           sft_step_loss=sft_m["loss"].item(),
+                           lora_loss=lloss.item(), lora_grads=lora_grads,
+                           lora_step_loss=lora_m["loss"].item())
+    cpu, gpu = res["cpu"], res["cuda"]
+    out = {"phase": "train_reference",
+           "what": "tiny MMDiT (6 heads x 16, dense + SWA layer), 1x4x3x16x16 "
+                   "latents: card bf16 kernels vs CPU float32 plain"}
+    for kind in ("sft", "lora"):
+        out[f"{kind}_loss_rel_err"] = abs(gpu[f"{kind}_loss"] - cpu[f"{kind}_loss"]
+                                          ) / abs(cpu[f"{kind}_loss"])
+        out[f"{kind}_grad_rel_err"] = _rel_err(gpu[f"{kind}_grads"],
+                                               cpu[f"{kind}_grads"])
+        out[f"{kind}_step_loss"] = [cpu[f"{kind}_step_loss"],
+                                    gpu[f"{kind}_step_loss"]]
+    ok = (set(gpu["sft_grads"]) == set(cpu["sft_grads"])
+          and set(gpu["lora_grads"]) == set(cpu["lora_grads"])
+          and all(out[f"{k}_loss_rel_err"] <= TRAIN_LOSS_BOUND
+                  and out[f"{k}_grad_rel_err"] <= TRAIN_GRAD_BOUND
+                  for k in ("sft", "lora")))
+    out.update(loss_bound=TRAIN_LOSS_BOUND, grad_bound=TRAIN_GRAD_BOUND, ok=ok)
+    emit(out)
+    if not ok:
+        raise AssertionError("tiny training step on the card disagrees with the CPU")
 
 
 def build_12b(seed):
@@ -267,6 +501,143 @@ def request(phase, pipe, seed, steps, counters):
     return launched
 
 
+DEVICE = torch.device("cuda")
+COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
+            "K3": flash_attention_bwd, "K4": flash_attention_bwd,
+            "K6": sliding_window_bwd, "K7": sliding_window_bwd}
+
+
+def reset_counts():
+    """The main path's run starts here. K3 and K4 share one counter (each
+    flash_attention_bwd call launches both), as do K6 and K7."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def train_batch(cfg, seed):
+    """Random latents for HxWxFRAMES, random text embeddings, RoPE."""
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lat = torch.randn(1, 16, (FRAMES - 1) // 4 + 1, H // 8, W // 8,
+                      generator=gen, device=dev)
+    txt = 0.02 * torch.randn(1, TEXT_LEN, cfg.text_embed_dim, generator=gen,
+                             device=dev)
+    return {"latents": lat, "text": txt,
+            "rope": build_rope(cfg, H, W, lat.shape[2], device=dev)}, gen
+
+
+@torch.no_grad()
+def checksum(model):
+    """Per-tensor (sum of the raw 16-bit words, sum of squares): any change
+    of a bf16 weight moves it."""
+    return [(p.view(torch.int16).sum(dtype=torch.int64).item(),
+             p.float().square().sum().item()) for p in model.parameters()]
+
+
+def train_phase(phase, step_fn, state, batch, gen, expect, steps=TRAIN_STEPS,
+                after_step=None):
+    """Run `steps` training steps from the reset counts; check finite
+    losses and the launches of every step against `expect`."""
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator=gen)
+        loss = metrics["loss"].item()  # syncs
+        times.append(time.perf_counter() - t0)
+        got = {k: n - before[k] for k, n in read_counts().items()}
+        if got != expect:
+            raise AssertionError(f"{phase}: step {i} launches {got} != {expect}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{phase}: loss {loss} at step {i}")
+        losses.append(loss)
+        if after_step is not None:
+            after_step(i, state)
+    out = {"phase": phase, "steps": steps, "losses": losses,
+           "grad_norm_last": metrics["grad_norm"].item(),
+           "s_per_step": times, "s_per_step_after_first":
+               sum(times[1:]) / max(len(times) - 1, 1),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": expect}
+    return state, out
+
+
+def phase_lora(phase, model, seed, expect):
+    """make_lora_train_step on frozen bf16 12B weights: rank 128, alpha 16,
+    TrainConfig defaults, 384x672x49f, remat on."""
+    before = checksum(model)
+    batch, gen = train_batch(model.cfg, seed)
+    lcfg = tlora.LoRAConfig(rank=128)
+    init, step = tlora.make_lora_train_step(model, ttrainer.TrainConfig(), lcfg)
+    state = init(gen)
+    n_lora = sum(t.numel() for t in tlora.flatten_lora(state.params).values())
+
+    # the last block's text-only modules never reach the loss (only video
+    # tokens are predicted): their factors get zero gradients, as in JAX
+    last = f"transformer_blocks.{model.cfg.num_layers - 1}."
+    unreached = {last + m for m in ("attn2.to_q", "attn2.to_out.0",
+                                    "txt_ff.net.0.proj", "txt_ff.net.2")}
+
+    def up_moved(i, st):
+        zero = {p for p, f in st.params.items() if not f["up"].any()}
+        if i == 0 and zero != unreached:
+            raise AssertionError(f"{phase}: up factors at 0 after step 1: "
+                                 f"{sorted(zero)[:6]}")
+
+    state, out = train_phase(phase, step, state, batch, gen, expect,
+                             after_step=up_moved)
+    frozen = checksum(model) == before
+    out.update(lora_rank=lcfg.rank, lora_alpha=lcfg.alpha,
+               lora_params=n_lora, lora_modules=len(state.params),
+               base_weights_unchanged=frozen,
+               up_nonzero_after_step_1=len(state.params) - len(unreached),
+               up_zero_unreached=sorted(unreached))
+    emit(out)
+    if not frozen:
+        raise AssertionError(f"{phase}: the frozen base weights changed")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sft(seed):
+    """make_train_step at the 12B widths, 4 layers (0 dense, 1-3 SWA),
+    random weights, AdamW with float32 masters, 384x672x49f."""
+    dev = DEVICE
+    cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=4,
+                              swa_layers=(1, 2, 3))
+    with torch.device("meta"):
+        model = EasyAnimateTransformer3D(cfg)
+    model = init_random_(model.to_empty(device=dev),
+                         torch.Generator(device=dev).manual_seed(seed))
+    tcfg = ttrainer.TrainConfig()
+    state = ttrainer.create_train_state(model, tcfg)
+    watch = ["transformer_blocks.0.attn1.to_q.weight",
+             "transformer_blocks.2.ff.net.2.weight", "proj_out.weight"]
+    start = {n: state.params[n].clone() for n in watch}
+    batch, gen = train_batch(cfg, seed)
+    state, out = train_phase(
+        "sft", ttrainer.make_train_step(model, tcfg), state, batch, gen,
+        {"K1": 8, "K2": 6, "K3": 4, "K4": 4, "K6": 3, "K7": 3})
+    moved = {n: (state.params[n] - start[n]).abs().max().item() for n in watch}
+    synced = all(torch.equal(p, state.params[n].to(p.dtype))
+                 for n, p in model.named_parameters())
+    out.update(params=sum(p.numel() for p in model.parameters()),
+               layers=cfg.num_layers, swa_layers=list(cfg.swa_layers),
+               master_max_abs_change=moved, model_matches_masters=synced)
+    emit(out)
+    if not (all(v > 0 for v in moved.values()) and synced):
+        raise AssertionError("sft: the parameters did not move or the model "
+                             "does not hold its masters")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -278,41 +649,90 @@ def main():
     phase_build()
     stats = phase_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
     torch.cuda.synchronize()
+    stats.update(phase_kernels_bwd(
+        torch.Generator(device="cuda").manual_seed(args.seed + 100)))
+    torch.cuda.synchronize()
     phase_reference()
+    torch.cuda.synchronize()
+    phase_train_reference()
     torch.cuda.synchronize()
 
     model, vae = build_12b(args.seed)
-    counters = {"K1": flash_attention_fwd, "K2": sliding_window_fwd}
-    for fn in counters.values():
-        fn.launches = 0  # the main path's run starts here
+    totals = dict.fromkeys(COUNTERS, 0)
+
+    def path_run(phase, fn, expect=None):
+        """One main-path run: counts set to 0 just before, read just after."""
+        reset_counts()
+        result = fn()
+        got = read_counts()
+        if expect is not None and got != expect:
+            raise AssertionError(f"{phase} launches {got} != {expect}")
+        for k, n in got.items():
+            totals[k] += n
+        torch.cuda.synchronize()
+        return result
+
     pipe = EasyAnimatePipeline(model, vae, "cuda")
     steps = args.steps
+    serve = dict.fromkeys(COUNTERS, 0)
     for r in range(2):
-        got = request("dense", pipe, args.seed + 1 + r, steps, counters)
-        if got != {"K1": 48 * steps, "K2": 0}:
-            raise AssertionError(f"dense launches {got}")
-        torch.cuda.synchronize()
-    pipe = EasyAnimatePipeline(swa_variant(model), vae, "cuda")
-    got = request("swa", pipe, args.seed + 3, steps, counters)
-    if got != {"K1": 48 * steps, "K2": 47 * steps}:
-        raise AssertionError(f"swa launches {got}")
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+        path_run("dense", lambda: request("dense", pipe, args.seed + 1 + r,
+                                          steps, COUNTERS),
+                 dict(serve, K1=48 * steps))
+    swa_model = swa_variant(model)
+    pipe = EasyAnimatePipeline(swa_model, vae, "cuda")
+    path_run("swa", lambda: request("swa", pipe, args.seed + 3, steps, COUNTERS),
+             dict(serve, K1=48 * steps, K2=47 * steps))
+    del pipe, vae
+    torch.cuda.empty_cache()
+
+    # training: K1 runs twice per layer per step (forward + remat recompute)
+    n = TRAIN_STEPS
+    path_run("lora_dense", lambda: phase_lora(
+        "lora_dense", model, args.seed + 4,
+        {"K1": 96, "K2": 0, "K3": 48, "K4": 48, "K6": 0, "K7": 0}))
+    path_run("lora_swa", lambda: phase_lora(
+        "lora_swa", swa_model, args.seed + 5,
+        {"K1": 96, "K2": 94, "K3": 48, "K4": 48, "K6": 47, "K7": 47}))
+    del model, swa_model
+    torch.cuda.empty_cache()
+    path_run("sft", lambda: phase_sft(args.seed + 6))
+    expect_train = {"K1": 2 * 96 * n + 8 * n, "K2": 94 * n + 6 * n,
+                    "K3": 2 * 48 * n + 4 * n, "K4": 2 * 48 * n + 4 * n,
+                    "K6": 47 * n + 3 * n, "K7": 47 * n + 3 * n}
+    expect_serve = {"K1": 3 * 48 * steps, "K2": 47 * steps}
+    want = {k: expect_train[k] + expect_serve.get(k, 0) for k in COUNTERS}
+    if totals != want or not all(totals.values()):
+        raise AssertionError(f"path launches {totals} != {want}")
+
+    def row(key, name, src, replaces):
+        st = stats[key]
+        out = {"name": f"{key} {name}", "route": "cuda",
+               "source": f"easyanimate_tpu_torch/csrc/{src}",
+               "replaces": replaces, "launches": totals[key],
+               "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+               "plain_ms": st["plain_ms"]}
+        if "max_rel_err" in st:
+            out["max_rel_err"] = st["max_rel_err"]
+        return out
 
     emit({"kernels": [
-        {"name": "K1 flash_attention_fwd", "route": "cuda",
-         "source": "easyanimate_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
-         "launches": launches["K1"], "max_abs_err": stats["K1"]["max_abs_err"],
-         "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"]},
-        {"name": "K2 sliding_window_fwd", "route": "cuda",
-         "source": "easyanimate_tpu_torch/csrc/swa_fwd.cu",
-         "replaces": "easyanimate_tpu/ops/swa.py:32",
-         "launches": launches["K2"], "max_abs_err": stats["K2"]["max_abs_err"],
-         "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"]},
-    ]})
+        row("K1", "flash_attention_fwd", "flash_fwd.cu",
+            "easyanimate_tpu/ops/flash_attention.py:92"),
+        row("K2", "sliding_window_fwd", "swa_fwd.cu",
+            "easyanimate_tpu/ops/swa.py:32"),
+        row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
+            "easyanimate_tpu/ops/flash_attention.py:228"),
+        row("K4", "flash_attention_bwd (dk, dv)", "flash_bwd.cu",
+            "easyanimate_tpu/ops/flash_attention.py:267"),
+        row("K6", "sliding_window_bwd (dq)", "swa_bwd.cu",
+            "easyanimate_tpu/ops/swa.py:393"),
+        row("K7", "sliding_window_bwd (dk, dv)", "swa_bwd.cu",
+            "easyanimate_tpu/ops/swa.py:429"),
+    ], "note": "max_abs_err: max |kernel - plain| over the cases (o for "
+               "K1/K2, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: over "
+               "max |plain|, the bound's measure. K3/K4 and K6/K7 plain_ms: "
+               "one plain pass computes both gradients"})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,8 +5,10 @@ Parity: easyanimate_tpu/models/mmdit.py (reference transformer3d.py:
 per-frame Conv2d patchify; text_proj; N dual-stream blocks with 3D RoPE on
 the video tokens; final LayerNorm; AdaLayerNorm (shift, scale from temb);
 proj_out; unpatchify. The layer stack is an nn.ModuleList run in a Python
-loop. Conditioning branches (inpaint, control, ref, clip, t5) are not
-ported.
+loop; with `remat` (the JAX field, default on) and grad enabled each block
+runs under torch.utils.checkpoint, so the backward recomputes it from its
+inputs instead of keeping its activations. Conditioning branches (inpaint,
+control, ref, clip, t5) are not ported.
 """
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
@@ -14,6 +16,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.norms import fp32_layer_norm
 from .blocks import MMDiTBlock
@@ -36,6 +39,8 @@ class MMDiTConfig:
     after_norm: bool = False
     norm_eps: float = 1e-5
     qk_norm: bool = True
+    # recompute each block in the backward (easyanimate_tpu mmdit.py:166-170)
+    remat: bool = True
     dtype: str = "bfloat16"
     # RoPE base grid (pipeline_easyanimate.py:1002-1006)
     rope_base_height: int = 480
@@ -115,8 +120,13 @@ class EasyAnimateTransformer3D(nn.Module):
     def backbone(self, vid, txt, temb, rope=None,
                  grid_size: Optional[Tuple[int, int, int]] = None):
         """Block stack + final norms + AdaLN-out -> video tokens."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            vid, txt = block(vid, txt, temb, rope, grid_size)
+            if remat:
+                vid, txt = checkpoint(block, vid, txt, temb, rope, grid_size,
+                                      use_reentrant=False)
+            else:
+                vid, txt = block(vid, txt, temb, rope, grid_size)
         # the reference norms concat(text, video) and keeps the video slice;
         # LayerNorm is per token, so norming the video tokens alone is equal
         vid = fp32_layer_norm(vid, self.norm_final.weight,

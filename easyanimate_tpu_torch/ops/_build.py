@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources are compiled with nvcc for sm_90a into one shared library with a
-plain C interface, which is loaded with ctypes. The library lands in
-`build/kernels/` at the repository root, named by a hash of the sources and
-flags, so it is rebuilt only when a source changes. There is no fallback: a
-missing nvcc or a failed build raises with the compiler's output.
+Each source is compiled with nvcc for sm_90a into an object file, all of
+them at once in parallel, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ctypes. The library
+lands in `build/kernels/` at the repository root, named by a hash of the
+sources and flags, so it is rebuilt only when a source changes. There is no
+fallback: a missing nvcc or a failed build raises with the compiler's
+output.
 """
 import ctypes
 import functools
@@ -20,8 +22,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64)
 
 _P = ctypes.c_void_p
@@ -31,6 +33,14 @@ _SIGNATURES = {
     "ea_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, bh, s, window, head_dim, stream
     "ea_swa_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, do, lse, di, dq, bh, sq, skv, kv_valid, head_dim, stream
+    "ea_flash_bwd_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # q, k, v, do, lse, di, dk, dv, bh, sq, skv, kv_valid, head_dim, stream
+    "ea_flash_bwd_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # q, k, v, do, lse, di, dq, bh, s, window, head_dim, stream
+    "ea_swa_bwd_dq_bf16": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # q, k, v, do, lse, di, dk, dv, bh, s, window, head_dim, stream
+    "ea_swa_bwd_dkv_bf16": (_P,) * 8 + (_I,) * 4 + (_P,),
 }
 
 
@@ -67,16 +77,27 @@ def build_library() -> Path:
             f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels in {CSRC} cannot be "
             "built, and there is no fallback")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(cu, objs)]
+        failed = []
+        for src, proc in zip(cu, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        so = os.path.join(tmp, lib.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(so, lib)  # atomic: a concurrent loader never sees half a file
     return lib
 
 
@@ -105,6 +126,19 @@ def check_kernel_inputs(*tensors: torch.Tensor) -> None:
                              f"[bh, S, d] with d in {HEAD_DIMS}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("kernel input must be contiguous and 16-byte aligned")
+
+
+def check_row_stats(x: torch.Tensor, like: torch.Tensor) -> None:
+    """A per-row float32 statistic (the base-2 lse, or di) for the rows of
+    `like` [bh, S, d]: contiguous [bh, S, 1] on the same device; raise
+    otherwise."""
+    bh, s, _ = like.shape
+    if x.device != like.device or x.dtype != torch.float32:
+        raise TypeError(f"row statistic {x.dtype} on {x.device}, expected "
+                        f"float32 on {like.device}")
+    if tuple(x.shape) != (bh, s, 1) or not x.is_contiguous():
+        raise ValueError(f"row statistic shape {tuple(x.shape)}, expected a "
+                         f"contiguous {(bh, s, 1)}")
 
 
 def launch(name: str, device: torch.device, *args) -> None:

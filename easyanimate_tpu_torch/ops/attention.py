@@ -1,5 +1,6 @@
 """Attention entry points over [B, H, S, D]: the sm_scale fold and dispatch
-to K1, and the MMDiT joint text+video composition.
+to K1 (K3 + K4 in the backward), and the MMDiT joint text+video
+composition.
 
 Reference behaviour (easyanimate/models/processor.py:218-312): concat text
 first, RoPE on the video slice of q and k, one attention over the concat.
@@ -11,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import LOG2E, flash_attention_fwd, flash_attention_plain
+from .flash_attention import LOG2E, FlashAttention, flash_attention_plain
 from .rope import apply_rotary_emb
 
 
@@ -27,10 +28,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               impl: str = "kernel") -> torch.Tensor:
     """Softmax attention [B, H, Sq, D] x [B, H, Skv, D] -> [B, H, Sq, D].
 
-    impl 'kernel' goes through flash_attention_fwd (K1 on a CUDA tensor,
-    its plain version on a CPU tensor); 'plain' always takes the plain
-    q-chunked math (the VAE mid-block attention, which the JAX package runs
-    as XLA too)."""
+    impl 'kernel' goes through the FlashAttention autograd Function (K1,
+    and K3 + K4 in the backward, on a CUDA tensor; their plain versions on a
+    CPU tensor); 'plain' always takes the plain q-chunked math, which
+    autograd differentiates as it is (the VAE mid-block attention, which the
+    JAX package runs as XLA too). The sm_scale * log2(e) fold stays outside
+    the Function, as in JAX, so autograd applies its chain rule to dq."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if sm_scale is None:
@@ -39,7 +42,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.reshape(b * h, skv, d).contiguous()
     vf = v.reshape(b * h, skv, d).contiguous()
     if impl == "kernel":
-        o, _ = flash_attention_fwd(qf, kf, vf, kv_valid)
+        o = FlashAttention.apply(qf, kf, vf, kv_valid)
     elif impl == "plain":
         o, _ = flash_attention_plain(qf, kf, vf, kv_valid)
     else:

@@ -12,7 +12,8 @@ EasyAnimateSWAttnProcessor2_0, processor.py:320-459):
   - video out = local + cross; text out = 2 x cross (the reference adds
     the cross output to the concat -- kept verbatim).
 This is the unfused, single-device path; the fused local+global kernel and
-the head-parallel form are not ported.
+the head-parallel form are not ported. The banded pass is differentiable:
+its backward is K6 (dq) and K7 (dk, dv), csrc/swa_bwd.cu.
 """
 from typing import Optional, Tuple
 
@@ -20,8 +21,10 @@ import torch
 
 from . import _build
 from .attention import attention, prescale
+from .flash_attention import LN2, row_dot
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 _AXIS_ORDERS = (
     None,            # group 0: native (f, h, w)
@@ -93,16 +96,106 @@ def sliding_window_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 sliding_window_fwd.launches = 0
 
 
+def sliding_window_bwd_plain(qf: torch.Tensor, kf: torch.Tensor,
+                             vf: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, window: int,
+                             block_q: int = 512) -> Triple:
+    """K6 + K7's plain version: per q block, p = exp2(q k^T - lse2)
+    recomputed in float32 over the kv span the block can see (as
+    sliding_window_plain), zero outside |i - j| <= window. O(S * window)
+    memory. Returns (dq, dk, dv) with respect to the pre-scaled q."""
+    n = qf.shape[1]
+    bq = min(block_q, n)
+    span = min(n, bq + 2 * window)
+    di = row_dot(o, do)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=kf.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=vf.device)
+    for i0 in range(0, n, bq):
+        rows = min(bq, n - i0)
+        s0 = min(max(i0 - window, 0), n - span)
+        kk = kf[:, s0:s0 + span].float()
+        vv = vf[:, s0:s0 + span].float()
+        q32 = qf[:, i0:i0 + rows].float()
+        do32 = do[:, i0:i0 + rows].float()
+        qi = torch.arange(i0, i0 + rows, device=qf.device)
+        kj = torch.arange(s0, s0 + span, device=qf.device)
+        band = (qi[:, None] - kj[None, :]).abs() <= window
+        p = torch.where(band, torch.exp2(torch.matmul(q32, kk.transpose(1, 2))
+                                         - lse[:, i0:i0 + rows]), 0.0)
+        ds = p * (torch.matmul(do32, vv.transpose(1, 2)) - di[:, i0:i0 + rows])
+        dq[:, i0:i0 + rows] = (torch.matmul(ds, kk) * LN2).to(dq.dtype)
+        dk[:, s0:s0 + span] += torch.matmul(ds.transpose(1, 2), q32)
+        dv[:, s0:s0 + span] += torch.matmul(p.transpose(1, 2), do32)
+    return dq, (dk * LN2).to(kf.dtype), dv.to(vf.dtype)
+
+
+def sliding_window_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                       window: int) -> Triple:
+    """Gradients (dq, dk, dv) of sliding_window_fwd's o from its residuals
+    and the cotangent do [bh, S, d].
+
+    A CUDA tensor launches K6 (dq) then K7 (dk, dv), or raises (contiguous
+    bf16 inputs, float32 lse); a CPU tensor takes sliding_window_bwd_plain.
+    `sliding_window_bwd.launches` counts calls that launched the pair."""
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if qf.device.type == "cpu":
+        return sliding_window_bwd_plain(qf, kf, vf, o, lse, do, window)
+    _build.check_kernel_inputs(qf, kf, vf, o, do)
+    _build.check_row_stats(lse, qf)
+    if not qf.shape == kf.shape == vf.shape == o.shape == do.shape:
+        raise ValueError(f"shapes q {tuple(qf.shape)} k {tuple(kf.shape)} "
+                         f"v {tuple(vf.shape)} o {tuple(o.shape)} "
+                         f"do {tuple(do.shape)}")
+    bh, n, d = qf.shape
+    di = row_dot(o, do)
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
+    ptrs = [x.data_ptr() for x in (qf, kf, vf, do, lse, di)]
+    _build.launch("ea_swa_bwd_dq_bf16", qf.device, *ptrs, dq.data_ptr(), bh,
+                  n, window, d)
+    _build.launch("ea_swa_bwd_dkv_bf16", qf.device, *ptrs, dk.data_ptr(),
+                  dv.data_ptr(), bh, n, window, d)
+    sliding_window_bwd.launches += 1
+    return dq, dk, dv
+
+
+sliding_window_bwd.launches = 0
+
+
+class SlidingWindowAttention(torch.autograd.Function):
+    """Banded attention over pre-scaled q, differentiable: forward
+    sliding_window_fwd (K2), backward sliding_window_bwd (K6 + K7) -- the
+    port of the JAX custom_vjp at easyanimate_tpu/ops/swa.py:566-592."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, window):
+        o, lse = sliding_window_fwd(qf, kf, vf, window)
+        ctx.save_for_backward(qf, kf, vf, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qf, kf, vf, o, lse = ctx.saved_tensors
+        dq, dk, dv = sliding_window_bwd(qf, kf, vf, o, lse, do.contiguous(),
+                                        ctx.window)
+        return dq, dk, dv, None
+
+
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, window: int,
                              sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Bidirectional +-window attention over [B, H, S, D]."""
+    """Bidirectional +-window attention over [B, H, S, D], differentiable
+    (the sm_scale fold stays outside the autograd Function, as in JAX)."""
     b, h, s, d = q.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
     qf = prescale(q, sm_scale).reshape(b * h, s, d).contiguous()
-    o, _ = sliding_window_fwd(qf, k.reshape(b * h, s, d).contiguous(),
-                              v.reshape(b * h, s, d).contiguous(), window)
+    o = SlidingWindowAttention.apply(
+        qf, k.reshape(b * h, s, d).contiguous(),
+        v.reshape(b * h, s, d).contiguous(), window)
     return o.reshape(b, h, s, d)
 
 

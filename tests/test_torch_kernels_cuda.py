@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card. Every test here needs a CUDA device and nvcc, and
+"""The port's hand-written CUDA kernels (forward K1/K2, backward K3/K4 and
+K6/K7) against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
 skips without one; the CPU tests (test_torch_ops.py) hold the plain versions
 against the JAX package.
 
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from easyanimate_tpu_torch.ops import attention as tattn
 from easyanimate_tpu_torch.ops import flash_attention as tfa
 from easyanimate_tpu_torch.ops import swa as tswa
 
@@ -68,3 +69,94 @@ def test_kernels_reject_unsupported_inputs_on_card(cuda_device):
     y = torch.zeros(2, 8, 64, dtype=torch.float32, device=cuda_device)
     with pytest.raises(TypeError):
         tswa.sliding_window_fwd(y, y, y, 4)
+
+
+def _grad_close(got, want, bound=2e-2):
+    """max |kernel - plain| <= bound * max |plain|: the kernels round p and
+    ds to bf16 before the products (as the TPU kernels do), the plain
+    version stays in float32."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= bound * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,kv_valid,d", [
+    (256, 256, 256, 64), (333, 1027, 1000, 64), (1001, 1100, 1037, 64),
+    (100, 70, 70, 32), (65, 129, 100, 16)])
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, sq, skv,
+                                               kv_valid, d):
+    """K3 + K4 against the plain backward, ragged and with kv_valid < S:
+    dk and dv are exactly 0 past kv_valid."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(4, n, d, generator=g, device=cuda_device
+                           ).to(torch.bfloat16) for n in (sq, skv, skv))
+    q = (q.float() * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
+    do = torch.randn(o.shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    before = tfa.flash_attention_bwd.launches
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, kv_valid)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 1
+    for got, want in zip((dq, dk, dv),
+                         tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       kv_valid)):
+        _grad_close(got, want)
+    assert not dk[:, kv_valid:].any() and not dv[:, kv_valid:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,window,d", [(1000, 100, 64), (3001, 300, 64),
+                                        (777, 63, 32), (300, 500, 16)])
+def test_swa_bwd_kernels_match_plain_on_card(cuda_device, s, window, d):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(4, s, d, generator=g, device=cuda_device
+                               ).to(torch.bfloat16) for _ in range(4))
+    q = (q.float() * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    o, lse = tswa.sliding_window_fwd(q, k, v, window)
+    before = tswa.sliding_window_bwd.launches
+    grads = tswa.sliding_window_bwd(q, k, v, o, lse, do, window)
+    torch.cuda.synchronize()
+    assert tswa.sliding_window_bwd.launches == before + 1
+    for got, want in zip(grads, tswa.sliding_window_bwd_plain(
+            q, k, v, o, lse, do, window)):
+        _grad_close(got, want)
+
+
+@pytest.mark.cuda
+def test_attention_grads_on_card_match_cpu(cuda_device):
+    """The repaired fault: backpropagating through attention and
+    sliding_window_attention on the card reaches q, k and v (and so the
+    to_q/to_k/to_v weights), and agrees with the CPU plain path (bf16
+    weights and activations against float32: bound 5e-2 of the largest
+    gradient). The head merge o.transpose(1, 2) of the blocks hands the
+    backward a strided cotangent, made contiguous before the launch."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(1, 3, 300, 64, generator=g)
+    w = torch.randn(3, 64, 64, generator=g) * 0.125
+    grads = {}
+    for dev, dtype in (("cpu", torch.float32), (cuda_device, torch.bfloat16)):
+        ww = w.to(dev, dtype).clone().requires_grad_(True)
+        q, k, v = (torch.einsum("bhsd,de->bhse", x.to(dev, dtype), ww[i])
+                   for i in range(3))
+        o1 = tattn.attention(q, k, v, kv_valid=290)
+        o2 = tswa.sliding_window_attention(q, k, v, window=40)
+        merged = o1.transpose(1, 2).flatten(2)[:, :100]
+        (merged.float().square().sum() + o2.float().square().sum()).backward()
+        grads[str(dev)] = ww.grad.float().cpu()
+    want = grads["cpu"]
+    err = (grads[str(cuda_device)] - want).abs().max().item()
+    assert want.abs().max() > 0 and err <= 5e-2 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_reject_bad_inputs_on_card(cuda_device):
+    x = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros(2, 8, 1, device=cuda_device)
+    with pytest.raises(TypeError):  # float32 q
+        tfa.flash_attention_bwd(x.float(), x, x, x, lse, x)
+    with pytest.raises(TypeError):  # bf16 lse
+        tswa.sliding_window_bwd(x, x, x, x, lse.bfloat16(), x, 4)
+    strided = torch.zeros(2, 16, 64, dtype=torch.bfloat16,
+                          device=cuda_device)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_bwd(x, x, x, x, lse, strided)
