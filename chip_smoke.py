@@ -5,17 +5,23 @@
 Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc
-  kernels    K1 (dense flash forward) and K2 (sliding-window forward)
-             against their plain PyTorch versions at the flagship shapes,
-             with kernel / plain / SDPA (yardstick only) times
+  kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
+             (fused sliding-window + global forward) against their plain
+             PyTorch versions at the flagship shapes, with kernel / plain /
+             library (yardstick only) times and each kernel's bound
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
              against their plain versions at the training step's shapes
-  reference  a tiny T2V run on the card (bf16, kernels) against the same
-             weights on the CPU (float32, plain versions)
+  reference  a tiny T2V and a tiny I2V run on the card (bf16, kernels)
+             against the same weights on the CPU (float32, plain versions)
   train_reference  a tiny LoRA step and a tiny SFT step, the same way
   dense      two requests to V5.1-12B (random bf16 weights, full depth and
-             width) + the full MagViT decoder at 384x672x49f, CFG 6.0
+             width) + the full MagViT VAE at 384x672x49f, CFG 6.0
   swa        one request with swa_layers = 1..47 on the same weights
+  i2v        one image-to-video request to V5.1-12B-InP (the same weights,
+             a random 33-channel proj): VAE encode of the start frame,
+             denoise, decode
+  swa_fused  swa_attention_streams at the 12B's per-layer shapes, forward
+             and backward, with fuse_cross=True (K5) against False
   lora_dense 3 LoRA steps (rank 128) on the same 12B at 384x672x49f
   lora_swa   3 LoRA steps on its swa_layers = 1..47 variant
   sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
@@ -44,11 +50,14 @@ from easyanimate_tpu_torch.ops.flash_attention import (
     flash_attention_plain, row_dot)
 from easyanimate_tpu_torch.ops.swa import (
     sliding_window_bwd, sliding_window_bwd_plain, sliding_window_fwd,
-    sliding_window_plain)
-from easyanimate_tpu_torch.pipeline import EasyAnimatePipeline
+    sliding_window_plain, swa_attention_streams, swa_local_global_fwd,
+    swa_local_global_plain)
+from easyanimate_tpu_torch.pipeline import (EasyAnimateInpaintPipeline,
+                                            EasyAnimatePipeline)
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.training import trainer as ttrainer
+from easyanimate_tpu_torch.utils.media import get_image_to_video_latent
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
 O_BOUND = 2e-2    # bf16 o (8-bit mantissa) and the kernel's bf16 p before p @ v
@@ -68,6 +77,17 @@ REF_BOUND = 0.25
 TRAIN_LOSS_BOUND = 1e-2
 TRAIN_GRAD_BOUND = 5e-2
 TRAIN_STEPS = 3
+# swa_fused: fused vs unfused streams, max |difference| over max |unfused|,
+# outputs and gradients: the unfused path rounds the local and the cross
+# output to bf16 before their sum, the fused one rounds the float32 sum once
+# (a few bf16 ulps, 2^-8 each), and the dq halves sum in another order
+FUSED_BOUND = 2e-2
+# the bound's peak rates, NVIDIA H100 SXM data sheet (dense, 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# flagship shapes: dense joint attention, the 6-direction band over the
+# video tokens (window = one frame), the 256 + 771 global rows
+BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 
 
 def emit(obj):
@@ -85,6 +105,68 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def band_columns(n, window):
+    """Visible (i, j) pairs of the band |i - j| <= window over n tokens."""
+    i = torch.arange(n, dtype=torch.int64)
+    return int(((i + window).clamp(max=n - 1) - (i - window).clamp(min=0)
+                + 1).sum())
+
+
+def bound(flops, nbytes):
+    """(least ms on the card, what bounds it): operations over the bf16
+    peak against bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_bounds():
+    """Each kernel's bound at the shape its `ms` is timed at: each input
+    read once, each output written once (bf16 tensors, float32 row stats);
+    products of 2 * rows * cols * d operations, cols = the visible ones."""
+    bh, d = BH, HEAD_DIM
+    mat = lambda n: 2 * bh * n * d              # one bf16 [bh, n, d]
+    stat = lambda n: 4 * bh * n                 # one float32 [bh, n, 1]
+    dense = 2 * bh * S_DENSE * S_DENSE * d      # one dense product
+    band = 2 * bh * band_columns(S_VID, WINDOW) * d
+    glob = 2 * bh * S_VID * S_GLOBAL * d
+    ins_dense, ins_band = 4 * mat(S_DENSE) + 2 * stat(S_DENSE), \
+        4 * mat(S_VID) + 2 * stat(S_VID)       # q, k, v, do, lse, di
+    return {
+        "K1": bound(2 * dense, 4 * mat(S_DENSE) + stat(S_DENSE)),
+        "K2": bound(2 * band, 4 * mat(S_VID) + stat(S_VID)),
+        "K3": bound(3 * dense, ins_dense + mat(S_DENSE)),
+        "K4": bound(4 * dense, ins_dense + 2 * mat(S_DENSE)),
+        "K5": bound(2 * band + 2 * glob,
+                    4 * mat(S_VID) + 2 * mat(S_GLOBAL)),
+        "K6": bound(3 * band, ins_band + mat(S_VID)),
+        "K7": bound(4 * band, ins_band + 2 * mat(S_VID)),
+    }
+
+
+def band_mask(n, window, device):
+    i = torch.arange(n, device=device)
+    return (i[:, None] - i[None, :]).abs() <= window
+
+
+def library_ms(fn, iters=3):
+    """ms of a PyTorch call used as a yardstick (never by the port), or
+    None and the library's reason when it refuses the call."""
+    try:
+        return cuda_ms(fn, iters), None
+    except (RuntimeError, torch.OutOfMemoryError) as err:
+        torch.cuda.empty_cache()
+        return None, str(err).splitlines()[0][:200]
+
+
+def sdpa_band(q4, k4, v4, mask):
+    """SDPA with a boolean band mask on its memory-efficient backend (the
+    math backend would materialise the [b, h, S, S] scores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
 
 def phase_device():
@@ -127,6 +209,21 @@ def _compare(name, fwd, plain, args):
     return err_o
 
 
+def _compare_fused(name, args):
+    """K5 against its plain version on the same inputs (no lse: K5 has
+    none)."""
+    o = swa_local_global_fwd(*args)
+    torch.cuda.synchronize()
+    err = (o.float() - swa_local_global_plain(*args).float()).abs().max().item()
+    ok = err <= O_BOUND
+    emit({"phase": "kernels", "case": name,
+          "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
+          "max_abs_err_o": err, "bound_o": O_BOUND, "ok": ok})
+    if not ok:
+        raise AssertionError(f"kernel {name} disagrees with its plain version")
+    return err
+
+
 def phase_kernels(gen):
     dev = torch.device("cuda")
 
@@ -165,13 +262,43 @@ def phase_kernels(gen):
     stats["K2"] = {
         "ms": cuda_ms(lambda: sliding_window_fwd(q, k, v, 1008), 5),
         "plain_ms": cuda_ms(lambda: sliding_window_plain(q, k, v, 1008), 2)}
-    del q, k, v
+    q4, k4, v4 = (x.view(2, 48, S_VID, 64) for x in (q, k, v))
+    mask = band_mask(S_VID, WINDOW, dev)
+    stats["K2"]["library_ms"], stats["K2"]["library_error"] = library_ms(
+        lambda: sdpa_band(q4, k4, v4, mask))
+
+    # K5: the same band plus the global rows, against the pair it replaces
+    # (K2 + the K1 cross pass of the video queries) and the two SDPA calls
+    # that compute the same (no single library call does)
+    gk, gv = rand(96, S_GLOBAL, 64), rand(96, S_GLOBAL, 64)
+    errs5 = [_compare_fused("K5 window 1008 global 1027",
+                            (q, k, v, gk, gv, WINDOW))]
+    stats["K5"] = {
+        "ms": cuda_ms(lambda: swa_local_global_fwd(q, k, v, gk, gv, WINDOW), 5),
+        "plain_ms": cuda_ms(
+            lambda: swa_local_global_plain(q, k, v, gk, gv, WINDOW), 2),
+        "unfused_pair_ms": cuda_ms(
+            lambda: (sliding_window_fwd(q, k, v, WINDOW),
+                     flash_attention_fwd(q, gk, gv)), 5),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes K5"}
+    g4, h4 = (x.view(2, 48, S_GLOBAL, 64) for x in (gk, gv))
+    cross_ms, _ = library_ms(lambda: F.scaled_dot_product_attention(q4, g4, h4))
+    if stats["K2"]["library_ms"] is not None and cross_ms is not None:
+        stats["K5"]["sdpa_band_plus_cross_ms"] = (stats["K2"]["library_ms"]
+                                                  + cross_ms)
+    del q, k, v, q4, k4, v4, gk, gv, g4, h4, mask
     qr, kr, vr = rand(8, 3001, 64, scale=qs), rand(8, 3001, 64), rand(8, 3001, 64)
     errs.append(_compare("K2 ragged 3001 window 300", sliding_window_fwd,
                          sliding_window_plain, (qr, kr, vr, 300)))
     stats["K2"]["max_abs_err"] = max(errs)
+    gr, hr = rand(8, 300, 64), rand(8, 300, 64)
+    errs5.append(_compare_fused("K5 ragged 3001 window 300 global 300",
+                                (qr, kr, vr, gr, hr, 300)))
+    stats["K5"]["max_abs_err"] = max(errs5)
     emit({"phase": "kernels", "times_ms": stats,
-          "note": "sdpa_ms is a yardstick, not on the path"})
+          "note": "sdpa_ms, library_ms and sdpa_band_plus_cross_ms are "
+                  "yardsticks, not on the path"})
     torch.cuda.empty_cache()
     return stats
 
@@ -277,7 +404,20 @@ def phase_kernels_bwd(gen):
     errs = [err]
     time_pair("", "swa", args, (96, 13104, 1008, 64), sliding_window_bwd,
               sliding_window_bwd_plain)
-    del q, k, v, args
+    # yardstick: one SDPA backward with the boolean band mask computes dq,
+    # dk and dv together
+    q4, k4, v4 = (x.view(2, 48, S_VID, 64).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = args[5].view(2, 48, S_VID, 64)
+    mask = band_mask(S_VID, WINDOW, dev)
+    fwd_ms, err_f = library_ms(lambda: sdpa_band(q4, k4, v4, mask))
+    full_ms, err_b = library_ms(lambda: torch.autograd.grad(
+        sdpa_band(q4, k4, v4, mask), (q4, k4, v4), do4))
+    for key in ("K6", "K7"):
+        stats[key]["library_bwd_ms"] = (full_ms - fwd_ms if None not in
+                                        (fwd_ms, full_ms) else None)
+        stats[key]["library_error"] = err_f or err_b
+    del q, k, v, args, q4, k4, v4, do4, mask
     qr, kr, vr = rand(8, 3001, 64, scale=qs), rand(8, 3001, 64), rand(8, 3001, 64)
     errs.append(_bwd_case("K6+K7 ragged 3001 window 300", sliding_window_bwd,
                           sliding_window_bwd_plain, (qr, kr, vr), (300,),
@@ -293,48 +433,64 @@ def phase_kernels_bwd(gen):
     return stats
 
 
-def _tiny_models(dtype):
-    """Tiny MMDiT (6 heads x 16, one dense + one SWA layer) and a 4-block
-    MagViT decoder, random float32 weights from a fixed seed, cast to dtype."""
+def _tiny_models(dtype, inpaint=False):
+    """Tiny MMDiT (6 heads x 16, one dense + one SWA layer; with inpaint,
+    4 + 1 + 4 input channels) and a 4-block MagViT VAE, random float32
+    weights from a fixed seed, cast to dtype."""
     cfg = dataclasses.replace(PRESETS["tiny"], num_attention_heads=6,
-                              swa_layers=(1,))
+                              swa_layers=(1,),
+                              in_channels=9 if inpaint else 4)
     vae_cfg = MagvitVAEConfig(latent_channels=4,
                               block_out_channels=(32, 64, 128, 128),
                               norm_num_groups=8, decode_chunk_frames=4)
     gen = torch.Generator().manual_seed(7)
-    models = (init_random_(EasyAnimateTransformer3D(cfg), gen),
-              init_random_(AutoencoderKLMagvit(vae_cfg), gen))
+    models = (init_random_(EasyAnimateTransformer3D(cfg, device="cpu"), gen),
+              init_random_(AutoencoderKLMagvit(vae_cfg, device="cpu"), gen))
     if dtype == "float32":
         return models
-    cast = (EasyAnimateTransformer3D(dataclasses.replace(cfg, dtype=dtype)),
-            AutoencoderKLMagvit(dataclasses.replace(vae_cfg, dtype=dtype)))
+    cast = (EasyAnimateTransformer3D(dataclasses.replace(cfg, dtype=dtype),
+                                     device="cpu"),
+            AutoencoderKLMagvit(dataclasses.replace(vae_cfg, dtype=dtype),
+                                device="cpu"))
     for dst, src in zip(cast, models):
         dst.load_state_dict(src.state_dict())
     return cast
 
 
-def phase_reference():
+def phase_reference(kind):
+    """A tiny request on the card (bf16, kernels) and on the CPU (float32,
+    plain versions) from the same weights, noise and prompt: T2V, or I2V
+    from a random start image through get_image_to_video_latent."""
     gen = torch.Generator().manual_seed(11)
     lat0 = torch.randn(1, 4, 2, 8, 8, generator=gen)
     pos = torch.randn(1, 6, 24, generator=gen)
     kw = dict(height=64, width=64, video_length=5, num_inference_steps=3,
               guidance_scale=6.0, latents=lat0, output_type="latent")
+    inpaint = kind == "i2v"
+    if inpaint:
+        image = torch.randint(0, 256, (64, 64, 3), generator=gen,
+                              dtype=torch.uint8).numpy()
+        video, mask = get_image_to_video_latent(image, None, 5, (64, 64))
+        # the augmentation's draws would differ between the two devices
+        kw.update(video=video, mask_video=mask, noise_aug_strength=0.0)
+    pipe_cls = EasyAnimateInpaintPipeline if inpaint else EasyAnimatePipeline
     outs = {}
     for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
-        model, vae = (m.to(device) for m in _tiny_models(dtype))
-        pipe = EasyAnimatePipeline(model, vae, device)
+        model, vae = (m.to(device) for m in _tiny_models(dtype, inpaint))
+        pipe = pipe_cls(model, vae, device)
         outs[device] = pipe(pos, torch.zeros_like(pos), **kw).float().cpu()
     video = pipe.decode_latents(outs["cuda"].to("cuda"), to_uint8=True)
     diff = (outs["cuda"] - outs["cpu"]).abs()
     err = diff.max().item()
     ok = (err <= REF_BOUND and video.shape == (1, 3, 5, 64, 64)
           and video.dtype.name == "uint8")
-    emit({"phase": "reference", "what": "tiny T2V 64x64x5f, 3 steps: card "
-          "bf16 kernels vs CPU float32 plain", "max_abs_err_latents": err,
-          "mean_abs_err_latents": diff.mean().item(),
+    emit({"phase": "reference", "what": f"tiny {kind.upper()} 64x64x5f, 3 "
+          "steps: card bf16 kernels vs CPU float32 plain",
+          "max_abs_err_latents": err, "mean_abs_err_latents": diff.mean().item(),
           "bound": REF_BOUND, "ok": ok})
     if not ok:
-        raise AssertionError("tiny pipeline on the card disagrees with the CPU")
+        raise AssertionError(f"tiny {kind} pipeline on the card disagrees "
+                             "with the CPU")
 
 
 def _tiny_train_inputs():
@@ -430,10 +586,10 @@ def build_12b(seed):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
-    with torch.device("meta"):
-        model = EasyAnimateTransformer3D(PRESETS["v5.1-12b"])
-        vae = AutoencoderKLMagvit(MagvitVAEConfig(dtype="bfloat16",
-                                                  decode_chunk_frames=4))
+    model = EasyAnimateTransformer3D(PRESETS["v5.1-12b"], device="meta")
+    vae = AutoencoderKLMagvit(MagvitVAEConfig(dtype="bfloat16",
+                                              decode_chunk_frames=4),
+                              device="meta")
     model = init_random_(model.to_empty(device=dev), gen)
     vae = init_random_(vae.to_empty(device=dev), gen)
     torch.cuda.synchronize()
@@ -448,15 +604,16 @@ def build_12b(seed):
 def swa_variant(model):
     """The same weights with swa_layers = 1..47 (SWA adds no parameters)."""
     cfg = dataclasses.replace(model.cfg, swa_layers=tuple(range(1, 48)))
-    with torch.device("meta"):
-        swa = EasyAnimateTransformer3D(cfg)
+    swa = EasyAnimateTransformer3D(cfg, device="meta")
     swa.load_state_dict(model.state_dict(), assign=True)
     return swa
 
 
-def request(phase, pipe, seed, steps, counters):
-    """One T2V request through EasyAnimatePipeline.__call__; checks the
-    output, the per-step latents and the kernels' launch counts."""
+def request(phase, pipe, seed, steps, counters, **inputs):
+    """One request through the pipeline's __call__ (T2V, or I2V with the
+    `inputs`); checks the output, the per-step latents and the kernels'
+    launch counts. A pre-hook stamps the transformer's first call, so the
+    time before it (the VAE encode of an I2V request) stands apart."""
     dev = pipe.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     pos = 0.02 * torch.randn(1, TEXT_LEN, pipe.transformer.cfg.text_embed_dim,
@@ -465,7 +622,12 @@ def request(phase, pipe, seed, steps, counters):
     lat0 = torch.randn(pipe.latent_shape(1, FRAMES, H, W), generator=gen,
                        device=dev)
     before = {k: f.launches for k, f in counters.items()}
-    stamps, prev = [], [lat0.to(pipe.transformer.cfg.torch_dtype)]
+    stamps, prev, first_call = [], [lat0.to(pipe.transformer.cfg.torch_dtype)], []
+
+    def stamp_first_call(module, args):
+        if not first_call:
+            torch.cuda.synchronize()
+            first_call.append(time.perf_counter())
 
     def check_step(i, lat):
         if not bool(torch.isfinite(lat).all()):  # syncs: stamps are real
@@ -475,19 +637,25 @@ def request(phase, pipe, seed, steps, counters):
         prev[0] = lat.clone()
         stamps.append(time.perf_counter())
 
+    hook = pipe.transformer.register_forward_pre_hook(stamp_first_call)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    video = pipe(pos, neg, height=H, width=W, video_length=FRAMES,
-                 num_inference_steps=steps, guidance_scale=6.0, latents=lat0,
-                 output_type="uint8", callback=check_step)
-    torch.cuda.synchronize()
+    try:
+        video = pipe(pos, neg, height=H, width=W, video_length=FRAMES,
+                     num_inference_steps=steps, guidance_scale=6.0,
+                     latents=lat0, generator=gen, output_type="uint8",
+                     callback=check_step, **inputs)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
     t_end = time.perf_counter()
     launched = {k: f.launches - before[k] for k, f in counters.items()}
-    step_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    step_s = [b - a for a, b in zip(first_call + stamps, stamps)]
     out = {"phase": phase, "seed": seed, "steps": steps,
            "video_shape": list(video.shape), "video_dtype": str(video.dtype),
            "video_mean": float(video.mean()),
+           "before_denoise_s": first_call[0] - t0,
            "denoise_s_per_step": sum(step_s) / steps,
            "denoise_s_per_step_after_first": (
                sum(step_s[1:]) / (steps - 1) if steps > 1 else None),
@@ -495,15 +663,96 @@ def request(phase, pipe, seed, steps, counters):
            "request_s": t_end - t0,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launched}
+    if "video" in inputs:
+        out["vae_encode_s"] = out["before_denoise_s"]
     emit(out)
     if video.shape != (1, 3, FRAMES, H, W) or video.dtype.name != "uint8":
         raise AssertionError(f"{phase}: video {video.shape} {video.dtype}")
     return launched
 
 
+def inpaint_variant(model, seed):
+    """V5.1-12B-InP on the dense 12B's tensors (load_state_dict with
+    assign=True shares them; a second 23.6 GB copy would not fit beside the
+    activations) and a random proj.weight with 16 + 1 + 16 input channels."""
+    inpaint = EasyAnimateTransformer3D(PRESETS["v5.1-12b-inpaint"],
+                                       device="meta")
+    shape = inpaint.proj.weight.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sd = dict(model.state_dict())
+    sd["proj.weight"] = (torch.randn(shape, generator=gen, device=DEVICE)
+                         * shape[1:].numel() ** -0.5).to(torch.bfloat16)
+    inpaint.load_state_dict(sd, assign=True)
+    return inpaint
+
+
+def i2v_inputs(seed):
+    """A random uint8 start frame at the sample size (so no resize) through
+    get_image_to_video_latent: video (1, 3, 49, H, W) in [0, 1] and the mask
+    of the frames to generate."""
+    gen = torch.Generator().manual_seed(seed)
+    image = torch.randint(0, 256, (H, W, 3), generator=gen,
+                          dtype=torch.uint8).numpy()
+    video, mask = get_image_to_video_latent(image, None, FRAMES, (H, W))
+    return {"video": video, "mask_video": mask}
+
+
+def swa_fused_inputs(seed):
+    """The 12B's per-layer SWA streams: b 2 (CFG), 48 heads x 64, 256 text
+    tokens, (f, h, w) = (13, 24, 42) video tokens; bf16 leaves that take
+    gradients, and the two cotangents."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    n_vid = ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16)
+    mk = lambda n: torch.randn(2, 48, n, 64, generator=gen, device=DEVICE
+                               ).to(torch.bfloat16)
+    ins = [mk(n).requires_grad_(True) for n in (TEXT_LEN,) * 3 + (n_vid,) * 3]
+    return ins, (mk(TEXT_LEN), mk(n_vid))
+
+
+def swa_fused_run(ins, cot, fuse, backward=True):
+    """swa_attention_streams forward (and backward from `cot`)."""
+    kw = dict(num_frames=(FRAMES - 1) // 4 + 1, height=H // 16, width=W // 16)
+    if not backward:
+        with torch.no_grad():
+            return swa_attention_streams(*ins, fuse_cross=fuse, **kw)
+    outs = swa_attention_streams(*ins, fuse_cross=fuse, **kw)
+    return outs, torch.autograd.grad(outs, ins, cot)
+
+
+def phase_swa_fused(ins, cot, fused):
+    """fuse_cross=True against False on the same streams: outputs and
+    gradients within FUSED_BOUND of max |unfused|; full-call times."""
+    unfused = swa_fused_run(ins, cot, False)
+    torch.cuda.synchronize()
+    names = ["out_text", "out_video"] + [f"d_{n}" for n in (
+        "q_txt", "k_txt", "v_txt", "q_vid", "k_vid", "v_vid")]
+    rel = {}
+    for n, a, b in zip(names, [*fused[0], *fused[1]],
+                       [*unfused[0], *unfused[1]]):
+        rel[n] = ((a.float() - b.float()).abs().max()
+                  / b.float().abs().max()).item()
+    del unfused
+    times = {}
+    for fuse in (True, False):
+        tag = "fused" if fuse else "unfused"
+        times[f"{tag}_fwd_ms"] = cuda_ms(
+            lambda: swa_fused_run(ins, cot, fuse, backward=False), 5)
+        times[f"{tag}_fwd_bwd_ms"] = cuda_ms(
+            lambda: swa_fused_run(ins, cot, fuse), 3)
+    ok = max(rel.values()) <= FUSED_BOUND
+    emit({"phase": "swa_fused", "shapes": {
+              "text": list(ins[0].shape), "video": list(ins[3].shape)},
+          "rel_err_fused_vs_unfused": rel, "bound": FUSED_BOUND,
+          "times_ms": times, "ok": ok})
+    if not ok:
+        raise AssertionError("swa_fused: fuse_cross=True disagrees with False")
+    return times
+
+
 DEVICE = torch.device("cuda")
 COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
             "K3": flash_attention_bwd, "K4": flash_attention_bwd,
+            "K5": swa_local_global_fwd,
             "K6": sliding_window_bwd, "K7": sliding_window_bwd}
 
 
@@ -612,8 +861,7 @@ def phase_sft(seed):
     dev = DEVICE
     cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=4,
                               swa_layers=(1, 2, 3))
-    with torch.device("meta"):
-        model = EasyAnimateTransformer3D(cfg)
+    model = EasyAnimateTransformer3D(cfg, device="meta")
     model = init_random_(model.to_empty(device=dev),
                          torch.Generator(device=dev).manual_seed(seed))
     tcfg = ttrainer.TrainConfig()
@@ -624,7 +872,7 @@ def phase_sft(seed):
     batch, gen = train_batch(cfg, seed)
     state, out = train_phase(
         "sft", ttrainer.make_train_step(model, tcfg), state, batch, gen,
-        {"K1": 8, "K2": 6, "K3": 4, "K4": 4, "K6": 3, "K7": 3})
+        {"K1": 8, "K2": 6, "K3": 4, "K4": 4, "K5": 0, "K6": 3, "K7": 3})
     moved = {n: (state.params[n] - start[n]).abs().max().item() for n in watch}
     synced = all(torch.equal(p, state.params[n].to(p.dtype))
                  for n, p in model.named_parameters())
@@ -652,7 +900,8 @@ def main():
     stats.update(phase_kernels_bwd(
         torch.Generator(device="cuda").manual_seed(args.seed + 100)))
     torch.cuda.synchronize()
-    phase_reference()
+    phase_reference("t2v")
+    phase_reference("i2v")
     torch.cuda.synchronize()
     phase_train_reference()
     torch.cuda.synchronize()
@@ -672,7 +921,7 @@ def main():
         torch.cuda.synchronize()
         return result
 
-    pipe = EasyAnimatePipeline(model, vae, "cuda")
+    pipe = EasyAnimatePipeline(model, vae)
     steps = args.steps
     serve = dict.fromkeys(COUNTERS, 0)
     for r in range(2):
@@ -680,30 +929,52 @@ def main():
                                           steps, COUNTERS),
                  dict(serve, K1=48 * steps))
     swa_model = swa_variant(model)
-    pipe = EasyAnimatePipeline(swa_model, vae, "cuda")
+    pipe = EasyAnimatePipeline(swa_model, vae)
     path_run("swa", lambda: request("swa", pipe, args.seed + 3, steps, COUNTERS),
              dict(serve, K1=48 * steps, K2=47 * steps))
+    pipe = EasyAnimateInpaintPipeline(inpaint_variant(model, args.seed + 7), vae)
+    path_run("i2v", lambda: request("i2v", pipe, args.seed + 8, steps, COUNTERS,
+                                    **i2v_inputs(args.seed + 9)),
+             dict(serve, K1=48 * steps))
     del pipe, vae
+    torch.cuda.empty_cache()
+
+    # the fused SWA path: forward K5 + K1 (text queries); backward K2 + K1
+    # (the fused Function's recompute), K6/K7, and K3/K4 twice (its global
+    # half and the text queries' cross pass)
+    ins, cot = swa_fused_inputs(args.seed + 10)
+    expect_fused = dict(serve, K1=2, K2=1, K3=2, K4=2, K5=1, K6=1, K7=1)
+    fused = path_run("swa_fused", lambda: swa_fused_run(ins, cot, True),
+                     expect_fused)
+    phase_swa_fused(ins, cot, fused)
+    del ins, cot, fused
     torch.cuda.empty_cache()
 
     # training: K1 runs twice per layer per step (forward + remat recompute)
     n = TRAIN_STEPS
     path_run("lora_dense", lambda: phase_lora(
         "lora_dense", model, args.seed + 4,
-        {"K1": 96, "K2": 0, "K3": 48, "K4": 48, "K6": 0, "K7": 0}))
+        {"K1": 96, "K2": 0, "K3": 48, "K4": 48, "K5": 0, "K6": 0, "K7": 0}))
     path_run("lora_swa", lambda: phase_lora(
         "lora_swa", swa_model, args.seed + 5,
-        {"K1": 96, "K2": 94, "K3": 48, "K4": 48, "K6": 47, "K7": 47}))
+        {"K1": 96, "K2": 94, "K3": 48, "K4": 48, "K5": 0, "K6": 47, "K7": 47}))
     del model, swa_model
     torch.cuda.empty_cache()
     path_run("sft", lambda: phase_sft(args.seed + 6))
     expect_train = {"K1": 2 * 96 * n + 8 * n, "K2": 94 * n + 6 * n,
                     "K3": 2 * 48 * n + 4 * n, "K4": 2 * 48 * n + 4 * n,
                     "K6": 47 * n + 3 * n, "K7": 47 * n + 3 * n}
-    expect_serve = {"K1": 3 * 48 * steps, "K2": 47 * steps}
-    want = {k: expect_train[k] + expect_serve.get(k, 0) for k in COUNTERS}
+    expect_serve = {"K1": 4 * 48 * steps, "K2": 47 * steps}
+    want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)
+            + expect_fused[k] for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
+
+    bounds = kernel_bounds()
+    library = {"K1": stats["K1"]["sdpa_ms"], "K2": stats["K2"]["library_ms"],
+               "K3": stats["K3"]["sdpa_bwd_ms"], "K4": stats["K4"]["sdpa_bwd_ms"],
+               "K5": None, "K6": stats["K6"]["library_bwd_ms"],
+               "K7": stats["K7"]["library_bwd_ms"]}
 
     def row(key, name, src, replaces):
         st = stats[key]
@@ -711,7 +982,8 @@ def main():
                "source": f"easyanimate_tpu_torch/csrc/{src}",
                "replaces": replaces, "launches": totals[key],
                "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-               "plain_ms": st["plain_ms"]}
+               "plain_ms": st["plain_ms"], "bound_ms": bounds[key][0],
+               "bound_by": bounds[key][1], "library_ms": library[key]}
         if "max_rel_err" in st:
             out["max_rel_err"] = st["max_rel_err"]
         return out
@@ -725,14 +997,19 @@ def main():
             "easyanimate_tpu/ops/flash_attention.py:228"),
         row("K4", "flash_attention_bwd (dk, dv)", "flash_bwd.cu",
             "easyanimate_tpu/ops/flash_attention.py:267"),
+        row("K5", "swa_local_global_fwd", "swa_fused_fwd.cu",
+            "easyanimate_tpu/ops/swa.py:159"),
         row("K6", "sliding_window_bwd (dq)", "swa_bwd.cu",
             "easyanimate_tpu/ops/swa.py:393"),
         row("K7", "sliding_window_bwd (dk, dv)", "swa_bwd.cu",
             "easyanimate_tpu/ops/swa.py:429"),
     ], "note": "max_abs_err: max |kernel - plain| over the cases (o for "
-               "K1/K2, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: over "
-               "max |plain|, the bound's measure. K3/K4 and K6/K7 plain_ms: "
-               "one plain pass computes both gradients"})
+               "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
+               "over max |plain|, the bound's measure. K3/K4 and K6/K7 "
+               "plain_ms and library_ms: one plain pass, and one SDPA "
+               "backward (K6/K7: with the boolean band mask), compute both "
+               "kernels' gradients. K2 library_ms: SDPA with the band mask. "
+               "K5: no single PyTorch call computes it (library_ms null)"})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

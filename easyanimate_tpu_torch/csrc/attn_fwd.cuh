@@ -1,5 +1,5 @@
-// Shared forward-attention body for the two Hopper kernels of the serving
-// path (flash_fwd.cu: dense, swa_fwd.cu: banded).
+// Shared forward-attention body of the Hopper forward kernels (flash_fwd.cu:
+// dense, swa_fwd.cu: banded, swa_fused_fwd.cu: banded + global).
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -82,36 +82,40 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[D + 8],
   }
 }
 
-// kWindowed == false: columns j < kv_len are visible (dense, K1).
-// kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
-// kv tiles visited: [kv_begin, kv_end), chosen by the caller.
-template <int D, bool kWindowed>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                int sq, int skv, int kv_len, int window) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][D + 8];
+// One thread's share of the online softmax over a q tile: the running max
+// and partial sum of its two rows, and its fragment of the f32 accumulator.
+template <int D>
+struct SoftmaxState {
+  float m_a, m_b, l_a, l_b;
+  float acc[D / 8][4];
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // row within the 8-row half of the fragment
-  const int t = lane % 4;  // thread within the quad
+  __device__ __forceinline__ void reset() {
+    m_a = m_b = -INFINITY;
+    l_a = l_b = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    }
+  }
 
-  const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * skv * D;
+  // Sum the quad's partial row sums into l; 1/l, or 1 for a row that saw
+  // nothing (its acc is 0, so o = 0).
+  __device__ __forceinline__ void finish(float& inv_a, float& inv_b) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    inv_a = l_a <= 0.f ? 1.f : 1.f / l_a;
+    inv_b = l_b <= 0.f ? 1.f : 1.f / l_b;
+  }
+};
 
-  load_tile<D, kBlockQ>(sQ, qb, q0, sq);
-  __syncthreads();
-
-  const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
+// Load this warp's 16 q rows of sQ as bf16 A fragments.
+template <int D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4],
+                                             __nv_bfloat16 (*sQ)[D + 8],
+                                             int r0, int g, int t) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     qa[kk][0] = ld32(&sQ[r0 + g][kk * 16 + 2 * t]);
@@ -119,23 +123,18 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     qa[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 2 * t + 8]);
     qa[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t + 8]);
   }
+}
 
-  const int row_a = q0 + r0 + g;  // this thread's two rows
-  const int row_b = row_a + 8;
-  float m_a = -INFINITY, m_b = -INFINITY;
-  float l_a = 0.f, l_b = 0.f;  // per-thread partial sums
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-
-  int kv_begin = 0, kv_end = kv_len;
-  if (kWindowed) {
-    kv_begin = max(0, q0 - window);
-    kv_end = min(kv_len, q0 + kBlockQ + window);
-  }
-
+// Stream the kv rows [kv_begin, kv_end) of kb, vb through sK, sV in tiles of
+// kBlockKV and fold them into `st`. Columns j < kv_len are visible, and with
+// kWindowed only those with |i - j| <= window. Every thread of the block
+// must call it (it fences with __syncthreads).
+template <int D, bool kWindowed>
+__device__ __forceinline__ void attend_tiles(
+    SoftmaxState<D>& st, const uint32_t (&qa)[D / 16][4],
+    __nv_bfloat16 (*sK)[D + 8], __nv_bfloat16 (*sV)[D + 8],
+    const __nv_bfloat16* kb, const __nv_bfloat16* vb, int kv_begin,
+    int kv_end, int kv_len, int window, int row_a, int row_b, int g, int t) {
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kBlockKV) {
     __syncthreads();  // previous tile fully consumed
     load_tile<D, kBlockKV>(sK, kb, kv0, kv_len);
@@ -178,13 +177,13 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float mn_a = fmaxf(st.m_a, mx_a), mn_b = fmaxf(st.m_b, mx_b);
     // a row with nothing visible yet keeps m = -inf; exponentiate against 0
     const float mu_a = mn_a == -INFINITY ? 0.f : mn_a;
     const float mu_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float alpha_a = exp2f(m_a - mu_a), alpha_b = exp2f(m_b - mu_b);
-    m_a = mn_a;
-    m_b = mn_b;
+    const float alpha_a = exp2f(st.m_a - mu_a), alpha_b = exp2f(st.m_b - mu_b);
+    st.m_a = mn_a;
+    st.m_b = mn_b;
 
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
@@ -196,14 +195,14 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       sum_a += s[nt][0] + s[nt][1];
       sum_b += s[nt][2] + s[nt][3];
     }
-    l_a = l_a * alpha_a + sum_a;
-    l_b = l_b * alpha_b + sum_b;
+    st.l_a = st.l_a * alpha_a + sum_a;
+    st.l_b = st.l_b * alpha_b + sum_b;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha_a;
-      acc[dt][1] *= alpha_a;
-      acc[dt][2] *= alpha_b;
-      acc[dt][3] *= alpha_b;
+      st.acc[dt][0] *= alpha_a;
+      st.acc[dt][1] *= alpha_a;
+      st.acc[dt][2] *= alpha_b;
+      st.acc[dt][3] *= alpha_b;
     }
 
     // o += p v: the score fragments of two adjacent 8-column tiles form the
@@ -221,35 +220,75 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t b[2];
         b[0] = pack_bf16(&sV[kr][dt * 8 + g], &sV[kr + 1][dt * 8 + g]);
         b[1] = pack_bf16(&sV[kr + 8][dt * 8 + g], &sV[kr + 9][dt * 8 + g]);
-        mma_16816(acc[dt], pa, b);
+        mma_16816(st.acc[dt], pa, b);
       }
     }
   }
+}
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+// kWindowed == false: columns j < kv_len are visible (dense, K1).
+// kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
+template <int D, bool kWindowed>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int sq, int skv, int kv_len, int window) {
+  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][D + 8];
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][D + 8];
+  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][D + 8];
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // row within the 8-row half of the fragment
+  const int t = lane % 4;  // thread within the quad
+
+  const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
+  const __nv_bfloat16* kb = k + (size_t)bh * skv * D;
+  const __nv_bfloat16* vb = v + (size_t)bh * skv * D;
+
+  load_tile<D, kBlockQ>(sQ, qb, q0, sq);
+  __syncthreads();
+
+  const int r0 = warp * 16;
+  uint32_t qa[D / 16][4];
+  load_q_frags<D>(qa, sQ, r0, g, t);
+
+  const int row_a = q0 + r0 + g;  // this thread's two rows
+  const int row_b = row_a + 8;
+  SoftmaxState<D> st;
+  st.reset();
+
+  int kv_begin = 0, kv_end = kv_len;
+  if (kWindowed) {
+    kv_begin = max(0, q0 - window);
+    kv_end = min(kv_len, q0 + kBlockQ + window);
   }
-  const float inv_a = l_a <= 0.f ? 1.f : 1.f / l_a;
-  const float inv_b = l_b <= 0.f ? 1.f : 1.f / l_b;
+  attend_tiles<D, kWindowed>(st, qa, sK, sV, kb, vb, kv_begin, kv_end, kv_len,
+                             window, row_a, row_b, g, t);
+
+  float inv_a, inv_b;
+  st.finish(inv_a, inv_b);
   __nv_bfloat16* ob = o + (size_t)bh * sq * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (row_a < sq) {
       *reinterpret_cast<uint32_t*>(ob + (size_t)row_a * D + col) =
-          pack_f32(acc[dt][0] * inv_a, acc[dt][1] * inv_a);
+          pack_f32(st.acc[dt][0] * inv_a, st.acc[dt][1] * inv_a);
     }
     if (row_b < sq) {
       *reinterpret_cast<uint32_t*>(ob + (size_t)row_b * D + col) =
-          pack_f32(acc[dt][2] * inv_b, acc[dt][3] * inv_b);
+          pack_f32(st.acc[dt][2] * inv_b, st.acc[dt][3] * inv_b);
     }
   }
   if (t == 0) {
     float* lb = lse + (size_t)bh * sq;
-    if (row_a < sq) lb[row_a] = m_a + log2f(fmaxf(l_a, 1e-30f));
-    if (row_b < sq) lb[row_b] = m_b + log2f(fmaxf(l_b, 1e-30f));
+    if (row_a < sq) lb[row_a] = st.m_a + log2f(fmaxf(st.l_a, 1e-30f));
+    if (row_b < sq) lb[row_b] = st.m_b + log2f(fmaxf(st.l_b, 1e-30f));
   }
 }
 

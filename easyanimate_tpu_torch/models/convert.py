@@ -16,19 +16,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
+
 
 def load_reference_state_dict(module: nn.Module,
                               sd: Dict[str, np.ndarray]) -> None:
-    """Load numpy arrays in the reference layout with strict=True.
-
-    A module with `reference_prefixes` (the decode-only VAE) takes the
-    subset of keys under those prefixes -- e.g. `decoder.*` and
-    `post_quant_conv.*` out of a full VAE dict -- and raises on anything
-    missing or left over inside it. Values are cast to each parameter's
-    dtype and device."""
-    prefixes = getattr(module, "reference_prefixes", None)
-    if prefixes is not None:
-        sd = {k: v for k, v in sd.items() if k.startswith(prefixes)}
+    """Load numpy arrays in the reference layout with strict=True: the whole
+    dict of the module (e.g. the full VAE dict, encoder included, or the
+    inpaint MMDiT's with its 33-channel proj), raising on anything missing
+    or left over. Values are cast to each parameter's dtype and device."""
     module.load_state_dict(
         {k: torch.from_numpy(np.require(v, requirements=("C", "W")))
          for k, v in sd.items()},
@@ -78,7 +74,7 @@ def load_reference_lora_state_dict(module: nn.Module,
                                    sd: Dict[str, np.ndarray],
                                    device=None) -> Tuple[dict, "LoRAConfig"]:
     """A kohya LoRA state dict -> (LoRA for `module`, LoRAConfig), factors
-    float32 on `device`. Text-encoder factors (`lora_te*`) are skipped;
+    float32 on `device` (the card by default). Text-encoder factors (`lora_te*`) are skipped;
     a module the model does not have, a missing factor, or mixed ranks or
     alphas raise. An absent alpha means alpha = rank (kohya's convention)."""
     from ..training.lora import LoRAConfig
@@ -98,6 +94,7 @@ def load_reference_lora_state_dict(module: nn.Module,
         groups.setdefault(name, {})[kind] = np.asarray(value)
     if not groups:
         raise ValueError("state dict contained no transformer LoRA modules")
+    device = resolve_device(device)
     lora, ranks, alphas = {}, set(), set()
     for name, g in groups.items():
         missing = {".lora_down.weight", ".lora_up.weight"} - set(g)

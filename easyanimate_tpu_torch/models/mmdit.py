@@ -7,8 +7,9 @@ the video tokens; final LayerNorm; AdaLayerNorm (shift, scale from temb);
 proj_out; unpatchify. The layer stack is an nn.ModuleList run in a Python
 loop; with `remat` (the JAX field, default on) and grad enabled each block
 runs under torch.utils.checkpoint, so the backward recomputes it from its
-inputs instead of keeping its activations. Conditioning branches (inpaint,
-control, ref, clip, t5) are not ported.
+inputs instead of keeping its activations. Of the conditioning branches
+only `inpaint_latents` is ported (the V5.1-InP models: a channel concat in
+front of the patchify); control, ref, clip and t5 are not.
 """
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
 from ..ops.norms import fp32_layer_norm
 from .blocks import MMDiTBlock
 from .embeddings import (PatchEmbed2D, TimestepEmbedding,
@@ -39,6 +41,11 @@ class MMDiTConfig:
     after_norm: bool = False
     norm_eps: float = 1e-5
     qk_norm: bool = True
+    # inpaint models: the mask goes in as one channel resized to the latent
+    # grid (else as VAE-encoded latents), and the reference video may be
+    # noise-augmented (read by pipeline/inpaint.py)
+    resize_inpaint_mask_directly: bool = True
+    add_noise_in_inpaint_model: bool = True
     # recompute each block in the backward (easyanimate_tpu mmdit.py:166-170)
     remat: bool = True
     dtype: str = "bfloat16"
@@ -59,6 +66,8 @@ class MMDiTConfig:
 PRESETS: Dict[str, MMDiTConfig] = {
     # flagship: ~11.8B dual-stream parameters (marketed "12B")
     "v5.1-12b": MMDiTConfig(),
+    # image/video-to-video: latents + 1 mask channel + 16 masked-video latents
+    "v5.1-12b-inpaint": MMDiTConfig(in_channels=16 + 1 + 16),
     "v5.1-7b": MMDiTConfig(num_attention_heads=40, num_layers=40),
     # tiny config for tests
     "tiny": MMDiTConfig(
@@ -86,9 +95,10 @@ class AdaLayerNormOut(nn.Module):
 
 class EasyAnimateTransformer3D(nn.Module):
     def __init__(self, cfg: MMDiTConfig, device=None):
+        """Parameters on `device`, the card by default."""
         super().__init__()
         self.cfg = cfg
-        fk = dict(device=device, dtype=cfg.torch_dtype)
+        fk = dict(device=resolve_device(device), dtype=cfg.torch_dtype)
         dim = cfg.inner_dim
         self.time_embedding = TimestepEmbedding(dim, cfg.time_embed_dim, **fk)
         self.proj = PatchEmbed2D(cfg.in_channels, dim, cfg.patch_size, **fk)
@@ -108,11 +118,16 @@ class EasyAnimateTransformer3D(nn.Module):
             dim, cfg.patch_size * cfg.patch_size * cfg.out_channels, **fk)
 
     def embed(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
-              encoder_hidden_states: torch.Tensor):
-        """-> (vid_tokens, txt_tokens, temb)."""
+              encoder_hidden_states: torch.Tensor,
+              inpaint_latents: Optional[torch.Tensor] = None):
+        """-> (vid_tokens, txt_tokens, temb). inpaint_latents (B, C_in - C,
+        T, H, W) join the latents on the channel axis before the patchify."""
         dt = self.cfg.torch_dtype
         temb = sinusoidal_timestep_embedding(timestep, self.cfg.inner_dim)
         temb = self.time_embedding(temb.to(dt))
+        if inpaint_latents is not None:
+            hidden_states = torch.cat([hidden_states.to(dt),
+                                       inpaint_latents.to(dt)], dim=1)
         vid = self.proj(hidden_states.to(dt))
         txt = self.text_proj(encoder_hidden_states.to(dt))
         return vid, txt, temb
@@ -141,14 +156,15 @@ class EasyAnimateTransformer3D(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                inpaint_latents: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """latents (B, C, T, H, W), timestep (B,), text (B, S, D_text) ->
         prediction (B, C_out, T, H, W)."""
         _, _, t, hh, ww = hidden_states.shape
         p = self.cfg.patch_size
         vid, txt, temb = self.embed(hidden_states, timestep,
-                                    encoder_hidden_states)
+                                    encoder_hidden_states, inpaint_latents)
         vid = self.backbone(vid, txt, temb, rope,
                             grid_size=(t, hh // p, ww // p))
         return self.head(vid, t, hh, ww)

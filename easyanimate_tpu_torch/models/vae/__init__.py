@@ -1,6 +1,8 @@
-"""MagViT VAE, decode side."""
-from .magvit import (AutoencoderKLMagvit, MagvitVAEConfig, latent_frame_count,
-                     vae_decode, vae_decode_tiled)
+"""MagViT VAE: encoder and decoder."""
+from .magvit import (AutoencoderKLMagvit, MagvitVAEConfig, gaussian_mode,
+                     gaussian_sample, latent_frame_count, vae_decode,
+                     vae_decode_tiled, vae_encode, vae_encode_tiled)
 
-__all__ = ["AutoencoderKLMagvit", "MagvitVAEConfig", "latent_frame_count",
-           "vae_decode", "vae_decode_tiled"]
+__all__ = ["AutoencoderKLMagvit", "MagvitVAEConfig", "gaussian_mode",
+           "gaussian_sample", "latent_frame_count", "vae_decode",
+           "vae_decode_tiled", "vae_encode", "vae_encode_tiled"]

@@ -1,11 +1,12 @@
-"""MagViT VAE decoder blocks, channels-first, with functional conv caches.
+"""MagViT VAE blocks, channels-first, with functional conv caches.
 
 Parity: easyanimate_tpu/models/vae/blocks.py (reference
-vaemodules/common.py:254-323, up_blocks.py:96-395, upsamplers.py,
-mid_blocks.py:38-196, attention.py:391-470). Every cached module's
-forward takes (x, cache dict | None) and returns (y, new cache dict);
-`cache is None` marks the first chunk of a sequence. Only the decoder's
-blocks are ported.
+vaemodules/common.py:254-323, down_blocks.py:156-330, downsamplers.py:24-93,
+up_blocks.py:96-395, upsamplers.py, mid_blocks.py:38-196,
+attention.py:391-470). Every cached module's forward takes (x, cache dict |
+None) and returns (y, new cache dict); `cache is None` marks the first chunk
+of a sequence. GlobalContextBlock (use_gc_blocks) is not ported: no V5.1
+config enables it.
 """
 from typing import Optional
 
@@ -80,6 +81,50 @@ class VAEAttention(nn.Module):
         else:
             o = o.reshape(b, t, h, w, c)
         return o.permute(0, 4, 1, 2, 3) + x
+
+
+_DOWN_STRIDES = {"spatial": (1, 2, 2), "temporal": (2, 1, 1),
+                 "spatial_temporal": (2, 2, 2)}
+
+
+class Downsampler3D(nn.Module):
+    """One stride-2 causal conv; the spatial kinds pad ((0, 1), (0, 1))
+    (downsamplers.py:24-93)."""
+
+    def __init__(self, channels: int, kind: str, **fk):
+        super().__init__()
+        spad = ((0, 1), (0, 1)) if "spatial" in kind else None
+        self.conv = CausalConv3d(channels, channels, stride=_DOWN_STRIDES[kind],
+                                 spatial_padding=spad, **fk)
+
+    def forward(self, x, cache=None):
+        y, c = self.conv(x, _sub(cache, "conv"))
+        return y, {"conv": c}
+
+
+class DownBlock3D(nn.Module):
+    """Residual convs, then the optional downsampler (down_blocks.py)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_layers: int = 2, downsample: Optional[str] = None,
+                 norm_num_groups: int = 32, norm_eps: float = 1e-6,
+                 spatial_norm: bool = True, **fk):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            ResidualBlock3D(in_channels if i == 0 else out_channels,
+                            out_channels, norm_num_groups, norm_eps,
+                            spatial_norm, **fk)
+            for i in range(num_layers)])
+        self.downsampler = (None if downsample is None
+                            else Downsampler3D(out_channels, downsample, **fk))
+
+    def forward(self, x, cache=None):
+        new_cache = {}
+        for i, res in enumerate(self.convs):
+            x, new_cache[f"res{i}"] = res(x, _sub(cache, f"res{i}"))
+        if self.downsampler is not None:
+            x, new_cache["down"] = self.downsampler(x, _sub(cache, "down"))
+        return x, new_cache
 
 
 def _spatial_up(x):

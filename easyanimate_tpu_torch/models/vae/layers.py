@@ -1,43 +1,59 @@
-"""Primitives of the MagViT 3D causal VAE decoder, channels-first
-(B, C, T, H, W).
+"""Primitives of the MagViT 3D causal VAE, channels-first (B, C, T, H, W).
 
 Parity: easyanimate_tpu/models/vae/layers.py. The reference's stateful
 padding-flag protocol (vaemodules/common.py:31-179) is one functional rule:
   * cache is None -> start of the sequence: replicate-pad (t_ks - 1) frames
     in front;
-  * cache is a tensor -> continuation: prepend the cached frames;
+  * cache is a tensor -> continuation: prepend the cached frames (a
+    temporal stride-2 conv takes one fewer, reference common.py:120-127);
   * every call returns the new cache, the last (t_ks - 1) frames of its
     temporal input, so chunked decoding equals full-sequence decoding.
 """
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Cache = Optional[torch.Tensor]
 
 
 class CausalConv3d(nn.Conv3d):
-    """Stride-1 3D conv, temporally causal, spatially zero-padded to keep
-    the size; weight in the reference layout (O, I, T, H, W)."""
+    """3D conv, temporally causal; weight in the reference layout
+    (O, I, T, H, W). Spatially zero-padded to keep the size, or by
+    `spatial_padding` ((top, bottom), (left, right)): the stride-2 spatial
+    downsamplers pad ((0, 1), (0, 1)), as the reference's F.pad(x, (0, 1, 0,
+    1)) before a pad-0 conv."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, *, device=None, dtype=None):
+                 kernel_size: int = 3, stride=1,
+                 spatial_padding: Optional[Tuple[Tuple[int, int],
+                                                 Tuple[int, int]]] = None,
+                 *, device=None, dtype=None):
         pad = (kernel_size - 1) // 2
-        super().__init__(in_channels, out_channels, kernel_size,
-                         padding=(0, pad, pad), device=device, dtype=dtype)
+        self.spatial_padding = spatial_padding
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=(0, pad, pad) if spatial_padding is None else 0,
+                         device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, cache: Cache = None
                 ) -> Tuple[torch.Tensor, Cache]:
         t_pad = self.kernel_size[0] - 1
         if t_pad:
-            front = (x[:, :, :1].expand(-1, -1, t_pad, -1, -1) if cache is None
-                     else cache.to(x.dtype))
+            if cache is None:
+                front = x[:, :, :1].expand(-1, -1, t_pad, -1, -1)
+            else:
+                # a stride-2 window starts one frame later in the cache
+                front = cache[:, :, 1:] if self.stride[0] == 2 else cache
+                front = front.to(x.dtype)
             x = torch.cat([front, x], dim=2)
             # clone: a view would keep the whole concatenated input alive
             new_cache = x[:, :, -t_pad:].clone()
         else:
             new_cache = None
+        if self.spatial_padding is not None:
+            (top, bottom), (left, right) = self.spatial_padding
+            x = F.pad(x, (left, right, top, bottom))
         return super().forward(x), new_cache
 
 

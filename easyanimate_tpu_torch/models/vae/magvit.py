@@ -1,11 +1,12 @@
-"""MagViT 3D causal video VAE, decode side, channels-first (B, C, T, H, W).
+"""MagViT 3D causal video VAE, channels-first (B, C, T, H, W).
 
 Parity: easyanimate_tpu/models/vae/magvit.py (reference
-autoencoder_magvit.py:59-505, omnigen_enc_dec.py). Only the decoder and
-post_quant_conv are ported, with the `cache_mag` chunk protocol (frame 0
-alone, then chunks that carry the causal conv caches) and the even-cover
-spatial tiling. The encoder, the other chunk modes and seam smoothing are
-not ported.
+autoencoder_magvit.py:59-505, omnigen_enc_dec.py). Encoder + quant_conv and
+post_quant_conv + decoder, with the `cache_mag` chunk protocol (frame 0
+alone, then chunks that carry the causal conv caches: mini_batch_encoder
+pixel frames per encoder pass) and the even-cover spatial tiling, and the
+diagonal Gaussian's mode and sample. The other chunk modes and seam
+smoothing are not ported.
 """
 import dataclasses
 from typing import Callable, List, Optional, Sequence
@@ -14,9 +15,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import MidBlock3D, UpBlock3D, _sub
+from ...device import resolve_device
+from .blocks import DownBlock3D, MidBlock3D, UpBlock3D, _sub
 from .layers import CausalConv3d, Conv1x1x1, GroupNorm
 
+_DOWN_KIND = {
+    "SpatialDownBlock3D": "spatial",
+    "TemporalDownBlock3D": "temporal",
+    "SpatialTemporalDownBlock3D": "spatial_temporal",
+    "DownBlock3D": None,
+}
 _UP_KIND = {
     "SpatialUpBlock3D": "spatial",
     "TemporalUpBlock3D": "temporal",
@@ -27,6 +35,7 @@ _UP_KIND = {
 
 @dataclasses.dataclass(frozen=True)
 class MagvitVAEConfig:
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 16
     block_out_channels: Sequence[int] = (128, 256, 512, 512)
@@ -71,6 +80,40 @@ class MagvitVAEConfig:
         return getattr(torch, self.dtype)
 
 
+class Encoder(nn.Module):
+    """conv_in, down blocks (the last without a downsampler), mid block,
+    norm + silu, conv_out to 2 * latent_channels moments."""
+
+    def __init__(self, cfg: MagvitVAEConfig, **fk):
+        super().__init__()
+        boc = list(cfg.block_out_channels)
+        norm = dict(norm_num_groups=cfg.norm_num_groups,
+                    spatial_norm=cfg.spatial_group_norm)
+        self.conv_in = CausalConv3d(cfg.in_channels, boc[0], **fk)
+        n = len(cfg.down_block_types)
+        self.down_blocks = nn.ModuleList([
+            DownBlock3D(boc[max(i - 1, 0)], boc[i], cfg.layers_per_block,
+                        None if i == n - 1 else _DOWN_KIND[kind], **norm, **fk)
+            for i, kind in enumerate(cfg.down_block_types)])
+        self.mid_block = MidBlock3D(
+            boc[-1], cfg.layers_per_block,
+            (cfg.mid_block_attention_type if cfg.mid_block_use_attention
+             else "none"), **norm, **fk)
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[-1], 1e-6,
+                                       cfg.spatial_group_norm, **fk)
+        self.conv_out = CausalConv3d(boc[-1], 2 * cfg.latent_channels, **fk)
+
+    def forward(self, x, cache=None):
+        new_cache = {}
+        x, new_cache["conv_in"] = self.conv_in(x, _sub(cache, "conv_in"))
+        for i, block in enumerate(self.down_blocks):
+            x, new_cache[f"down{i}"] = block(x, _sub(cache, f"down{i}"))
+        x, new_cache["mid"] = self.mid_block(x, _sub(cache, "mid"))
+        x = F.silu(self.conv_norm_out(x))
+        x, new_cache["conv_out"] = self.conv_out(x, _sub(cache, "conv_out"))
+        return x, new_cache
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: MagvitVAEConfig, **fk):
         super().__init__()
@@ -103,18 +146,24 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKLMagvit(nn.Module):
-    """Decode side of the MagViT VAE: post_quant_conv + decoder. Its
-    parameters are the reference's `decoder.*` and `post_quant_conv.*`."""
-
-    reference_prefixes = ("decoder.", "post_quant_conv.")
+    """The MagViT VAE: encoder + quant_conv, post_quant_conv + decoder. Its
+    parameters are the reference's state-dict keys."""
 
     def __init__(self, cfg: MagvitVAEConfig, device=None):
+        """Parameters on `device`, the card by default."""
         super().__init__()
         self.cfg = cfg
-        fk = dict(device=device, dtype=cfg.torch_dtype)
+        fk = dict(device=resolve_device(device), dtype=cfg.torch_dtype)
+        self.encoder = Encoder(cfg, **fk)
         self.decoder = Decoder(cfg, **fk)
+        self.quant_conv = Conv1x1x1(2 * cfg.latent_channels,
+                                    2 * cfg.latent_channels, **fk)
         self.post_quant_conv = Conv1x1x1(cfg.latent_channels,
                                          cfg.latent_channels, **fk)
+
+    def encode_chunk(self, x, cache=None):
+        h, cache = self.encoder(x, cache)
+        return self.quant_conv(h), cache
 
     def decode_chunk(self, z, cache=None):
         return self.decoder(self.post_quant_conv(z), cache)
@@ -129,6 +178,29 @@ def _chunked_apply(apply_fn: Callable, x: torch.Tensor, chunk: int):
         y, cache = apply_fn(x[:, :, i:i + chunk], cache)
         outs.append(y)
     return torch.cat(outs, dim=2)
+
+
+def vae_encode(vae: AutoencoderKLMagvit, video: torch.Tensor) -> torch.Tensor:
+    """video (B, C, T, H, W) in [-1, 1] -> moments (B, 2 * latent, T', H',
+    W'), mean and logvar concatenated on C; frame 0 alone, then chunks of
+    mini_batch_encoder frames (T = mini_batch_encoder * k + 1)."""
+    return _chunked_apply(vae.encode_chunk, video, vae.cfg.mini_batch_encoder)
+
+
+def gaussian_mode(moments: torch.Tensor) -> torch.Tensor:
+    """The mean half of vae_encode's moments (B, 2C, ...)."""
+    return moments.chunk(2, dim=1)[0]
+
+
+def gaussian_sample(moments: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """mean + exp(logvar / 2) * N(0, 1), logvar clamped to [-30, 20]."""
+    mean, logvar = moments.chunk(2, dim=1)
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                        dtype=mean.dtype)
+    return mean + std * noise
 
 
 def _decode_chunk_frames(cfg: MagvitVAEConfig) -> int:
@@ -202,6 +274,16 @@ def _tiled(apply_chunked: Callable, x: torch.Tensor, tile_in: int,
             out_row.append(tile[:, :, :, :hi, :wi])
         out_rows.append(torch.cat(out_row, dim=4))
     return torch.cat(out_rows, dim=3)
+
+
+def vae_encode_tiled(vae: AutoencoderKLMagvit,
+                     video: torch.Tensor) -> torch.Tensor:
+    """Spatially tiled encode (tiles of tile_sample_min_size pixels)."""
+    cfg = vae.cfg
+    tile_in = cfg.tile_sample_min_size
+    tile_out = tile_in // cfg.spatial_compression
+    return _tiled(lambda x: vae_encode(vae, x), video, tile_in, tile_out,
+                  cfg.tile_overlap_factor)
 
 
 def vae_decode_tiled(vae: AutoencoderKLMagvit,

@@ -1,5 +1,6 @@
 """Sliding-window attention (SWA) for the V5.1 `swa_layers`: the banded
-kernel (csrc/swa_fwd.cu, K2), its plain PyTorch version, and the
+kernel (csrc/swa_fwd.cu, K2), the fused local + global kernel
+(csrc/swa_fused_fwd.cu, K5), their plain PyTorch versions, and the
 6-direction composition.
 
 Parity target: easyanimate_tpu/ops/swa.py (reference
@@ -11,9 +12,11 @@ EasyAnimateSWAttnProcessor2_0, processor.py:320-459):
     attention banded to |i - j| <= window (window = tokens per frame);
   - video out = local + cross; text out = 2 x cross (the reference adds
     the cross output to the concat -- kept verbatim).
-This is the unfused, single-device path; the fused local+global kernel and
-the head-parallel form are not ported. The banded pass is differentiable:
-its backward is K6 (dq) and K7 (dk, dv), csrc/swa_bwd.cu.
+This is the single-device path; the head-parallel form is not ported. The
+banded pass is differentiable: its backward is K6 (dq) and K7 (dk, dv),
+csrc/swa_bwd.cu. With fuse_cross=True (off by default, as in JAX) the video
+queries' cross pass runs inside K5, whose backward recomputes through the
+unfused pair (K2 + K6/K7 for the band, K1 + K3/K4 for the global set).
 """
 from typing import Optional, Tuple
 
@@ -21,7 +24,8 @@ import torch
 
 from . import _build
 from .attention import attention, prescale
-from .flash_attention import LN2, row_dot
+from .flash_attention import (LN2, flash_attention_bwd, flash_attention_fwd,
+                              flash_attention_plain, row_dot)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -199,6 +203,95 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(b, h, s, d)
 
 
+def swa_local_global_plain(qf: torch.Tensor, kf: torch.Tensor,
+                           vf: torch.Tensor, gk: torch.Tensor,
+                           gv: torch.Tensor, window: int) -> torch.Tensor:
+    """K5's plain version: the float32 banded softmax of sliding_window_plain
+    over (kf, vf) plus the float32 dense softmax of flash_attention_plain
+    over the global set (gk, gv) [bh, Sg, d], each normalised, summed, and
+    rounded once to q's dtype. q is pre-scaled."""
+    f32 = [x.float() for x in (qf, kf, vf, gk, gv)]
+    local, _ = sliding_window_plain(*f32[:3], window)
+    glob, _ = flash_attention_plain(f32[0], f32[3], f32[4])
+    return (local + glob).to(qf.dtype)
+
+
+def swa_local_global_fwd(qf: torch.Tensor, kf: torch.Tensor,
+                         vf: torch.Tensor, gk: torch.Tensor,
+                         gv: torch.Tensor, window: int) -> torch.Tensor:
+    """Banded attention |i - j| <= window over (kf, vf) [bh, S, d] plus an
+    independent dense softmax over the global kv (gk, gv) [bh, Sg, d], for
+    pre-scaled q [bh, S, d] -> o [bh, S, d]. No lse: the backward
+    recomputes through the unfused pair.
+
+    A CUDA tensor launches K5 (bf16, d in 16/32/64, contiguous) or raises; a
+    CPU tensor takes swa_local_global_plain. `swa_local_global_fwd.launches`
+    counts kernel launches."""
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if qf.device.type == "cpu":
+        return swa_local_global_plain(qf, kf, vf, gk, gv, window)
+    _build.check_kernel_inputs(qf, kf, vf, gk, gv)
+    bh, n, d = qf.shape
+    if (not qf.shape == kf.shape == vf.shape or gk.shape != gv.shape
+            or gk.shape[0] != bh or gk.shape[2] != d or gk.shape[1] < 1):
+        raise ValueError(f"shapes q {tuple(qf.shape)} k {tuple(kf.shape)} "
+                         f"v {tuple(vf.shape)} gk {tuple(gk.shape)} "
+                         f"gv {tuple(gv.shape)}")
+    o = torch.empty_like(qf)
+    _build.launch("ea_swa_fused_fwd_bf16", qf.device, qf.data_ptr(),
+                  kf.data_ptr(), vf.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+                  o.data_ptr(), bh, n, gk.shape[1], window, d)
+    swa_local_global_fwd.launches += 1
+    return o
+
+
+swa_local_global_fwd.launches = 0
+
+
+class SwaLocalGlobal(torch.autograd.Function):
+    """Banded + global attention over pre-scaled q, differentiable: forward
+    swa_local_global_fwd (K5); backward as the JAX custom_vjp's
+    (easyanimate_tpu/ops/swa.py:360-376), through the unfused pair --
+    sliding_window_fwd + sliding_window_bwd (K2, K6 + K7) for the band,
+    flash_attention_fwd + flash_attention_bwd (K1, K3 + K4) for the global
+    set. The forward keeps no lse, so the backward recomputes both."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, gk, gv, window):
+        o = swa_local_global_fwd(qf, kf, vf, gk, gv, window)
+        ctx.save_for_backward(qf, kf, vf, gk, gv)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qf, kf, vf, gk, gv = ctx.saved_tensors
+        do = do.contiguous()
+        o1, lse1 = sliding_window_fwd(qf, kf, vf, ctx.window)
+        dq1, dk, dv = sliding_window_bwd(qf, kf, vf, o1, lse1, do, ctx.window)
+        o2, lse2 = flash_attention_fwd(qf, gk, gv)
+        dq2, dgk, dgv = flash_attention_bwd(qf, gk, gv, o2, lse2, do)
+        dq = (dq1.float() + dq2.float()).to(qf.dtype)
+        return dq, dk, dv, dgk, dgv, None
+
+
+def swa_local_global(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     gk: torch.Tensor, gv: torch.Tensor,
+                     window: int) -> torch.Tensor:
+    """Windowed local attention over (k, v) [B, H, S, D] PLUS the
+    independent global softmax over (gk, gv) [B, H, Sg, D], summed
+    (reference processor.py:436), differentiable; the port of JAX
+    swa_local_global (easyanimate_tpu/ops/swa.py:280). The D ** -0.5 fold
+    stays outside the autograd Function."""
+    b, h, s, d = q.shape
+    sg = gk.shape[2]
+    flat = lambda x, n: x.reshape(b * h, n, d).contiguous()
+    o = SwaLocalGlobal.apply(flat(prescale(q, d ** -0.5), s), flat(k, s),
+                             flat(v, s), flat(gk, sg), flat(gv, sg), window)
+    return o.reshape(b, h, s, d)
+
+
 def _permute_tokens(x: torch.Tensor, f: int, h: int, w: int, order,
                     inverse: bool = False) -> torch.Tensor:
     """x [B, Hd, f*h*w, D] -> tokens reordered by the (f, h, w) axis
@@ -219,9 +312,14 @@ def _permute_tokens(x: torch.Tensor, f: int, h: int, w: int, order,
 
 def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
                           num_frames: int, height: int, width: int,
-                          cross_attention_size: int = 1024):
+                          cross_attention_size: int = 1024,
+                          fuse_cross: bool = False):
     """SWA over separate (text, video) streams [B, H, St|Sv, D] ->
-    (out_text, out_vid). window = height * width."""
+    (out_text, out_vid). window = height * width.
+
+    fuse_cross=True runs the video queries' cross pass inside the local
+    kernel (swa_local_global, K5) and only the text queries' cross pass as
+    its own attention call; the result is the same function."""
     st = q_txt.shape[2]
     sv = q_vid.shape[2]
     window = height * width
@@ -230,8 +328,11 @@ def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
     interval = max(sv // max(cross_attention_size - st, 1), 1)
     ck = torch.cat([k_txt, k_vid[:, :, ::interval]], dim=2)
     cv = torch.cat([v_txt, v_vid[:, :, ::interval]], dim=2)
-    cross = attention(torch.cat([q_txt, q_vid], dim=2), ck, cv)
-    cross_txt, cross_vid = cross[:, :, :st], cross[:, :, st:]
+    if fuse_cross:
+        cross_txt, cross_vid = attention(q_txt, ck, cv), None
+    else:
+        cross = attention(torch.cat([q_txt, q_vid], dim=2), ck, cv)
+        cross_txt, cross_vid = cross[:, :, :st], cross[:, :, st:]
 
     # local pass: the 6 head groups share one window, so their permuted
     # tokens batch into one kernel call over all heads
@@ -241,10 +342,34 @@ def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
             _permute_tokens(g, num_frames, height, width, order)
             for g, order in zip(groups, _AXIS_ORDERS)], dim=1)
 
-    oo = sliding_window_attention(permuted(q_vid), permuted(k_vid),
-                                  permuted(v_vid), window=window)
+    qq, kk, vv = permuted(q_vid), permuted(k_vid), permuted(v_vid)
+    if fuse_cross:
+        # the group concat keeps the head order, so the unpermuted global kv
+        # lines up per head; the global softmax does not depend on the
+        # token order, so inverse-permuting the kernel's sum gives
+        # local + cross
+        oo = swa_local_global(qq, kk, vv, ck, cv, window)
+    else:
+        oo = sliding_window_attention(qq, kk, vv, window=window)
     local = torch.cat([
         _permute_tokens(g, num_frames, height, width, order, inverse=True)
         for g, order in zip(torch.tensor_split(oo, len(_AXIS_ORDERS), dim=1),
                             _AXIS_ORDERS)], dim=1)
+    # reference: video = local + cross_video; text = 2 x cross_text
+    if cross_vid is None:
+        return cross_txt * 2.0, local
     return cross_txt * 2.0, local + cross_vid
+
+
+def swa_joint_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        text_len: int, num_frames: int, height: int,
+                        width: int, cross_attention_size: int = 1024,
+                        fuse_cross: bool = False) -> torch.Tensor:
+    """SWA over joint (text, video) tokens [B, H, S, D] -> the same shape;
+    the concat-input form of swa_attention_streams."""
+    out_text, out_vid = swa_attention_streams(
+        q[:, :, :text_len], k[:, :, :text_len], v[:, :, :text_len],
+        q[:, :, text_len:], k[:, :, text_len:], v[:, :, text_len:],
+        num_frames=num_frames, height=height, width=width,
+        cross_attention_size=cross_attention_size, fuse_cross=fuse_cross)
+    return torch.cat([out_text, out_vid], dim=2)

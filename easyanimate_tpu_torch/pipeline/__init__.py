@@ -1,5 +1,8 @@
-"""Text-to-video pipeline and its sampler."""
+"""Text-to-video and inpaint (image/video-to-video) pipelines and their
+sampler."""
+from .inpaint import EasyAnimateInpaintPipeline
 from .schedulers import FlowMatchEulerConfig
 from .t2v import EasyAnimatePipeline, build_rope
 
-__all__ = ["EasyAnimatePipeline", "FlowMatchEulerConfig", "build_rope"]
+__all__ = ["EasyAnimateInpaintPipeline", "EasyAnimatePipeline",
+           "FlowMatchEulerConfig", "build_rope"]

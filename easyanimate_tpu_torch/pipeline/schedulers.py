@@ -39,6 +39,15 @@ def flow_match_schedule(cfg: FlowMatchEulerConfig, num_inference_steps: int,
     return timesteps, sigmas
 
 
+def flow_match_per_step(cfg: FlowMatchEulerConfig, num_inference_steps: int,
+                        t_start: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """The schedule from step t_start on (JAX schedule_arrays'
+    per_step[t_start:], the reference get_timesteps for `strength`):
+    (timesteps [N - t_start], sigmas [N - t_start + 1])."""
+    timesteps, sigmas = flow_match_schedule(cfg, num_inference_steps, mu=1.0)
+    return timesteps[t_start:], sigmas[t_start:]
+
+
 def flow_match_step(sample: torch.Tensor, model_output: torch.Tensor,
                     sigma: float, sigma_next: float) -> torch.Tensor:
     """x_{t-1} = x_t + (sigma_next - sigma) * v, updated in float32."""

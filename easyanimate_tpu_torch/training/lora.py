@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import optim
 from .losses import masked_mse_loss
 from .trainer import (TrainConfig, TrainState, draw_flow_inputs,
@@ -188,7 +189,10 @@ def save_lora(path: str, lora: LoRA, cfg: LoRAConfig) -> None:
 
 
 def load_lora(path: str, device=None) -> Tuple[LoRA, LoRAConfig]:
+    """save_lora's files -> (LoRA with float32 factors on `device`, the card
+    by default; LoRAConfig)."""
     path = _npz_path(path)
+    device = resolve_device(device)
     lora: LoRA = {}
     with np.load(path) as data:
         for k in data.files:

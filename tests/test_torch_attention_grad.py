@@ -250,7 +250,7 @@ def test_tiny_model_grads_match_jax(rng, swa_layers):
     grads = {}
     for remat in (True, False):
         port = EasyAnimateTransformer3D(dataclasses.replace(
-            port_mmdit_cfg(jcfg), remat=remat))
+            port_mmdit_cfg(jcfg), remat=remat), device="cpu")
         load_reference_state_dict(port, sd)
         pred = port(*map(torch.from_numpy, (lat, t, txt)),
                     (torch.from_numpy(cos), torch.from_numpy(sin)))

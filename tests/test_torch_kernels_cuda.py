@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels (forward K1/K2, backward K3/K4 and
-K6/K7) against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
+"""The port's hand-written CUDA kernels (forward K1/K2/K5, backward K3/K4
+and K6/K7) against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
 skips without one; the CPU tests (test_torch_ops.py) hold the plain versions
 against the JAX package.
 
@@ -160,3 +160,57 @@ def test_bwd_kernels_reject_bad_inputs_on_card(cuda_device):
                           device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_bwd(x, x, x, x, lse, strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sg,window,d", [
+    (1000, 1027, 100, 64), (777, 300, 63, 32), (300, 45, 500, 16),
+    (3001, 1027, 300, 64)])
+def test_swa_fused_kernel_matches_plain_on_card(cuda_device, s, sg, window, d):
+    """K5 against its plain version: S not a multiple of 64, a ragged global
+    set, and a window wider than S."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(4, s, d, generator=g, device=cuda_device
+                           ).to(torch.bfloat16) for _ in range(3))
+    gk, gv = (torch.randn(4, sg, d, generator=g, device=cuda_device
+                          ).to(torch.bfloat16) for _ in range(2))
+    q = (q.float() * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    before = tswa.swa_local_global_fwd.launches
+    o = tswa.swa_local_global_fwd(q, k, v, gk, gv, window)
+    torch.cuda.synchronize()
+    assert tswa.swa_local_global_fwd.launches == before + 1
+    # bf16 output and the kernel's bf16 p before p @ v, in both halves
+    _close(o.float(), tswa.swa_local_global_plain(q, k, v, gk, gv,
+                                                  window).float(), 2e-2)
+
+
+@pytest.mark.cuda
+def test_swa_local_global_grads_match_unfused_pair_on_card(cuda_device):
+    """SwaLocalGlobal's backward equals the unfused pair's on the card:
+    sliding_window_attention + attention over the global set, from the same
+    cotangent. dk, dv and the global gradients go through the same kernels;
+    dq sums the two halves in float32 before rounding."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    b, h, s, sg, d, window = 1, 4, 1000, 300, 64, 100
+    mk = lambda n: torch.randn(b, h, n, d, generator=g, device=cuda_device
+                               ).to(torch.bfloat16).requires_grad_(True)
+    q, k, v, gk, gv = mk(s), mk(s), mk(s), mk(sg), mk(sg)
+    do = torch.randn(b, h, s, d, generator=g, device=cuda_device
+                     ).to(torch.bfloat16)
+    fused = tswa.swa_local_global(q, k, v, gk, gv, window)
+    got = torch.autograd.grad(fused, (q, k, v, gk, gv), do)
+    pair = (tswa.sliding_window_attention(q, k, v, window=window)
+            + tattn.attention(q, gk, gv))
+    want = torch.autograd.grad(pair, (q, k, v, gk, gv), do)
+    _close(fused.float(), pair.float(), 2e-2)
+    for a, w in zip(got, want):
+        _grad_close(a, w)
+
+
+@pytest.mark.cuda
+def test_swa_fused_kernel_rejects_bad_inputs_on_card(cuda_device):
+    x = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        tswa.swa_local_global_fwd(x, x, x, x.float(), x, 4)
+    with pytest.raises(ValueError, match="shapes"):
+        tswa.swa_local_global_fwd(x, x, x, x[:1], x, 4)

@@ -145,7 +145,7 @@ def test_tiny_transformer_matches_jax(rng, swa_layers):
     want = model.apply(variables, jnp.asarray(lat), jnp.asarray(t),
                        jnp.asarray(txt), (jnp.asarray(cos), jnp.asarray(sin)))
 
-    port = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg))
+    port = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg), device="cpu")
     load_reference_state_dict(port, sd)
     with torch.no_grad():
         got = port(torch.from_numpy(lat), torch.from_numpy(t),
@@ -156,7 +156,7 @@ def test_tiny_transformer_matches_jax(rng, swa_layers):
 
 
 def test_load_reference_state_dict_is_strict():
-    port = EasyAnimateTransformer3D(PRESETS["tiny"])
+    port = EasyAnimateTransformer3D(PRESETS["tiny"], device="cpu")
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     load_reference_state_dict(port, sd)  # exact key set loads
     missing = dict(sd)
@@ -169,10 +169,9 @@ def test_load_reference_state_dict_is_strict():
 
 
 def test_presets_match_jax_and_12b_parameter_count():
-    for name in ("v5.1-12b", "v5.1-7b", "tiny"):
+    for name in ("v5.1-12b", "v5.1-12b-inpaint", "v5.1-7b", "tiny"):
         assert PRESETS[name] == port_mmdit_cfg(JAX_PRESETS[name]), name
-    with torch.device("meta"):
-        model = EasyAnimateTransformer3D(PRESETS["v5.1-12b"])
+    model = EasyAnimateTransformer3D(PRESETS["v5.1-12b"], device="meta")
     n = sum(p.numel() for p in model.parameters())
     assert 11.7e9 < n < 11.9e9, n
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
@@ -180,9 +179,9 @@ def test_presets_match_jax_and_12b_parameter_count():
 
 def test_init_random_fills_from_generator():
     cfg = dataclasses.replace(PRESETS["tiny"], num_layers=1)
-    a = init_random_(EasyAnimateTransformer3D(cfg),
+    a = init_random_(EasyAnimateTransformer3D(cfg, device="cpu"),
                      torch.Generator().manual_seed(3))
-    b = init_random_(EasyAnimateTransformer3D(cfg),
+    b = init_random_(EasyAnimateTransformer3D(cfg, device="cpu"),
                      torch.Generator().manual_seed(3))
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(pa, pb), name

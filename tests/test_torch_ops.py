@@ -271,8 +271,9 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'easyanimate_tpu')]\n"
         "assert not bad, bad\n"
-        "need = {'easyanimate_tpu_torch.training.' + m for m in "
-        "('losses', 'optim', 'trainer', 'lora')}\n"
+        "need = {'easyanimate_tpu_torch.' + m for m in "
+        "('training.losses', 'training.optim', 'training.trainer', "
+        "'training.lora', 'pipeline.inpaint', 'utils.media')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

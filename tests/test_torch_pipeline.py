@@ -63,14 +63,14 @@ def test_flow_step_and_cfg_rescale_match_jax(rng):
 def test_build_rope_and_latent_shape_match_jax():
     cfg = JAX_PRESETS["v5.1-12b"]
     cos_j, sin_j = jax_build_rope(cfg, 384, 672, 13)
-    cos_t, sin_t = build_rope(port_mmdit_cfg(cfg), 384, 672, 13)
+    cos_t, sin_t = build_rope(port_mmdit_cfg(cfg), 384, 672, 13, device="cpu")
     assert cos_t.shape == (13 * 24 * 42, 64)
     np.testing.assert_array_equal(cos_t.numpy(), np.asarray(cos_j))
     np.testing.assert_array_equal(sin_t.numpy(), np.asarray(sin_j))
     vae_cfg = port_vae_cfg(type(JAX_TINY_VAE)())
     assert latent_frame_count(49, vae_cfg) == 13
-    with torch.device("meta"):
-        pipe = EasyAnimatePipeline(None, AutoencoderKLMagvit(vae_cfg), "meta")
+    pipe = EasyAnimatePipeline(None, AutoencoderKLMagvit(vae_cfg, device="meta"),
+                               "meta")
     assert pipe.latent_shape(1, 49, 384, 672) == (1, 16, 13, 48, 84)
 
 
@@ -84,9 +84,9 @@ def test_t2v_slice_matches_jax(rng, swa_layers):
     jpipe = JaxPipeline(transformer=jmodel, vae=jvae,
                         transformer_params=jparams, vae_params=vparams)
 
-    transformer = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg))
+    transformer = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg), device="cpu")
     load_reference_state_dict(transformer, mmdit_sd)
-    vae = AutoencoderKLMagvit(port_vae_cfg(JAX_TINY_VAE))
+    vae = AutoencoderKLMagvit(port_vae_cfg(JAX_TINY_VAE), device="cpu")
     load_reference_state_dict(vae, vae_sd)
     pipe = EasyAnimatePipeline(transformer, vae, "cpu")
 

@@ -209,7 +209,7 @@ def _tiny(rng, text_len=5):
     exported weights in a port model, and one batch for both."""
     jcfg = dataclasses.replace(JAX_PRESETS["tiny"], attn_impl="xla")
     model, variables, sd = export_jax_mmdit(jcfg)
-    port = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg))
+    port = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg), device="cpu")
     load_reference_state_dict(port, sd)
     f, hh, ww = 2, 8, 8
     lat = rng.standard_normal((1, jcfg.in_channels, f, hh, ww)).astype(np.float32)
@@ -302,7 +302,8 @@ def test_lora_steps_match_jax(rng):
             jax.random.PRNGKey(i), f["up"].shape)}
         for i, (p, f) in enumerate(sorted(jstate.params.items()))})
     lora, lcfg = load_reference_lora_state_dict(
-        port, jconvert.export_lora_state_dict(jstate.params, jlcfg.alpha, jcfg))
+        port, jconvert.export_lora_state_dict(jstate.params, jlcfg.alpha, jcfg),
+        device="cpu")
     assert lcfg == tlcfg
     assert set(lora) == set(tlora.target_modules(port, tlcfg))
     tinit, tstep = tlora.make_lora_train_step(port, tcfg, tlcfg)
@@ -360,7 +361,7 @@ def test_lora_carries_across_and_merges_like_jax(rng, tmp_path):
         rng.standard_normal(f["up"].shape).astype(np.float32) * 0.1)}
         for p, f in jl.items()}
     sd = jconvert.export_lora_state_dict(jl, jlcfg.alpha, jcfg)
-    lora, lcfg = load_reference_lora_state_dict(port, sd)
+    lora, lcfg = load_reference_lora_state_dict(port, sd, device="cpu")
     assert (lcfg.rank, lcfg.alpha) == (4, 8.0)
     back = export_lora_state_dict(lora, lcfg.alpha)
     assert set(back) == set(sd)
@@ -387,7 +388,7 @@ def test_lora_carries_across_and_merges_like_jax(rng, tmp_path):
     tlora.unmerge_lora(port, lora, lcfg)
 
     tlora.save_lora(str(tmp_path / "lora"), lora, lcfg)
-    loaded, cfg2 = tlora.load_lora(str(tmp_path / "lora.npz"))
+    loaded, cfg2 = tlora.load_lora(str(tmp_path / "lora.npz"), device="cpu")
     assert cfg2 == lcfg
     for p, f in lora.items():
         for kind, t in f.items():
