@@ -4,7 +4,9 @@
 
 Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
-  build      the CUDA kernels built from easyanimate_tpu_torch/csrc
+  build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
+             registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
+             K1's TMA + wgmma kernel
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes, with kernel / plain /
@@ -27,8 +29,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
              4 layers: layer 0 dense, 1-3 SWA
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after. Then the per-kernel JSON line and, last, the
-device line.
+and checks them just after, and that every K1 launch (d 64) ran the TMA +
+wgmma kernel. Then the per-kernel JSON line and, last, the device line.
 """
 import argparse
 import dataclasses
@@ -61,6 +63,10 @@ from easyanimate_tpu_torch.utils.media import get_image_to_video_latent
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
 O_BOUND = 2e-2    # bf16 o (8-bit mantissa) and the kernel's bf16 p before p @ v
+# the same, as max |kernel - plain| over max |plain|: at the flagship, q
+# pre-scaled and 13,360 keys, |o| stays below ~0.1, so O_BOUND alone would
+# pass an o that is 20% off everywhere; this one would not
+O_REL_BOUND = 2e-2
 LSE_BOUND = 1e-3  # float32 sums of the same float32 scores, another order
 # backward, max |kernel - plain| over max |plain| per gradient: the kernels
 # round p and ds to bf16 before the products and store bf16 (relative
@@ -88,6 +94,7 @@ PEAK_BYTES = 3.35e12
 # flagship shapes: dense joint attention, the 6-direction band over the
 # video tokens (window = one frame), the 256 + 771 global rows
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
+K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
 
 
 def emit(obj):
@@ -135,6 +142,9 @@ def kernel_bounds():
         4 * mat(S_VID) + 2 * stat(S_VID)       # q, k, v, do, lse, di
     return {
         "K1": bound(2 * dense, 4 * mat(S_DENSE) + stat(S_DENSE)),
+        # the SWA cross pass: 13,360 queries over the 1,027 global rows
+        "K1 cross": bound(2 * 2 * bh * S_DENSE * S_GLOBAL * d,
+                          2 * mat(S_DENSE) + 2 * mat(S_GLOBAL) + stat(S_DENSE)),
         "K2": bound(2 * band, 4 * mat(S_VID) + stat(S_VID)),
         "K3": bound(3 * dense, ins_dense + mat(S_DENSE)),
         "K4": bound(4 * dense, ins_dense + 2 * mat(S_DENSE)),
@@ -186,11 +196,25 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernels; report K1's TMA + wgmma kernel as ptxas and
+    cuobjdump see it, and fail unless its SASS issues wgmma (HGMMA) and
+    TMA loads (UTMALDG)."""
     t0 = time.perf_counter()
     lib = _build.build_library()
     _build.load_library()
-    emit({"phase": "build", "library": lib.name,
-          "seconds": time.perf_counter() - t0})
+    seconds = time.perf_counter() - t0
+    ptxas = _build.ptxas_report(K1_SM90)
+    sass = _build.sass_counts(K1_SM90, ("HGMMA", "UTMALDG", "UTMASTG",
+                                        "USETMAXREG", "STL", "LDL"))
+    # which warp role spills: the spills' addresses against each role's
+    # setmaxnreg, its TMA loads or wgmma, and the exits
+    sites = _build.sass_sites(K1_SM90, ("STL", "LDL", "USETMAXREG", "HGMMA",
+                                        "UTMALDG", "UTMASTG", "EXIT"))
+    emit({"phase": "build", "library": lib.name, "seconds": seconds,
+          "k1_sm90": {"ptxas": ptxas, "sass": sass, "sass_sites": sites}})
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise AssertionError(f"{K1_SM90} issues no wgmma or no TMA load: {sass}")
+    return {"ptxas": ptxas, "sass": sass}
 
 
 def _compare(name, fwd, plain, args):
@@ -198,15 +222,17 @@ def _compare(name, fwd, plain, args):
     torch.cuda.synchronize()
     o_p, lse_p = plain(*args)
     err_o = (o.float() - o_p.float()).abs().max().item()
+    rel_o = err_o / o_p.float().abs().max().item()
     err_l = (lse - lse_p).abs().max().item()
-    ok = err_o <= O_BOUND and err_l <= LSE_BOUND
+    ok = err_o <= O_BOUND and rel_o <= O_REL_BOUND and err_l <= LSE_BOUND
     emit({"phase": "kernels", "case": name, "shape": [list(a.shape) for a in args
                                                       if torch.is_tensor(a)],
-          "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
-          "bound_o": O_BOUND, "bound_lse": LSE_BOUND, "ok": ok})
+          "max_abs_err_o": err_o, "rel_err_o": rel_o, "max_abs_err_lse": err_l,
+          "bound_o": O_BOUND, "bound_rel_o": O_REL_BOUND,
+          "bound_lse": LSE_BOUND, "ok": ok})
     if not ok:
         raise AssertionError(f"kernel {name} disagrees with its plain version")
-    return err_o
+    return err_o, rel_o
 
 
 def _compare_fused(name, args):
@@ -214,14 +240,17 @@ def _compare_fused(name, args):
     none)."""
     o = swa_local_global_fwd(*args)
     torch.cuda.synchronize()
-    err = (o.float() - swa_local_global_plain(*args).float()).abs().max().item()
-    ok = err <= O_BOUND
+    o_p = swa_local_global_plain(*args).float()
+    err = (o.float() - o_p).abs().max().item()
+    rel = err / o_p.abs().max().item()
+    ok = err <= O_BOUND and rel <= O_REL_BOUND
     emit({"phase": "kernels", "case": name,
           "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
-          "max_abs_err_o": err, "bound_o": O_BOUND, "ok": ok})
+          "max_abs_err_o": err, "rel_err_o": rel, "bound_o": O_BOUND,
+          "bound_rel_o": O_REL_BOUND, "ok": ok})
     if not ok:
         raise AssertionError(f"kernel {name} disagrees with its plain version")
-    return err
+    return err, rel
 
 
 def phase_kernels(gen):
@@ -233,10 +262,13 @@ def phase_kernels(gen):
 
     qs = 64 ** -0.5 * LOG2E  # the wrappers' pre-scale of q
     stats = {}
-    # K1: dense joint attention, SWA cross pass, ragged + kv_valid < S
+    # K1: dense joint attention (also with kv_valid inside the last kv
+    # tile), SWA cross pass, ragged + kv_valid < S, ragged heads
     q, k, v = rand(96, 13360, 64, scale=qs), rand(96, 13360, 64), rand(96, 13360, 64)
     errs = [_compare("K1 dense", flash_attention_fwd, flash_attention_plain,
-                     (q, k, v, 13360))]
+                     (q, k, v, 13360)),
+            _compare("K1 dense kv_valid 13000", flash_attention_fwd,
+                     flash_attention_plain, (q, k, v, 13000))]
     stats["K1"] = {
         "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), 5),
         "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2)}
@@ -249,11 +281,24 @@ def phase_kernels(gen):
     stats["K1"]["cross_ms"] = cuda_ms(lambda: flash_attention_fwd(q, kc, vc), 5)
     stats["K1"]["cross_plain_ms"] = cuda_ms(
         lambda: flash_attention_plain(q, kc, vc), 2)
-    del q, k, v, q4, k4, v4, kc, vc
+    g4, h4 = (x.view(2, 48, S_GLOBAL, 64) for x in (kc, vc))
+    stats["K1"]["cross_sdpa_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q4, g4, h4), 5)
+    del q, k, v, q4, k4, v4, kc, vc, g4, h4
     qr, kr, vr = rand(16, 1001, 64, scale=qs), rand(16, 1100, 64), rand(16, 1100, 64)
     errs.append(_compare("K1 ragged kv_valid 1037", flash_attention_fwd,
                          flash_attention_plain, (qr, kr, vr, 1037)))
-    stats["K1"]["max_abs_err"] = max(errs)
+    # 12 heads of 1001 rows (not a multiple of the 128-row tiles), each head
+    # offset by its own mean: a tile that read or wrote across a head's end
+    # would carry another head's values
+    shift = torch.arange(12, device=dev).view(12, 1, 1) % 3 - 1.0
+    qh = rand(12, 1001, 64, scale=qs)
+    kh, vh = ((rand(12, 1001, 64).float() + shift).to(torch.bfloat16)
+              for _ in range(2))
+    errs.append(_compare("K1 ragged heads sq 1001", flash_attention_fwd,
+                         flash_attention_plain, (qh, kh, vh, 1001)))
+    stats["K1"].update(max_abs_err=max(e[0] for e in errs),
+                       max_rel_err=max(e[1] for e in errs))
 
     # K2: all 6 permuted head groups in one call, window = one frame
     q, k, v = rand(96, 13104, 64, scale=qs), rand(96, 13104, 64), rand(96, 13104, 64)
@@ -291,11 +336,13 @@ def phase_kernels(gen):
     qr, kr, vr = rand(8, 3001, 64, scale=qs), rand(8, 3001, 64), rand(8, 3001, 64)
     errs.append(_compare("K2 ragged 3001 window 300", sliding_window_fwd,
                          sliding_window_plain, (qr, kr, vr, 300)))
-    stats["K2"]["max_abs_err"] = max(errs)
+    stats["K2"].update(max_abs_err=max(e[0] for e in errs),
+                       max_rel_err=max(e[1] for e in errs))
     gr, hr = rand(8, 300, 64), rand(8, 300, 64)
     errs5.append(_compare_fused("K5 ragged 3001 window 300 global 300",
                                 (qr, kr, vr, gr, hr, 300)))
-    stats["K5"]["max_abs_err"] = max(errs5)
+    stats["K5"].update(max_abs_err=max(e[0] for e in errs5),
+                       max_rel_err=max(e[1] for e in errs5))
     emit({"phase": "kernels", "times_ms": stats,
           "note": "sdpa_ms, library_ms and sdpa_band_plus_cross_ms are "
                   "yardsticks, not on the path"})
@@ -750,6 +797,8 @@ def phase_swa_fused(ins, cot, fused):
 
 
 DEVICE = torch.device("cuda")
+# flash_attention_fwd.launches_sm90 counts the K1 launches that ran the
+# TMA + wgmma kernel (d 64); every main path runs at d 64
 COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
             "K3": flash_attention_bwd, "K4": flash_attention_bwd,
             "K5": swa_local_global_fwd,
@@ -761,6 +810,7 @@ def reset_counts():
     flash_attention_bwd call launches both), as do K6 and K7."""
     for fn in COUNTERS.values():
         fn.launches = 0
+    flash_attention_fwd.launches_sm90 = 0
 
 
 def read_counts():
@@ -894,7 +944,7 @@ def main():
     args = ap.parse_args()
 
     phase_device()
-    phase_build()
+    build = phase_build()
     stats = phase_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
     torch.cuda.synchronize()
     stats.update(phase_kernels_bwd(
@@ -908,16 +958,24 @@ def main():
 
     model, vae = build_12b(args.seed)
     totals = dict.fromkeys(COUNTERS, 0)
+    totals_sm90 = 0  # flash_attention_fwd.launches_sm90 over the path runs
 
     def path_run(phase, fn, expect=None):
-        """One main-path run: counts set to 0 just before, read just after."""
+        """One main-path run: counts set to 0 just before, read just after;
+        every K1 launch (d 64) ran the TMA + wgmma kernel."""
+        nonlocal totals_sm90
         reset_counts()
         result = fn()
         got = read_counts()
+        sm90 = flash_attention_fwd.launches_sm90
         if expect is not None and got != expect:
             raise AssertionError(f"{phase} launches {got} != {expect}")
+        if sm90 != got["K1"]:
+            raise AssertionError(
+                f"{phase}: {sm90} of {got['K1']} K1 launches ran {K1_SM90}")
         for k, n in got.items():
             totals[k] += n
+        totals_sm90 += sm90
         torch.cuda.synchronize()
         return result
 
@@ -988,9 +1046,26 @@ def main():
             out["max_rel_err"] = st["max_rel_err"]
         return out
 
+    k1 = row("K1", "flash_attention_fwd", "flash_fwd.cu",
+             "easyanimate_tpu/ops/flash_attention.py:92")
+    k1.update(
+        sources=[f"easyanimate_tpu_torch/csrc/{f}"
+                 for f in ("flash_fwd.cu", "hopper.cuh")],
+        kernel=K1_SM90, launches_sm90=totals_sm90,
+        tflops=2 * 2 * BH * S_DENSE ** 2 * HEAD_DIM / k1["ms"] / 1e9,
+        share_of_bound=bounds["K1"][0] / k1["ms"],
+        cross_ms=stats["K1"]["cross_ms"],
+        cross_plain_ms=stats["K1"]["cross_plain_ms"],
+        cross_bound_ms=bounds["K1 cross"][0],
+        cross_bound_by=bounds["K1 cross"][1],
+        cross_library_ms=stats["K1"]["cross_sdpa_ms"],
+        cross_share_of_bound=bounds["K1 cross"][0] / stats["K1"]["cross_ms"],
+        registers=build["ptxas"].get("registers"),
+        spill_bytes=(build["ptxas"].get("spill_store_bytes", 0)
+                     + build["ptxas"].get("spill_load_bytes", 0)),
+        sass=build["sass"])
     emit({"kernels": [
-        row("K1", "flash_attention_fwd", "flash_fwd.cu",
-            "easyanimate_tpu/ops/flash_attention.py:92"),
+        k1,
         row("K2", "sliding_window_fwd", "swa_fwd.cu",
             "easyanimate_tpu/ops/swa.py:32"),
         row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
@@ -1005,7 +1080,11 @@ def main():
             "easyanimate_tpu/ops/swa.py:429"),
     ], "note": "max_abs_err: max |kernel - plain| over the cases (o for "
                "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
-               "over max |plain|, the bound's measure. K3/K4 and K6/K7 "
+               "over max |plain|, the bound's measure. K1: ms at the dense "
+               "flagship, cross_* at the SWA cross pass (13360 x 1027), "
+               "library = SDPA; every path launch ran its TMA + wgmma kernel "
+               "(launches_sm90). "
+               "K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "
                "kernels' gradients. K2 library_ms: SDPA with the band mask. "

@@ -1,5 +1,6 @@
-// Shared forward-attention body of the Hopper forward kernels (flash_fwd.cu:
-// dense, swa_fwd.cu: banded, swa_fused_fwd.cu: banded + global).
+// The mma.sync forward-attention body of K2 (swa_fwd.cu: banded) and K5
+// (swa_fused_fwd.cu: banded + global), and of K1 (flash_fwd.cu: dense) at
+// head dims 16 and 32 only; K1 at d 64 is flash_fwd.cu's TMA + wgmma kernel.
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -24,7 +25,8 @@
 // What bounds it on an H100: at head_dim 64 each kv element loaded from
 // shared memory feeds 64 q rows, and the mma.sync path reaches a fraction
 // of the wgmma peak; with no load/compute overlap the tensor cores idle
-// during every tile load. TMA + wgmma + a producer warp are later work.
+// during every tile load. hopper.cuh holds the TMA + wgmma + producer
+// warpgroup pieces K1 moved onto; K2 and K5 are to follow.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -226,7 +228,7 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-// kWindowed == false: columns j < kv_len are visible (dense, K1).
+// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16, 32).
 // kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
 template <int D, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
@@ -314,9 +316,14 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
           qp, kp, vp, op, lp, sq, skv, kv_len, window);
       break;
     case 64:
-      attn_fwd_kernel<64, kWindowed><<<grid, block, 0, st>>>(
-          qp, kp, vp, op, lp, sq, skv, kv_len, window);
-      break;
+      // dense d 64 is flash_fwd.cu's TMA + wgmma kernel: no instance here
+      if constexpr (kWindowed) {
+        attn_fwd_kernel<64, kWindowed><<<grid, block, 0, st>>>(
+            qp, kp, vp, op, lp, sq, skv, kv_len, window);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,7 +4,8 @@ Each source is compiled with nvcc for sm_90a into an object file, all of
 them at once in parallel, and the objects are linked into one shared
 library with a plain C interface, which is loaded with ctypes. The library
 lands in `build/kernels/` at the repository root, named by a hash of the
-sources and flags, so it is rebuilt only when a source changes. There is no
+sources and flags, so it is rebuilt only when a source changes; ptxas's
+per-kernel report (registers, spills) is kept beside it. There is no
 fallback: a missing nvcc or a failed build raises with the compiler's
 output.
 """
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,14 +25,21 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 HEAD_DIMS = (16, 32, 64)
+
+# csrc/hopper.cuh::kTensorMapError: an entry point returns it plus the
+# CUresult when cuTensorMapEncodeTiled refuses a tensor map
+TENSOR_MAP_ERROR = 10000
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, lse, bh, sq, skv, kv_valid, head_dim, stream
     "ea_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # head_dim -> 1 if ea_flash_fwd_bf16 runs the TMA + wgmma kernel
+    "ea_flash_fwd_uses_sm90": (_I,),
     # q, k, v, o, lse, bh, s, window, head_dim, stream
     "ea_swa_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, gk, gv, o, bh, s, sg, window, head_dim, stream
@@ -61,6 +70,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _ptxas_log(lib: Path) -> Path:
+    return lib.with_name(lib.stem + ".ptxas.txt")
+
+
 def build_library() -> Path:
     """Compile csrc/*.cu into build/kernels/ unless a library for the same
     sources and flags is already there. Returns the library path."""
@@ -85,13 +98,15 @@ def build_library() -> Path:
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
                  for src, obj in zip(cu, objs)]
-        failed = []
+        failed, logs = [], []
         for src, proc in zip(cu, procs):
             out, err = proc.communicate()
+            logs.append(f"== {src.name}\n{out}{err}")
             if proc.returncode != 0:
                 failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        _ptxas_log(lib).write_text("\n".join(logs))
         so = os.path.join(tmp, lib.name)
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -101,6 +116,62 @@ def build_library() -> Path:
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(so, lib)  # atomic: a concurrent loader never sees half a file
     return lib
+
+
+def ptxas_report(kernel: str) -> dict:
+    """What ptxas reported for the first entry function whose mangled name
+    contains `kernel`: registers, stack and spill bytes, and every warning
+    line of the build."""
+    lines = _ptxas_log(build_library()).read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    out.update(stack_bytes=int(m[1]),
+                               spill_store_bytes=int(m[2]),
+                               spill_load_bytes=int(m[3]))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m[1])
+                    break
+            break
+    out["warnings"] = [x.strip() for x in lines if "warning" in x.lower()]
+    return out
+
+
+def _sass_function(kernel: str) -> str:
+    """cuobjdump -sass (next to nvcc) of the built library's function whose
+    name contains `kernel`."""
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build_library())],
+                          capture_output=True, text=True, check=True).stdout
+    for section in sass.split("Function : ")[1:]:
+        name, body = section.split("\n", 1)
+        if kernel in name:
+            return body
+    raise RuntimeError(f"no function matching {kernel!r} in the library's SASS")
+
+
+def sass_counts(kernel: str, opcodes) -> dict:
+    """How many SASS instructions of each opcode (e.g. HGMMA, UTMALDG) the
+    function whose name contains `kernel` holds."""
+    body = _sass_function(kernel)
+    return {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
+
+
+def sass_sites(kernel: str, opcodes) -> list:
+    """The instructions of those opcodes in that function, in address order,
+    as "address: instruction" strings (where a spill sits against the
+    warp roles' setmaxnreg and wgmma)."""
+    sites = []
+    for line in _sass_function(kernel).splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and any(re.search(rf"\b{op}\b", m[2]) for op in opcodes):
+            sites.append(f"{m[1]}: {m[2]}")
+    return sites
 
 
 @functools.cache
@@ -149,5 +220,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     fn = getattr(load_library(), name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - TENSOR_MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

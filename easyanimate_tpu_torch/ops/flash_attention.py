@@ -1,5 +1,6 @@
 """Dense attention over [bh, S, d]: the hand-written Hopper kernels
-(csrc/flash_fwd.cu, K1; csrc/flash_bwd.cu, K3 and K4), their plain PyTorch
+(csrc/flash_fwd.cu, K1: TMA + wgmma at d 64; csrc/flash_bwd.cu, K3 and K4),
+their plain PyTorch
 versions, and the autograd Function that joins them.
 
 All take q pre-scaled by sm_scale * log2(e) (ops/attention.py folds it in
@@ -63,7 +64,8 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 
     A CUDA tensor launches K1 (bf16, d in 16/32/64, contiguous) or raises; a
     CPU tensor takes flash_attention_plain. `flash_attention_fwd.launches`
-    counts kernel launches."""
+    counts kernel launches, `.launches_sm90` those that ran the TMA + wgmma
+    kernel (d 64; d 16 and 32 run the mma.sync one)."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
@@ -79,10 +81,13 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                   kf.data_ptr(), vf.data_ptr(), o.data_ptr(), lse.data_ptr(),
                   bh, sq, skv, kv_valid, d)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_sm90 += _build.load_library(
+        ).ea_flash_fwd_uses_sm90(d)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_sm90 = 0
 
 
 def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

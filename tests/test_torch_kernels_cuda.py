@@ -32,15 +32,22 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,kv_valid,d", [
     (256, 256, 256, 64), (333, 1027, 1000, 64), (100, 70, 70, 32),
-    (65, 129, 129, 16)])
+    (65, 129, 129, 16),
+    # d 64 runs the TMA + wgmma kernel (128 q rows x 128 kv rows a tile):
+    # exactly one tile; kv_valid inside the last kv tile; kv_valid on a
+    # tile boundary with rows past it; one q row; the SWA cross pass cut
+    (128, 128, 128, 64), (129, 257, 200, 64), (300, 1100, 1024, 64),
+    (1, 300, 300, 64), (1337, 1027, 1027, 64)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(4, n, d, generator=g, device=cuda_device
                            ).to(torch.bfloat16) for n in (sq, skv, skv))
     before = tfa.flash_attention_fwd.launches
+    before_sm90 = tfa.flash_attention_fwd.launches_sm90
     o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
+    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (d == 64)
     o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
     # bf16 output and the kernel's bf16 p before p @ v
     _close(o.float(), o_p.float(), 2e-2)

@@ -306,6 +306,87 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "kernels").exists()
 
 
+PTXAS_LOG = """== flash_fwd.cu
+ptxas info    : Compiling entry function '_ZN2ea3k1_attn_kernel' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ea3k1_attn_kernel
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 27648 bytes smem
+ptxas info    : Compiling entry function '_ZN2ea2k114flash_fwd_sm90E' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ea2k114flash_fwd_sm90E
+    16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers
+ptxas warning : (C7508) setmaxnreg ignored
+"""
+
+
+def test_ptxas_report_reads_the_kept_build_log(monkeypatch, tmp_path):
+    lib = tmp_path / "libea_kernels_0.so"
+    monkeypatch.setattr(_build, "build_library", lambda: lib)
+    _build._ptxas_log(lib).write_text(PTXAS_LOG)
+    assert _build.ptxas_report("flash_fwd_sm90") == {
+        "stack_bytes": 16, "spill_store_bytes": 16, "spill_load_bytes": 12,
+        "registers": 128,
+        "warnings": ["ptxas warning : (C7508) setmaxnreg ignored"]}
+    assert _build.ptxas_report("attn_kernel")["registers"] == 128
+
+
+SASS = """
+\t.headerflags\t@"EF_CUDA_SM90"
+\t\tFunction : _ZN2ea10attn_fwd_kernelILi16ELb0EEEvPKv
+        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT ;  /* 0x0 */
+\t\tFunction : _ZN2ea2k114flash_fwd_sm90E14CUtensorMap_st
+        /*02e0*/                   USETMAXREG.TRY_ALLOC.CTAPOOL UP0, 0xa0 ;  /* 0x000000a0000079c8 */
+                                                                           /* 0x000e640008000600 */
+        /*06b0*/                   STL.64 [R1+0x8], R16 ;                    /* 0x0000081001007387 */
+        /*0810*/                   LDL.64 R16, [R1+0x8] ;                    /* 0x0000080001107983 */
+        /*0940*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT ;  /* 0x0 */
+        /*2840*/                   HGMMA.64x64x16.F32.BF16 R88, R24, gdesc[UR4].tnspB, R88 ;  /* 0x0 */
+        /*3b00*/                   UTMALDG.3D [UR8], [UR4] ;                 /* 0x0 */
+        /*3ee0*/                   EXIT ;                                    /* 0x0 */
+"""
+
+
+def test_sass_helpers_read_one_function(monkeypatch, tmp_path):
+    """sass_counts / sass_sites read only the named function of cuobjdump's
+    listing: opcode counts, and the matching instructions by address."""
+    import types
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "build_library", lambda: tmp_path / "lib.so")
+    monkeypatch.setattr(_build.subprocess, "run",
+                        lambda cmd, **kw: types.SimpleNamespace(stdout=SASS))
+    assert _build.sass_counts("flash_fwd_sm90", ("HGMMA", "STL", "LDL",
+                                                 "UTMASTG")) == {
+        "HGMMA": 2, "STL": 1, "LDL": 1, "UTMASTG": 0}
+    assert _build.sass_sites("flash_fwd_sm90", ("STL", "LDL", "USETMAXREG",
+                                                "EXIT")) == [
+        "02e0: USETMAXREG.TRY_ALLOC.CTAPOOL UP0, 0xa0",
+        "06b0: STL.64 [R1+0x8], R16", "0810: LDL.64 R16, [R1+0x8]",
+        "3ee0: EXIT"]
+    with pytest.raises(RuntimeError, match="no function matching"):
+        _build.sass_counts("flash_bwd", ("HGMMA",))
+
+
+def test_launch_raises_on_a_refused_tensor_map(monkeypatch):
+    """A C entry point returns TENSOR_MAP_ERROR + the CUresult when
+    cuTensorMapEncodeTiled fails; the wrapper raises, as on any error."""
+    import contextlib
+    import types
+
+    lib = types.SimpleNamespace(
+        ea_flash_fwd_bf16=lambda *a: _build.TENSOR_MAP_ERROR + 1,
+        ea_swa_fwd_bf16=lambda *a: 700)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled failed "
+                                           "with CUresult 1"):
+        _build.launch("ea_flash_fwd_bf16", torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        _build.launch("ea_swa_fwd_bf16", torch.device("cuda"))
+
+
 def test_kernel_input_checks_reject_cpu_and_bad_dtype():
     x = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -318,9 +399,11 @@ def test_cpu_tensors_take_plain_version_without_launch(rng):
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 40, 16))
                                 .astype(np.float32)) for _ in range(3))
     n1, n2 = tfa.flash_attention_fwd.launches, tswa.sliding_window_fwd.launches
+    n_sm90 = tfa.flash_attention_fwd.launches_sm90
     o1, l1 = tfa.flash_attention_fwd(q, k, v)
     o2, l2 = tswa.sliding_window_fwd(q, k, v, 40)  # window covers all
     assert (tfa.flash_attention_fwd.launches, tswa.sliding_window_fwd.launches
             ) == (n1, n2)
+    assert tfa.flash_attention_fwd.launches_sm90 == n_sm90
     _close(o1, o2, 1e-5)
     _close(l1, l2, 1e-5)
