@@ -6,13 +6,14 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             K1's TMA + wgmma kernel
+             the TMA + wgmma kernels (K1, and K4's dk/dv kernel)
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes, with kernel / plain /
              library (yardstick only) times and each kernel's bound
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
-             against their plain versions at the training step's shapes
+             against their plain versions at the training step's shapes,
+             with SDPA's backward at the dense and cross shapes (yardsticks)
   reference  a tiny T2V and a tiny I2V run on the card (bf16, kernels)
              against the same weights on the CPU (float32, plain versions)
   train_reference  a tiny LoRA step and a tiny SFT step, the same way
@@ -29,8 +30,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
              4 layers: layer 0 dense, 1-3 SWA
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after, and that every K1 launch (d 64) ran the TMA +
-wgmma kernel. Then the per-kernel JSON line and, last, the device line.
+and checks them just after, and that every K1 and K4 launch (d 64) ran its
+TMA + wgmma kernel. Then the per-kernel JSON line and, last, the device
+line.
 """
 import argparse
 import dataclasses
@@ -95,6 +97,7 @@ PEAK_BYTES = 3.35e12
 # video tokens (window = one frame), the 256 + 771 global rows
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
+K4_SM90 = "flash_bwd_dkv_sm90"  # K4's (csrc/flash_bwd.cu)
 
 
 def emit(obj):
@@ -138,6 +141,8 @@ def kernel_bounds():
     dense = 2 * bh * S_DENSE * S_DENSE * d      # one dense product
     band = 2 * bh * band_columns(S_VID, WINDOW) * d
     glob = 2 * bh * S_VID * S_GLOBAL * d
+    cross = 2 * bh * S_DENSE * S_GLOBAL * d     # one cross-pass product
+    ins_cross = 2 * mat(S_DENSE) + 2 * mat(S_GLOBAL) + 2 * stat(S_DENSE)
     ins_dense, ins_band = 4 * mat(S_DENSE) + 2 * stat(S_DENSE), \
         4 * mat(S_VID) + 2 * stat(S_VID)       # q, k, v, do, lse, di
     return {
@@ -148,6 +153,10 @@ def kernel_bounds():
         "K2": bound(2 * band, 4 * mat(S_VID) + stat(S_VID)),
         "K3": bound(3 * dense, ins_dense + mat(S_DENSE)),
         "K4": bound(4 * dense, ins_dense + 2 * mat(S_DENSE)),
+        # the cross pass's backward: q, do, lse, di over 13,360 rows, k, v
+        # (and dk, dv) over the 1,027 global rows
+        "K3 cross": bound(3 * cross, ins_cross + mat(S_DENSE)),
+        "K4 cross": bound(4 * cross, ins_cross + 2 * mat(S_GLOBAL)),
         "K5": bound(2 * band + 2 * glob,
                     4 * mat(S_VID) + 2 * mat(S_GLOBAL)),
         "K6": bound(3 * band, ins_band + mat(S_VID)),
@@ -196,25 +205,32 @@ def phase_device():
 
 
 def phase_build():
-    """Build the kernels; report K1's TMA + wgmma kernel as ptxas and
-    cuobjdump see it, and fail unless its SASS issues wgmma (HGMMA) and
-    TMA loads (UTMALDG)."""
+    """Build the kernels; report the TMA + wgmma kernels (K1, K4) as ptxas
+    and cuobjdump see them, and fail unless each one's SASS issues wgmma
+    (HGMMA) and TMA loads (UTMALDG)."""
     t0 = time.perf_counter()
     lib = _build.build_library()
     _build.load_library()
     seconds = time.perf_counter() - t0
-    ptxas = _build.ptxas_report(K1_SM90)
-    sass = _build.sass_counts(K1_SM90, ("HGMMA", "UTMALDG", "UTMASTG",
-                                        "USETMAXREG", "STL", "LDL"))
-    # which warp role spills: the spills' addresses against each role's
-    # setmaxnreg, its TMA loads or wgmma, and the exits
-    sites = _build.sass_sites(K1_SM90, ("STL", "LDL", "USETMAXREG", "HGMMA",
-                                        "UTMALDG", "UTMASTG", "EXIT"))
+    out, report = {}, {}
+    for key, kernel in (("K1", K1_SM90), ("K4", K4_SM90)):
+        ptxas = _build.ptxas_report(kernel)
+        sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
+                                           "USETMAXREG", "STL", "LDL"))
+        # which warp role spills: the spills' addresses against each role's
+        # setmaxnreg, its TMA loads or wgmma, and the exits
+        sites = _build.sass_sites(kernel, ("STL", "LDL", "USETMAXREG",
+                                           "HGMMA", "UTMALDG", "UTMASTG",
+                                           "EXIT"))
+        out[key] = {"ptxas": ptxas, "sass": sass}
+        report[kernel] = {"ptxas": ptxas, "sass": sass, "sass_sites": sites}
     emit({"phase": "build", "library": lib.name, "seconds": seconds,
-          "k1_sm90": {"ptxas": ptxas, "sass": sass, "sass_sites": sites}})
-    if not (sass["HGMMA"] and sass["UTMALDG"]):
-        raise AssertionError(f"{K1_SM90} issues no wgmma or no TMA load: {sass}")
-    return {"ptxas": ptxas, "sass": sass}
+          **report})
+    for kernel, r in report.items():
+        if not (r["sass"]["HGMMA"] and r["sass"]["UTMALDG"]):
+            raise AssertionError(f"{kernel} issues no wgmma or no TMA load: "
+                                 f"{r['sass']}")
+    return out
 
 
 def _compare(name, fwd, plain, args):
@@ -435,7 +451,16 @@ def phase_kernels_bwd(gen):
     errs.append(err)
     time_pair("cross_", "flash", args, (96, 13360, 1027, 1027, 64),
               flash_attention_bwd, flash_attention_bwd_plain)
-    del q, k, v, kc, vc, args
+    # yardstick: SDPA's backward (dq, dk, dv) at the cross shape
+    q4, g4, h4 = (x.view(2, 48, -1, 64).detach().requires_grad_(True)
+                  for x in (q, kc, vc))
+    do4 = args[5].view(2, 48, S_DENSE, 64)
+    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, g4, h4), 5)
+    full_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, g4, h4), (q4, g4, h4), do4), 5)
+    stats["K3"]["cross_sdpa_bwd_ms"] = stats["K4"]["cross_sdpa_bwd_ms"] = (
+        full_ms - fwd_ms)
+    del q, k, v, kc, vc, args, q4, g4, h4, do4
     qr, kr, vr = rand(16, 1001, 64, scale=qs), rand(16, 1100, 64), rand(16, 1100, 64)
     errs.append(_bwd_case("K3+K4 ragged kv_valid 1037", flash_attention_bwd,
                           flash_attention_bwd_plain, (qr, kr, vr), (1037,),
@@ -798,7 +823,8 @@ def phase_swa_fused(ins, cot, fused):
 
 DEVICE = torch.device("cuda")
 # flash_attention_fwd.launches_sm90 counts the K1 launches that ran the
-# TMA + wgmma kernel (d 64); every main path runs at d 64
+# TMA + wgmma kernel (d 64), flash_attention_bwd.launches_sm90 the K4
+# launches that ran theirs; every main path runs at d 64
 COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
             "K3": flash_attention_bwd, "K4": flash_attention_bwd,
             "K5": swa_local_global_fwd,
@@ -811,6 +837,7 @@ def reset_counts():
     for fn in COUNTERS.values():
         fn.launches = 0
     flash_attention_fwd.launches_sm90 = 0
+    flash_attention_bwd.launches_sm90 = 0
 
 
 def read_counts():
@@ -958,24 +985,26 @@ def main():
 
     model, vae = build_12b(args.seed)
     totals = dict.fromkeys(COUNTERS, 0)
-    totals_sm90 = 0  # flash_attention_fwd.launches_sm90 over the path runs
+    # launches_sm90 of K1 and K4 over the path runs
+    totals_sm90 = {"K1": 0, "K4": 0}
+    sm90_counters = {"K1": (flash_attention_fwd, K1_SM90),
+                     "K4": (flash_attention_bwd, K4_SM90)}
 
     def path_run(phase, fn, expect=None):
         """One main-path run: counts set to 0 just before, read just after;
-        every K1 launch (d 64) ran the TMA + wgmma kernel."""
-        nonlocal totals_sm90
+        every K1 and K4 launch (d 64) ran its TMA + wgmma kernel."""
         reset_counts()
         result = fn()
         got = read_counts()
-        sm90 = flash_attention_fwd.launches_sm90
         if expect is not None and got != expect:
             raise AssertionError(f"{phase} launches {got} != {expect}")
-        if sm90 != got["K1"]:
-            raise AssertionError(
-                f"{phase}: {sm90} of {got['K1']} K1 launches ran {K1_SM90}")
+        for key, (counter, kernel) in sm90_counters.items():
+            if counter.launches_sm90 != got[key]:
+                raise AssertionError(f"{phase}: {counter.launches_sm90} of "
+                                     f"{got[key]} {key} launches ran {kernel}")
+            totals_sm90[key] += counter.launches_sm90
         for k, n in got.items():
             totals[k] += n
-        totals_sm90 += sm90
         torch.cuda.synchronize()
         return result
 
@@ -1046,32 +1075,43 @@ def main():
             out["max_rel_err"] = st["max_rel_err"]
         return out
 
-    k1 = row("K1", "flash_attention_fwd", "flash_fwd.cu",
-             "easyanimate_tpu/ops/flash_attention.py:92")
-    k1.update(
-        sources=[f"easyanimate_tpu_torch/csrc/{f}"
-                 for f in ("flash_fwd.cu", "hopper.cuh")],
-        kernel=K1_SM90, launches_sm90=totals_sm90,
-        tflops=2 * 2 * BH * S_DENSE ** 2 * HEAD_DIM / k1["ms"] / 1e9,
-        share_of_bound=bounds["K1"][0] / k1["ms"],
-        cross_ms=stats["K1"]["cross_ms"],
-        cross_plain_ms=stats["K1"]["cross_plain_ms"],
-        cross_bound_ms=bounds["K1 cross"][0],
-        cross_bound_by=bounds["K1 cross"][1],
-        cross_library_ms=stats["K1"]["cross_sdpa_ms"],
-        cross_share_of_bound=bounds["K1 cross"][0] / stats["K1"]["cross_ms"],
-        registers=build["ptxas"].get("registers"),
-        spill_bytes=(build["ptxas"].get("spill_store_bytes", 0)
-                     + build["ptxas"].get("spill_load_bytes", 0)),
-        sass=build["sass"])
+    def sm90_row(out, key, src, products, cross_library):
+        """`out`, a TMA + wgmma kernel's row, with its path launches on that
+        kernel, rate and share of the bound at the flagship and the cross
+        pass, ptxas and SASS."""
+        ptxas, st = build[key]["ptxas"], stats[key]
+        out.update(
+            sources=[f"easyanimate_tpu_torch/csrc/{f}"
+                     for f in (src, "hopper.cuh")],
+            kernel=sm90_counters[key][1], launches_sm90=totals_sm90[key],
+            tflops=products * 2 * BH * S_DENSE ** 2 * HEAD_DIM / out["ms"] / 1e9,
+            share_of_bound=bounds[key][0] / out["ms"],
+            cross_ms=st["cross_ms"], cross_plain_ms=st["cross_plain_ms"],
+            cross_bound_ms=bounds[key + " cross"][0],
+            cross_bound_by=bounds[key + " cross"][1],
+            cross_library_ms=st[cross_library],
+            cross_share_of_bound=bounds[key + " cross"][0] / st["cross_ms"],
+            registers=ptxas.get("registers"),
+            spill_bytes=(ptxas.get("spill_store_bytes", 0)
+                         + ptxas.get("spill_load_bytes", 0)),
+            sass=build[key]["sass"])
+        return out
+
+    k3 = row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
+             "easyanimate_tpu/ops/flash_attention.py:228")
+    k3.update(cross_ms=stats["K3"]["cross_ms"],
+              cross_bound_ms=bounds["K3 cross"][0],
+              cross_library_ms=stats["K3"]["cross_sdpa_bwd_ms"])
     emit({"kernels": [
-        k1,
+        sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
+                     "easyanimate_tpu/ops/flash_attention.py:92"),
+                 "K1", "flash_fwd.cu", 2, "cross_sdpa_ms"),
         row("K2", "sliding_window_fwd", "swa_fwd.cu",
             "easyanimate_tpu/ops/swa.py:32"),
-        row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
-            "easyanimate_tpu/ops/flash_attention.py:228"),
-        row("K4", "flash_attention_bwd (dk, dv)", "flash_bwd.cu",
-            "easyanimate_tpu/ops/flash_attention.py:267"),
+        k3,
+        sm90_row(row("K4", "flash_attention_bwd (dk, dv)", "flash_bwd.cu",
+                     "easyanimate_tpu/ops/flash_attention.py:267"),
+                 "K4", "flash_bwd.cu", 4, "cross_sdpa_bwd_ms"),
         row("K5", "swa_local_global_fwd", "swa_fused_fwd.cu",
             "easyanimate_tpu/ops/swa.py:159"),
         row("K6", "sliding_window_bwd (dq)", "swa_bwd.cu",
@@ -1080,10 +1120,10 @@ def main():
             "easyanimate_tpu/ops/swa.py:429"),
     ], "note": "max_abs_err: max |kernel - plain| over the cases (o for "
                "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
-               "over max |plain|, the bound's measure. K1: ms at the dense "
-               "flagship, cross_* at the SWA cross pass (13360 x 1027), "
-               "library = SDPA; every path launch ran its TMA + wgmma kernel "
-               "(launches_sm90). "
+               "over max |plain|, the bound's measure. K1, K4: ms at the "
+               "dense flagship, cross_* at the SWA cross pass (13360 x "
+               "1027), library = SDPA (its backward for K3/K4); every path "
+               "launch ran their TMA + wgmma kernels (launches_sm90). "
                "K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "

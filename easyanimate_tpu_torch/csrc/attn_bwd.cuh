@@ -1,5 +1,7 @@
-// Shared backward-attention bodies for the four Hopper kernels of the
-// training path (flash_bwd.cu: dense K3/K4, swa_bwd.cu: banded K6/K7).
+// The mma.sync backward-attention bodies of K3 (flash_bwd.cu: dense dq),
+// K6 and K7 (swa_bwd.cu: banded dq and dk, dv), and of K4 (flash_bwd.cu:
+// dense dk, dv) at head dims 16 and 32 only; K4 at d 64 is flash_bwd.cu's
+// TMA + wgmma kernel.
 //
 // What they compute, given the forward's residuals: q (pre-scaled by
 // sm_scale * log2(e)), k, v, do bf16 [bh, S, d] row-major; the base-2
@@ -7,7 +9,8 @@
 // [bh, Sq], computed by the wrapper. With p = exp2(q k^T - lse) recomputed
 // and ds = p * (do v^T - di):
 //   dq = ln2 * ds k          (dq kernel: K3 dense, K6 banded)
-//   dk = ln2 * ds^T q,  dv = p^T do   (dkv kernel: K4 dense, K7 banded)
+//   dk = ln2 * ds^T q,  dv = p^T do   (dkv kernel: K4 dense at d 16/32,
+//                                      K7 banded)
 // The ln2 is d exp2(x)/dx; it is applied once at the store, as the TPU dense
 // kernels do. Every output has exactly one writer block, so the result is
 // deterministic (no atomics).
@@ -33,8 +36,8 @@
 // What bounds it on an H100: the backward is 2.5x the forward's matrix
 // work (5 products per tile instead of 2) on the same mma.sync path, with
 // no load/compute overlap; the dq and dkv kernels each recompute p, which
-// is the price of having one writer per output. TMA + wgmma, and a fused
-// single pass with a separate dq reduction, are later work.
+// is the price of having one writer per output. K3, K6 and K7 moving onto
+// hopper.cuh's TMA + wgmma pieces, as K4 did, is later work.
 #pragma once
 
 #include "attn_fwd.cuh"
@@ -359,15 +362,35 @@ int launch_attn_bwd_dkv(const void* q, const void* k, const void* v,
   const dim3 grid((skv + kBlockKV - 1) / kBlockKV, bh);
   const dim3 block(kThreads);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  EA_BWD_HEAD_DIMS(attn_bwd_dkv_kernel,
-                   static_cast<const __nv_bfloat16*>(q),
-                   static_cast<const __nv_bfloat16*>(k),
-                   static_cast<const __nv_bfloat16*>(v),
-                   static_cast<const __nv_bfloat16*>(dout),
-                   static_cast<const float*>(lse),
-                   static_cast<const float*>(di),
-                   static_cast<__nv_bfloat16*>(dk),
-                   static_cast<__nv_bfloat16*>(dv), sq, skv, kv_len, window)
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* op = static_cast<const __nv_bfloat16*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dp = static_cast<const float*>(di);
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  switch (head_dim) {
+    case 16:
+      attn_bwd_dkv_kernel<16, kWindowed><<<grid, block, 0, st>>>(
+          qp, kp, vp, op, lp, dp, dkp, dvp, sq, skv, kv_len, window);
+      break;
+    case 32:
+      attn_bwd_dkv_kernel<32, kWindowed><<<grid, block, 0, st>>>(
+          qp, kp, vp, op, lp, dp, dkp, dvp, sq, skv, kv_len, window);
+      break;
+    case 64:
+      // dense d 64 is flash_bwd.cu's TMA + wgmma kernel: no instance here
+      if constexpr (kWindowed) {
+        attn_bwd_dkv_kernel<64, kWindowed><<<grid, block, 0, st>>>(
+            qp, kp, vp, op, lp, dp, dkp, dvp, sq, skv, kv_len, window);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,11 +83,7 @@ struct Smem {
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using sm90::fast_exp2;
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

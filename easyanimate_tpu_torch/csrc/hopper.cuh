@@ -1,14 +1,13 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels.
 //
-// First user: K1, the dense flash-attention forward (flash_fwd.cu), which
-// replaces the TPU kernel easyanimate_tpu/ops/flash_attention.py::_fwd_kernel
-// and at the flagship shape ([96, 13360, 64] bf16) is bound by operations:
-// 4.4 TFLOP, 4.435 ms at 989 TFLOP/s. Its design: one producer warpgroup
-// keeps TMA loads of k and v in flight through a ring of shared-memory
-// stages guarded by full/empty mbarriers, and consumer warpgroups run both
-// products on the tensor cores with wgmma (q k^T with both operands in
-// shared memory, p v with p from registers). The dense backward (K3, K4) is
-// meant to reuse these pieces.
+// Users: K1, the dense flash-attention forward (flash_fwd.cu), and K4, the
+// dense backward's dk/dv kernel (flash_bwd.cu), both at head_dim 64 and
+// both bound by operations at the flagship shape ([96, 13360, 64] bf16).
+// Their common shape: one producer warpgroup keeps TMA loads in flight
+// through a ring of shared-memory stages guarded by full/empty mbarriers,
+// and consumer warpgroups run the products on the tensor cores with wgmma
+// (score-like products with both operands in shared memory, products with
+// a probability-like operand from registers). K3 (dq) is to follow.
 //
 // Conventions the pieces rely on:
 //   - Tiles are bf16 rows of 64 elements (128 bytes), loaded by TMA with
@@ -213,6 +212,44 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64x64] (+)= A[64x16] B[16x64], both from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64xN] (+)= A[64x16] B[16xN], both from shared memory, both K-major,
+// for the two widths the kernels use.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  }
+}
+
 // d[64x64] (+)= A[64x16] B[16x64]: A from registers (the mma.sync A
 // fragment, 4 x bf16x2), B from shared memory MN-major (transposed: its
 // output dimension is contiguous); scale_d == 0 overwrites d.
@@ -239,6 +276,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// 2^x on the MUFU unit (about 2 ulp; exp2(-inf) = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- warp specialisation ------------------------------------------------

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "ea_flash_bwd_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_P,),
     # q, k, v, do, lse, di, dk, dv, bh, sq, skv, kv_valid, head_dim, stream
     "ea_flash_bwd_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # head_dim -> 1 if ea_flash_bwd_dkv_bf16 runs the TMA + wgmma kernel
+    "ea_flash_bwd_dkv_uses_sm90": (_I,),
     # q, k, v, do, lse, di, dq, bh, s, window, head_dim, stream
     "ea_swa_bwd_dq_bf16": (_P,) * 7 + (_I,) * 4 + (_P,),
     # q, k, v, do, lse, di, dk, dv, bh, s, window, head_dim, stream
@@ -118,11 +120,14 @@ def build_library() -> Path:
     return lib
 
 
-def ptxas_report(kernel: str) -> dict:
+def ptxas_report(kernel: str, log: str | None = None) -> dict:
     """What ptxas reported for the first entry function whose mangled name
     contains `kernel`: registers, stack and spill bytes, and every warning
-    line of the build."""
-    lines = _ptxas_log(build_library()).read_text().splitlines()
+    line of the build. `log` is a build's ptxas output; by default the one
+    kept beside the library."""
+    if log is None:
+        log = _ptxas_log(build_library()).read_text()
+    lines = log.splitlines()
     out = {}
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:

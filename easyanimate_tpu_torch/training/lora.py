@@ -20,6 +20,7 @@ inference.
 import contextlib
 import dataclasses
 import json
+import os
 import re
 from typing import Callable, Dict, Optional, Tuple
 
@@ -179,18 +180,21 @@ def _npz_path(path: str) -> str:
 
 def save_lora(path: str, lora: LoRA, cfg: LoRAConfig) -> None:
     """A flat .npz ('module.path/down', '.../up', float32) plus the config
-    in a sidecar `<file>.npz.json`."""
-    path = _npz_path(path)
-    np.savez(path, **{k: t.detach().float().cpu().numpy()
-                      for k, t in flatten_lora(lora).items()})
+    in a sidecar json, under the JAX package's names
+    (easyanimate_tpu/training/lora.py::save_lora): `x` -> x.npz + x.json,
+    `x.npz` -> x.npz + x.npz.json."""
+    np.savez(_npz_path(path), **{k: t.detach().float().cpu().numpy()
+                                 for k, t in flatten_lora(lora).items()})
     with open(path + ".json", "w") as f:
         json.dump({"rank": cfg.rank, "alpha": cfg.alpha,
                    "targets": cfg.targets}, f)
 
 
 def load_lora(path: str, device=None) -> Tuple[LoRA, LoRAConfig]:
-    """save_lora's files -> (LoRA with float32 factors on `device`, the card
-    by default; LoRAConfig)."""
+    """save_lora's files, or the JAX package's, -> (LoRA with float32
+    factors on `device`, the card by default; LoRAConfig). The config is
+    read from `<stem>.json`, else `<stem>.npz.json`, so both layouts of
+    either package load."""
     path = _npz_path(path)
     device = resolve_device(device)
     lora: LoRA = {}
@@ -198,7 +202,10 @@ def load_lora(path: str, device=None) -> Tuple[LoRA, LoRAConfig]:
         for k in data.files:
             mod, kind = k.rsplit("/", 1)
             lora.setdefault(mod, {})[kind] = torch.from_numpy(data[k]).to(device)
-    with open(path + ".json") as f:
+    meta_path = path[:-len(".npz")] + ".json"
+    if not os.path.exists(meta_path):
+        meta_path = path + ".json"
+    with open(meta_path) as f:
         meta = json.load(f)
     return lora, LoRAConfig(rank=meta["rank"], alpha=meta["alpha"],
                             targets=meta["targets"])

@@ -89,7 +89,13 @@ def _grad_close(got, want, bound=2e-2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,kv_valid,d", [
     (256, 256, 256, 64), (333, 1027, 1000, 64), (1001, 1100, 1037, 64),
-    (100, 70, 70, 32), (65, 129, 100, 16)])
+    (100, 70, 70, 32), (65, 129, 100, 16),
+    # K4 at d 64 is the TMA + wgmma kernel (128 kv rows a block, 64 q rows
+    # a stage): exactly one kv block and one q tile; kv_valid inside the
+    # last kv block with rows past it; kv_valid on a block boundary with a
+    # whole block past it; one q row; the SWA cross pass cut
+    (64, 128, 128, 64), (256, 300, 270, 64), (200, 400, 256, 64),
+    (1, 300, 300, 64), (1337, 1027, 1027, 64)])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, sq, skv,
                                                kv_valid, d):
     """K3 + K4 against the plain backward, ragged and with kv_valid < S:
@@ -101,9 +107,11 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, sq, skv,
     o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
     do = torch.randn(o.shape, generator=g, device=cuda_device).to(torch.bfloat16)
     before = tfa.flash_attention_bwd.launches
+    before_sm90 = tfa.flash_attention_bwd.launches_sm90
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, kv_valid)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bwd.launches == before + 1
+    assert tfa.flash_attention_bwd.launches_sm90 == before_sm90 + (d == 64)
     for got, want in zip((dq, dk, dv),
                          tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                        kv_valid)):

@@ -393,3 +393,26 @@ def test_lora_carries_across_and_merges_like_jax(rng, tmp_path):
     for p, f in lora.items():
         for kind, t in f.items():
             assert torch.equal(loaded[p][kind], t)
+
+
+@pytest.mark.parametrize("name", ["x", "x.npz"])
+def test_port_loads_a_lora_the_jax_package_saved(rng, tmp_path, name):
+    """JAX save_lora("x") writes x.npz + x.json, save_lora("x.npz") writes
+    x.npz + x.npz.json: the port's load_lora reads both layouts, factors
+    and config exactly, and its save_lora writes the same names."""
+    jl = {p: {"down": jnp.asarray(rng.standard_normal((8, 2), np.float32)),
+              "up": jnp.asarray(rng.standard_normal((2, 6), np.float32))}
+          for p in ("transformer_blocks_0/attn1/to_q", "proj_out")}
+    jcfg = jlora.LoRAConfig(rank=2, alpha=4.0, targets="to_q|proj_out")
+    jlora.save_lora(str(tmp_path / name), jl, jcfg)
+    loaded, cfg = tlora.load_lora(str(tmp_path / name), device="cpu")
+    assert cfg == tlora.LoRAConfig(rank=2, alpha=4.0, targets="to_q|proj_out")
+    assert set(loaded) == set(jl)
+    for p, f in jl.items():
+        for kind, t in f.items():
+            assert torch.equal(loaded[p][kind], torch.from_numpy(np.asarray(t)))
+    written = tmp_path / "port"
+    written.mkdir()
+    tlora.save_lora(str(written / name), loaded, cfg)
+    assert sorted(x.name for x in written.iterdir()) == sorted(
+        x.name for x in tmp_path.iterdir() if x.is_file())
