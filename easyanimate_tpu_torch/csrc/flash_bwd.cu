@@ -49,45 +49,29 @@
 // Per 64-row q tile a block runs 4 products of 2 * 128 * 64 * 64 (~1,024
 // tensor-core cycles at the peak) against 8,192 exponentials (~512 cycles
 // on the MUFU units): the products lead, and the two consumers fill each
-// other's elementwise gaps. Tried on the card and dropped
-// (tools/k4_variants.py): 128-row q tiles and 3 consumers (192 kv rows at
-// 160 registers) both spill; issuing the next tile's score products ahead
-// of this tile's accumulating ones spilled at 240 registers. Two and three
-// stages time alike.
+// other's elementwise gaps. Tried on the card and dropped (PERF.md):
+// 128-row q tiles and 3 consumers (192 kv rows at 160 registers) both
+// spill; issuing the next tile's score products ahead of this tile's
+// accumulating ones spilled at 240 registers. Two and three stages time
+// alike.
 #include "attn_bwd.cuh"
 #include "hopper.cuh"
-
-// The block shape the card chose; tools/k4_variants.py builds others to
-// compare.
-#ifndef EA_K4_BLOCK_Q
-#define EA_K4_BLOCK_Q 64
-#endif
-#ifndef EA_K4_STAGES
-#define EA_K4_STAGES 3
-#endif
-#ifndef EA_K4_CONSUMERS
-#define EA_K4_CONSUMERS 2
-#endif
 
 namespace ea {
 namespace k4 {
 
 constexpr int kD = 64;                      // head_dim of this kernel
-constexpr int kConsumers = EA_K4_CONSUMERS;  // consumer warpgroups
+constexpr int kConsumers = 2;               // consumer warpgroups
 constexpr int kBlockN = 64 * kConsumers;    // kv rows per block
-constexpr int kBlockM = EA_K4_BLOCK_Q;      // q rows per stage
-constexpr int kStages = EA_K4_STAGES;
+constexpr int kBlockM = 64;                 // q rows per stage
+constexpr int kStages = 3;
 constexpr int kThreads = 128 * (kConsumers + 1);
-static_assert(kBlockM == 64 || kBlockM == 128, "q tiles of 64 or 128 rows");
-// registers a thread: the launch gives 65536 / kThreads (168 for 2
-// consumers); the producer's 128 x (168 - 24) given back are the
-// consumers' 256 x (240 - 168)
-constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+// registers a thread: the launch gives 65536 / 384 = 168 (rounded down to
+// 8); the producer's 128 x (168 - 24) given back are the consumers'
+// 256 x (240 - 168)
+constexpr int kLaunchRegs = 168;
 constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs =
-    kLaunchRegs + (kLaunchRegs - kProducerRegs) / kConsumers / 8 * 8;
-static_assert(128 * (kLaunchRegs - kProducerRegs) >=
-              128 * kConsumers * (kConsumerRegs - kLaunchRegs), "");
+constexpr int kConsumerRegs = 240;
 constexpr int kRowBytes = kD * 2;           // one bf16 row: 128 bytes
 constexpr uint32_t kKVBytes = kBlockN * kRowBytes;
 constexpr uint32_t kTileBytes = kBlockM * kRowBytes;
@@ -115,7 +99,7 @@ __device__ __forceinline__ void issue_scores(float (&acc)[kBlockM / 2],
   const uint64_t desc_b = sm90::desc_sw128(b_tile, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    sm90::wgmma_ss<kBlockM>(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
+    sm90::wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
   }
 }
 

@@ -237,19 +237,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d[64xN] (+)= A[64x16] B[16xN], both from shared memory, both K-major,
-// for the two widths the kernels use.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64) {
-    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
-  } else {
-    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
-  }
-}
-
 // d[64x64] (+)= A[64x16] B[16x64]: A from registers (the mma.sync A
 // fragment, 4 x bf16x2), B from shared memory MN-major (transposed: its
 // output dimension is contiguous); scale_d == 0 overwrites d.

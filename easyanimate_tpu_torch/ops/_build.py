@@ -120,14 +120,11 @@ def build_library() -> Path:
     return lib
 
 
-def ptxas_report(kernel: str, log: str | None = None) -> dict:
+def ptxas_report(kernel: str) -> dict:
     """What ptxas reported for the first entry function whose mangled name
     contains `kernel`: registers, stack and spill bytes, and every warning
-    line of the build. `log` is a build's ptxas output; by default the one
-    kept beside the library."""
-    if log is None:
-        log = _ptxas_log(build_library()).read_text()
-    lines = log.splitlines()
+    line of the build."""
+    lines = _ptxas_log(build_library()).read_text().splitlines()
     out = {}
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:

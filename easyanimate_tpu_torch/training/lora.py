@@ -193,18 +193,19 @@ def save_lora(path: str, lora: LoRA, cfg: LoRAConfig) -> None:
 def load_lora(path: str, device=None) -> Tuple[LoRA, LoRAConfig]:
     """save_lora's files, or the JAX package's, -> (LoRA with float32
     factors on `device`, the card by default; LoRAConfig). The config is
-    read from `<stem>.json`, else `<stem>.npz.json`, so both layouts of
-    either package load."""
-    path = _npz_path(path)
+    read from `<path>.json`, the name save_lora(path) writes, else from the
+    other layout's name (`x` <-> `x.npz`), so both layouts of either
+    package load."""
+    npz = _npz_path(path)
+    meta_path = path + ".json"
+    if not os.path.exists(meta_path):
+        meta_path = (npz if npz != path else path[:-len(".npz")]) + ".json"
     device = resolve_device(device)
     lora: LoRA = {}
-    with np.load(path) as data:
+    with np.load(npz) as data:
         for k in data.files:
             mod, kind = k.rsplit("/", 1)
             lora.setdefault(mod, {})[kind] = torch.from_numpy(data[k]).to(device)
-    meta_path = path[:-len(".npz")] + ".json"
-    if not os.path.exists(meta_path):
-        meta_path = path + ".json"
     with open(meta_path) as f:
         meta = json.load(f)
     return lora, LoRAConfig(rank=meta["rank"], alpha=meta["alpha"],

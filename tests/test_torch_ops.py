@@ -328,8 +328,6 @@ def test_ptxas_report_reads_the_kept_build_log(monkeypatch, tmp_path):
         "registers": 128,
         "warnings": ["ptxas warning : (C7508) setmaxnreg ignored"]}
     assert _build.ptxas_report("attn_kernel")["registers"] == 128
-    # another build's log, given as text (tools/k4_variants.py)
-    assert _build.ptxas_report("flash_fwd_sm90", PTXAS_LOG)["registers"] == 128
 
 
 SASS = """

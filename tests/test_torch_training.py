@@ -399,7 +399,9 @@ def test_lora_carries_across_and_merges_like_jax(rng, tmp_path):
 def test_port_loads_a_lora_the_jax_package_saved(rng, tmp_path, name):
     """JAX save_lora("x") writes x.npz + x.json, save_lora("x.npz") writes
     x.npz + x.npz.json: the port's load_lora reads both layouts, factors
-    and config exactly, and its save_lora writes the same names."""
+    and config exactly, and its save_lora writes the same names. Where a
+    config of the other layout lies beside it, the one saved under the
+    name given wins."""
     jl = {p: {"down": jnp.asarray(rng.standard_normal((8, 2), np.float32)),
               "up": jnp.asarray(rng.standard_normal((2, 6), np.float32))}
           for p in ("transformer_blocks_0/attn1/to_q", "proj_out")}
@@ -416,3 +418,7 @@ def test_port_loads_a_lora_the_jax_package_saved(rng, tmp_path, name):
     tlora.save_lora(str(written / name), loaded, cfg)
     assert sorted(x.name for x in written.iterdir()) == sorted(
         x.name for x in tmp_path.iterdir() if x.is_file())
+    other = "x.json" if name == "x.npz" else "x.npz.json"
+    (tmp_path / other).write_text(
+        '{"rank": 7, "alpha": 1.0, "targets": "stale"}')
+    assert tlora.load_lora(str(tmp_path / name), device="cpu")[1] == cfg
