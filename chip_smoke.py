@@ -6,7 +6,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             the TMA + wgmma kernels (K1, and K4's dk/dv kernel)
+             the TMA + wgmma kernels (K1, K3's dq and K4's dk/dv kernels)
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes, with kernel / plain /
@@ -30,8 +30,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
              4 layers: layer 0 dense, 1-3 SWA
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after, and that every K1 and K4 launch (d 64) ran its
-TMA + wgmma kernel. Then the per-kernel JSON line and, last, the device
+and checks them just after, and that every K1, K3 and K4 launch (d 64) ran
+its TMA + wgmma kernel. Then the per-kernel JSON line and, last, the device
 line.
 """
 import argparse
@@ -97,6 +97,7 @@ PEAK_BYTES = 3.35e12
 # video tokens (window = one frame), the 256 + 771 global rows
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
+K3_SM90 = "flash_bwd_dq_sm90"  # K3's (csrc/flash_bwd.cu)
 K4_SM90 = "flash_bwd_dkv_sm90"  # K4's (csrc/flash_bwd.cu)
 
 
@@ -205,15 +206,15 @@ def phase_device():
 
 
 def phase_build():
-    """Build the kernels; report the TMA + wgmma kernels (K1, K4) as ptxas
-    and cuobjdump see them, and fail unless each one's SASS issues wgmma
+    """Build the kernels; report the TMA + wgmma kernels (K1, K3, K4) as
+    ptxas and cuobjdump see them, and fail unless each one's SASS issues wgmma
     (HGMMA) and TMA loads (UTMALDG)."""
     t0 = time.perf_counter()
     lib = _build.build_library()
     _build.load_library()
     seconds = time.perf_counter() - t0
     out, report = {}, {}
-    for key, kernel in (("K1", K1_SM90), ("K4", K4_SM90)):
+    for key, kernel in (("K1", K1_SM90), ("K3", K3_SM90), ("K4", K4_SM90)):
         ptxas = _build.ptxas_report(kernel)
         sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
                                            "USETMAXREG", "STL", "LDL"))
@@ -823,8 +824,9 @@ def phase_swa_fused(ins, cot, fused):
 
 DEVICE = torch.device("cuda")
 # flash_attention_fwd.launches_sm90 counts the K1 launches that ran the
-# TMA + wgmma kernel (d 64), flash_attention_bwd.launches_sm90 the K4
-# launches that ran theirs; every main path runs at d 64
+# TMA + wgmma kernel (d 64), flash_attention_bwd.launches_sm90 the K3 + K4
+# launches that ran theirs (both kernels, one call); every main path runs
+# at d 64
 COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
             "K3": flash_attention_bwd, "K4": flash_attention_bwd,
             "K5": swa_local_global_fwd,
@@ -985,14 +987,15 @@ def main():
 
     model, vae = build_12b(args.seed)
     totals = dict.fromkeys(COUNTERS, 0)
-    # launches_sm90 of K1 and K4 over the path runs
-    totals_sm90 = {"K1": 0, "K4": 0}
+    # launches_sm90 of K1, K3 and K4 over the path runs
+    totals_sm90 = {"K1": 0, "K3": 0, "K4": 0}
     sm90_counters = {"K1": (flash_attention_fwd, K1_SM90),
+                     "K3": (flash_attention_bwd, K3_SM90),
                      "K4": (flash_attention_bwd, K4_SM90)}
 
     def path_run(phase, fn, expect=None):
         """One main-path run: counts set to 0 just before, read just after;
-        every K1 and K4 launch (d 64) ran its TMA + wgmma kernel."""
+        every K1, K3 and K4 launch (d 64) ran its TMA + wgmma kernel."""
         reset_counts()
         result = fn()
         got = read_counts()
@@ -1097,18 +1100,15 @@ def main():
             sass=build[key]["sass"])
         return out
 
-    k3 = row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
-             "easyanimate_tpu/ops/flash_attention.py:228")
-    k3.update(cross_ms=stats["K3"]["cross_ms"],
-              cross_bound_ms=bounds["K3 cross"][0],
-              cross_library_ms=stats["K3"]["cross_sdpa_bwd_ms"])
     emit({"kernels": [
         sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
                      "easyanimate_tpu/ops/flash_attention.py:92"),
                  "K1", "flash_fwd.cu", 2, "cross_sdpa_ms"),
         row("K2", "sliding_window_fwd", "swa_fwd.cu",
             "easyanimate_tpu/ops/swa.py:32"),
-        k3,
+        sm90_row(row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
+                     "easyanimate_tpu/ops/flash_attention.py:228"),
+                 "K3", "flash_bwd.cu", 3, "cross_sdpa_bwd_ms"),
         sm90_row(row("K4", "flash_attention_bwd (dk, dv)", "flash_bwd.cu",
                      "easyanimate_tpu/ops/flash_attention.py:267"),
                  "K4", "flash_bwd.cu", 4, "cross_sdpa_bwd_ms"),
@@ -1120,8 +1120,8 @@ def main():
             "easyanimate_tpu/ops/swa.py:429"),
     ], "note": "max_abs_err: max |kernel - plain| over the cases (o for "
                "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
-               "over max |plain|, the bound's measure. K1, K4: ms at the "
-               "dense flagship, cross_* at the SWA cross pass (13360 x "
+               "over max |plain|, the bound's measure. K1, K3, K4: ms at "
+               "the dense flagship, cross_* at the SWA cross pass (13360 x "
                "1027), library = SDPA (its backward for K3/K4); every path "
                "launch ran their TMA + wgmma kernels (launches_sm90). "
                "K3/K4 and K6/K7 "

@@ -1,7 +1,7 @@
-// The mma.sync backward-attention bodies of K3 (flash_bwd.cu: dense dq),
-// K6 and K7 (swa_bwd.cu: banded dq and dk, dv), and of K4 (flash_bwd.cu:
-// dense dk, dv) at head dims 16 and 32 only; K4 at d 64 is flash_bwd.cu's
-// TMA + wgmma kernel.
+// The mma.sync backward-attention bodies of K6 and K7 (swa_bwd.cu: banded
+// dq and dk, dv), and of K3 and K4 (flash_bwd.cu: dense dq and dk, dv) at
+// head dims 16 and 32 only; K3 and K4 at d 64 are flash_bwd.cu's TMA +
+// wgmma kernels.
 //
 // What they compute, given the forward's residuals: q (pre-scaled by
 // sm_scale * log2(e)), k, v, do bf16 [bh, S, d] row-major; the base-2
@@ -36,8 +36,8 @@
 // What bounds it on an H100: the backward is 2.5x the forward's matrix
 // work (5 products per tile instead of 2) on the same mma.sync path, with
 // no load/compute overlap; the dq and dkv kernels each recompute p, which
-// is the price of having one writer per output. K3, K6 and K7 moving onto
-// hopper.cuh's TMA + wgmma pieces, as K4 did, is later work.
+// is the price of having one writer per output. K6 and K7 moving onto
+// hopper.cuh's TMA + wgmma pieces, as K3 and K4 did, is later work.
 #pragma once
 
 #include "attn_fwd.cuh"
@@ -323,18 +323,6 @@ attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(dv + koff, dv_acc, row_a, skv, 1.f, t);
 }
 
-#define EA_BWD_HEAD_DIMS(KERNEL, ...)                                     \
-  switch (head_dim) {                                                     \
-    case 16: KERNEL<16, kWindowed><<<grid, block, 0, st>>>(__VA_ARGS__); \
-      break;                                                              \
-    case 32: KERNEL<32, kWindowed><<<grid, block, 0, st>>>(__VA_ARGS__); \
-      break;                                                              \
-    case 64: KERNEL<64, kWindowed><<<grid, block, 0, st>>>(__VA_ARGS__); \
-      break;                                                              \
-    default:                                                              \
-      return static_cast<int>(cudaErrorInvalidValue);                     \
-  }
-
 template <bool kWindowed>
 int launch_attn_bwd_dq(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* di,
@@ -343,14 +331,34 @@ int launch_attn_bwd_dq(const void* q, const void* k, const void* v,
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
   const dim3 block(kThreads);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  EA_BWD_HEAD_DIMS(attn_bwd_dq_kernel,
-                   static_cast<const __nv_bfloat16*>(q),
-                   static_cast<const __nv_bfloat16*>(k),
-                   static_cast<const __nv_bfloat16*>(v),
-                   static_cast<const __nv_bfloat16*>(dout),
-                   static_cast<const float*>(lse),
-                   static_cast<const float*>(di),
-                   static_cast<__nv_bfloat16*>(dq), sq, skv, kv_len, window)
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* op = static_cast<const __nv_bfloat16*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dp = static_cast<const float*>(di);
+  auto* dqp = static_cast<__nv_bfloat16*>(dq);
+  switch (head_dim) {
+    case 16:
+      attn_bwd_dq_kernel<16, kWindowed><<<grid, block, 0, st>>>(
+          qp, kp, vp, op, lp, dp, dqp, sq, skv, kv_len, window);
+      break;
+    case 32:
+      attn_bwd_dq_kernel<32, kWindowed><<<grid, block, 0, st>>>(
+          qp, kp, vp, op, lp, dp, dqp, sq, skv, kv_len, window);
+      break;
+    case 64:
+      // dense d 64 is flash_bwd.cu's TMA + wgmma kernel: no instance here
+      if constexpr (kWindowed) {
+        attn_bwd_dq_kernel<64, kWindowed><<<grid, block, 0, st>>>(
+            qp, kp, vp, op, lp, dp, dqp, sq, skv, kv_len, window);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,7 +401,5 @@ int launch_attn_bwd_dkv(const void* q, const void* k, const void* v,
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-#undef EA_BWD_HEAD_DIMS
 
 }  // namespace ea

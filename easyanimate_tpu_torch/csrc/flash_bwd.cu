@@ -7,65 +7,91 @@
 // sequential grid axis and rely on zero-padded k and v: there the pad
 // columns get p = 2^(-lse), not 0, and the wrapper slices the pad rows'
 // dk/dv away. Here a CUDA block loops over the tiles itself, and the pad
-// rows are masked by index, so the dk/dv rows in [kv_valid, skv) come out
-// exactly 0 and no padded copies exist.
+// columns are masked by index, so the dk/dv rows in [kv_valid, skv) come
+// out exactly 0 and no padded copies exist.
 //
 // Bound on the H100: at the dense flagship shape (b*h = 96, S = 13,360,
-// d = 64) K3 runs 3 products of 2*S^2*d per head and K4 runs 4 (8.8 TFLOP,
-// 8.871 ms at 989 TFLOP/s) against ~0.1 GB of q/k/v/do/dk/dv traffic each:
-// both are bound by operations.
+// d = 64) K3 runs 3 products of 2*S^2*d per head (6.6 TFLOP, 6.653 ms at
+// 989 TFLOP/s) and K4 runs 4 (8.871 ms) against ~0.1 GB of q/k/v/do/dq/dk/
+// dv traffic each: both are bound by operations.
 //
-// K3 (dq, every head dim) and K4 at head dims 16 and 32 (the tiny test
-// preset only) run the mma.sync bodies of attn_bwd.cuh. K4 at d 64 is
-// flash_bwd_dkv_sm90 below, on hopper.cuh's TMA + wgmma pieces:
-//   - one block of 3 warpgroups per (128 kv rows, b*h): warpgroup 0 is the
-//     producer (24 registers), warpgroups 1-2 are consumers (240), each
-//     owning 64 of the kv rows. Its k and v rows arrive once by TMA and stay
-//     in shared memory as the A operands of the two score products; its
-//     dk and dv sums (64 x 64 f32 each) stay in registers for the whole
-//     q loop, so every dk/dv row has one writer and no atomics;
-//   - the producer's elected thread streams q and do tiles of kBlockM rows
-//     by TMA through a ring of kStages stages (full/empty mbarriers); rows
-//     past Sq arrive as zeros. lse and di cannot come by TMA (their head
-//     stride, 4 * Sq bytes, need not be a multiple of 16), so the
-//     producer's second warp copies each stage's slice into shared memory
-//     with plain loads (lse = +inf for rows past Sq, so p = 0 there) and
-//     arrives on the stage's full barrier too;
+// At head_dim 64 (every production preset) both are warp-specialised TMA +
+// wgmma kernels on hopper.cuh with one split: a block of 3 warpgroups (384
+// threads, 168 registers a thread at launch); warpgroup 0 is the producer
+// (24 registers by setmaxnreg), whose elected thread loads the block's own
+// rows once by TMA and streams the other side's tiles through a ring of
+// kStages shared-memory stages (full/empty mbarriers); warpgroups 1-2 are
+// consumers (240 registers), each owning 64 of the block's rows. Tensor maps
+// are 3-D (d, rows, b*h): rows past a map's extent arrive as zeros and no
+// tile reads another head's rows. Every output row has one writer block, so
+// there are no atomics and the result is deterministic. Each epilogue writes
+// its bf16 rows into the consumer's finished operand rows of shared memory
+// (128-byte swizzle) and stores them by one TMA store, which clips rows past
+// the tensor's end.
+//
+// K3, flash_bwd_dq_sm90 (dq = ln2 * ds k), K1's walk (flash_fwd.cu) with one
+// more score product:
+//   - a block per (128 q rows, b*h); its q and do rows arrive once, k and v
+//     stream in 128-row tiles (their maps take kv_valid as the extent);
+//   - lse and di vary along the rows here, so each consumer thread loads its
+//     two rows' values once into registers (+inf and 0 past Sq, so p = 0
+//     and ds = 0 there); their head stride, 4 * Sq bytes, never meets TMA;
+//   - per kv tile: s = q k^T and dp = do v^T (SS wgmma m64n128, both
+//     operands K-major), then in registers p = exp2(s - lse) and ds =
+//     p (dp - di), packed to bf16 as the A fragments of dq += ds k (RS
+//     wgmma, k read MN-major from the same stage: K1's p v). The stage is
+//     released once wgmma.wait_group shows that product complete;
+//   - the zero k rows past kv_valid score s = 0, so p = 2^(-lse), which
+//     overflows to inf once lse < -128 (and inf * 0 is NaN): on the last
+//     tile, and only there, columns >= kv_valid get s = -inf first (K1's
+//     last-tile test).
+//   Per kv tile a consumer runs 3 products of 2 * 64 * 128 * 64 (~768
+//   tensor-core cycles at the peak) against 8,192 exponentials (~512 cycles
+//   on the MUFU units): the products lead, and the two consumers fill each
+//   other's elementwise gaps.
+//
+// K4, flash_bwd_dkv_sm90 (dk = ln2 * ds^T q, dv = p^T do):
+//   - a block per (128 kv rows, b*h); its k and v rows arrive once and stay
+//     as the A operands of the two score products, its dk and dv sums
+//     (64 x 64 f32 each) stay in registers for the whole q loop;
+//   - q and do stream in kBlockM-row tiles (rows past Sq arrive as zeros).
+//     lse and di vary along the columns here and cannot come by TMA (their
+//     head stride need not be a multiple of 16), so the producer's second
+//     warp copies each stage's slice into shared memory with plain loads
+//     (lse = +inf past Sq, so p = 0 there) and arrives on the stage's full
+//     barrier too;
 //   - per q tile a consumer computes the TRANSPOSED scores s^T = k q^T and
-//     dp^T = v do^T (wgmma, both operands K-major in shared memory), then
-//     in registers p^T = exp2(s^T - lse[col]) and ds^T = p^T (dp^T -
-//     di[col]), packs both to bf16 A fragments (the accumulator layout is
-//     the A layout) and accumulates dv += p^T do and dk += ds^T q (wgmma
-//     with A from registers and do, q read MN-major from the same stage).
-//     It releases the stage only after wgmma.wait_group shows both of
-//     those products complete;
-//   - kv rows at or past kv_valid arrive as zero k and v rows, whose p^T
-//     is 2^(-lse), not 0. A row of dv (dk) depends only on the same row of
-//     p^T (ds^T), so the epilogue writes those rows as exact zeros instead
-//     of masking every tile; blocks wholly past kv_valid skip the q loop;
-//   - epilogue: dk * ln2 and dv in bf16 go into the consumer's finished k
-//     and v rows of shared memory (128-byte swizzle) and out by one TMA
-//     store each, which clips rows past skv.
-// Per 64-row q tile a block runs 4 products of 2 * 128 * 64 * 64 (~1,024
-// tensor-core cycles at the peak) against 8,192 exponentials (~512 cycles
-// on the MUFU units): the products lead, and the two consumers fill each
-// other's elementwise gaps. Tried on the card and dropped (PERF.md):
-// 128-row q tiles and 3 consumers (192 kv rows at 160 registers) both
-// spill; issuing the next tile's score products ahead of this tile's
-// accumulating ones spilled at 240 registers. Two and three stages time
-// alike.
+//     dp^T = v do^T (SS wgmma), then p^T = exp2(s^T - lse[col]) and ds^T =
+//     p^T (dp^T - di[col]) in registers, packed as the A fragments of dv +=
+//     p^T do and dk += ds^T q (RS wgmma, do and q read MN-major);
+//   - kv rows at or past kv_valid arrive as zero k and v rows, whose p^T is
+//     2^(-lse), not 0. A row of dv (dk) depends only on the same row of p^T
+//     (ds^T), so the epilogue writes those rows as exact zeros instead of
+//     masking every tile; blocks wholly past kv_valid skip the q loop.
+//   Per 64-row q tile a block runs 4 products of 2 * 128 * 64 * 64 (~1,024
+//   tensor-core cycles at the peak) against 8,192 exponentials (~512 cycles
+//   on the MUFU units).
+//
+// Tried on the card and dropped (PERF.md): for K4, 128-row q tiles and 3
+// consumers (192 kv rows at 160 registers) both spill; issuing the next
+// tile's score products ahead of this tile's accumulating ones spilled at
+// 240 registers. Two and three stages time alike.
+//
+// Head dims 16 and 32 (the tiny test preset only) run the mma.sync bodies of
+// attn_bwd.cuh: a dispatch by shape in the entry points below, never a
+// fallback on failure. ea_flash_bwd_uses_sm90 tells the wrapper which ran.
 #include "attn_bwd.cuh"
 #include "hopper.cuh"
 
 namespace ea {
-namespace k4 {
 
-constexpr int kD = 64;                      // head_dim of this kernel
+// What K3 and K4 share: the head dim, the warpgroup split and its register
+// balance, the accumulating product and the epilogue.
+namespace dense_bwd {
+
+constexpr int kD = 64;                      // head_dim of both kernels
 constexpr int kConsumers = 2;               // consumer warpgroups
-constexpr int kBlockN = 64 * kConsumers;    // kv rows per block
-constexpr int kBlockM = 64;                 // q rows per stage
-constexpr int kStages = 3;
-constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kBlockThreads = 128 * (kConsumers + 1);
 // registers a thread: the launch gives 65536 / 384 = 168 (rounded down to
 // 8); the producer's 128 x (168 - 24) given back are the consumers'
 // 256 x (240 - 168)
@@ -73,6 +99,280 @@ constexpr int kLaunchRegs = 168;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kRowBytes = kD * 2;           // one bf16 row: 128 bytes
+
+// setmaxnreg.inc waits for registers the producer gives back, so a launch
+// with other than kLaunchRegs a thread would never finish: refuse it.
+template <typename Kernel>
+int check_launch_regs(Kernel* kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t st = cudaFuncGetAttributes(&attr, kernel);
+  if (st != cudaSuccess) return static_cast<int>(st);
+  return attr.numRegs == kLaunchRegs
+             ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// acc += A B over KS * 16 rows of a tile: A from registers (p, ds, p^T or
+// ds^T), B the tile's rows read MN-major; k step ks takes rows
+// 16ks..16ks+15 (2048 bytes further on).
+template <int KS>
+__device__ __forceinline__ void issue_accumulate(
+    float (&acc)[32], const uint32_t (&a)[KS][4],
+    const __nv_bfloat16* b_tile) {
+  const uint64_t desc_b = sm90::desc_sw128(b_tile, 1024, 1024);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    sm90::wgmma_m64n64k16_rs_tb(acc, a[ks],
+                                desc_b + ks * (16 * kRowBytes >> 4), 1);
+  }
+}
+
+// Rows r_a and r_b (= r_a + 8) of a 64 x 64 f32 accumulator, times
+// `scale`, as bf16 into 64 rows of shared memory in the 128-byte swizzled
+// layout a tensor map stores from (16-byte chunk i of row r at chunk
+// i ^ (r % 8)); a row whose keep flag is false is written as zeros.
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const float (&acc)[32],
+                                           int r_a, bool keep_a, bool keep_b,
+                                           float scale, int t) {
+  const int r_b = r_a + 8;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int off = ((i ^ (r_a & 7)) << 4) + 4 * t;  // r_b % 8 == r_a % 8
+    *reinterpret_cast<uint32_t*>(dst + r_a * kRowBytes + off) =
+        keep_a ? pack_f32(acc[4 * i] * scale, acc[4 * i + 1] * scale) : 0u;
+    *reinterpret_cast<uint32_t*>(dst + r_b * kRowBytes + off) =
+        keep_b ? pack_f32(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale) : 0u;
+  }
+}
+
+}  // namespace dense_bwd
+
+namespace k3 {
+
+using namespace dense_bwd;
+
+constexpr int kBlockM = 64 * kConsumers;    // q rows per block
+constexpr int kBlockN = 128;                // kv rows per stage
+constexpr int kStages = 2;
+constexpr uint32_t kQBytes = kBlockM * kRowBytes;
+constexpr uint32_t kTileBytes = kBlockN * kRowBytes;
+
+// Every tile starts 1024-byte aligned (the 128-byte swizzle's atom).
+struct Smem {
+  __nv_bfloat16 q[kBlockM * kD];
+  __nv_bfloat16 dout[kBlockM * kD];
+  __nv_bfloat16 k[kStages][kBlockN * kD];
+  __nv_bfloat16 v[kStages][kBlockN * kD];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t q_full;
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+
+// acc = A B^T over d for one kv tile: A the consumer's 64 q (or do) rows, B
+// the tile's kBlockN k (or v) rows, both K-major; 4 k steps of 16 over d.
+template <int N>  // acc's length, kBlockN / 2
+__device__ __forceinline__ void issue_scores(float (&acc)[N], uint64_t desc_a,
+                                             const __nv_bfloat16* b_tile) {
+  const uint64_t desc_b = sm90::desc_sw128(b_tile, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    if constexpr (N == 64) {
+      sm90::wgmma_m64n128k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
+    } else {
+      sm90::wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
+    }
+  }
+}
+
+// ds = p (dp - di) with p = exp2(s - lse) for one kv tile (col0 its first
+// column), in place in sc, packed to bf16 as the A fragments of ds k (the
+// scores of two adjacent 8-column chunks form k step ks). On the last tile
+// the columns >= kv_valid get s = -inf first, so p = 0 there.
+__device__ __forceinline__ void ds_tile(float (&sc)[kBlockN / 2],
+                                        const float (&dp)[kBlockN / 2],
+                                        float lse_a, float lse_b, float di_a,
+                                        float di_b, int col0, int kv_valid,
+                                        int t, uint32_t (&da)[kBlockN / 16][4]) {
+  if (col0 + kBlockN > kv_valid) {  // the last tile
+#pragma unroll
+    for (int i = 0; i < kBlockN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
+          sc[4 * i + e] = -INFINITY;
+          sc[4 * i + 2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kBlockN / 8; ++i) {
+    sc[4 * i] = sm90::fast_exp2(sc[4 * i] - lse_a) * (dp[4 * i] - di_a);
+    sc[4 * i + 1] = sm90::fast_exp2(sc[4 * i + 1] - lse_a) * (dp[4 * i + 1] - di_a);
+    sc[4 * i + 2] = sm90::fast_exp2(sc[4 * i + 2] - lse_b) * (dp[4 * i + 2] - di_b);
+    sc[4 * i + 3] = sm90::fast_exp2(sc[4 * i + 3] - lse_b) * (dp[4 * i + 3] - di_b);
+  }
+#pragma unroll
+  for (int ks = 0; ks < kBlockN / 16; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      da[ks][r] = pack_f32(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
+    }
+  }
+}
+
+// One consumer warpgroup: its 64 q rows against every kv tile, then the
+// store of its dq rows.
+__device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_dq,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ di, int c,
+                                        int bh, int q0, int sq, int kv_valid,
+                                        int n_tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g;  // this thread's two rows in the 64
+  const int row0 = q0 + c * 64;
+  __nv_bfloat16* sq_c = sm.q + c * 64 * kD;  // this consumer's q rows
+  const uint64_t desc_q = sm90::desc_sw128(sq_c, 16, 1024);
+  const uint64_t desc_do = sm90::desc_sw128(sm.dout + c * 64 * kD, 16, 1024);
+
+  // the two rows' lse and di: +inf and 0 past sq, so p = 0 and ds = 0 there
+  const float* lb = lse + (size_t)bh * sq;
+  const float* db = di + (size_t)bh * sq;
+  const int i_a = row0 + r_a, i_b = i_a + 8;
+  const float lse_a = i_a < sq ? lb[i_a] : INFINITY;
+  const float lse_b = i_b < sq ? lb[i_b] : INFINITY;
+  const float di_a = i_a < sq ? db[i_a] : 0.f;
+  const float di_b = i_b < sq ? db[i_b] : 0.f;
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  sm90::mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    float sc[kBlockN / 2], dp[kBlockN / 2];
+    sm90::wgmma_fence();
+    issue_scores(sc, desc_q, sm.k[s]);   // s = q k^T
+    issue_scores(dp, desc_do, sm.v[s]);  // dp = do v^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    uint32_t da[kBlockN / 16][4];
+    ds_tile(sc, dp, lse_a, lse_b, di_a, di_b, j * kBlockN, kv_valid, t, da);
+    sm90::fence_regs(dq);  // ds lands before the fence
+    sm90::fence_regs(da);
+    sm90::wgmma_fence();
+    issue_accumulate(dq, da, sm.k[s]);  // dq += ds k
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
+  }
+
+  // dq * ln2 into this consumer's q rows (all its products are done); the
+  // store clips rows past sq
+  sm90::named_barrier_sync(1 + c, 128);
+  uint8_t* sdq = reinterpret_cast<uint8_t*>(sq_c);
+  stage_rows(sdq, dq, r_a, true, true, kLn2, t);
+  sm90::fence_proxy_async();
+  sm90::named_barrier_sync(1 + c, 128);
+  if (tid == 0 && row0 < sq) {
+    sm90::tma_store_3d(tm_dq, sdq, 0, row0, bh);
+    sm90::tma_store_wait();
+  }
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_dq,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ di, int sq, int kv_valid) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::smem_u32(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
+
+  const int warpgroup = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  const int n_tiles = (kv_valid + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);                // the producer's arrive
+      sm90::mbar_init(&sm.empty[s], kConsumers * 4);  // one per consumer warp
+    }
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kQBytes);
+      sm90::tma_load_3d(sm.q, &tm_q, &sm.q_full, 0, q0, bh);
+      sm90::tma_load_3d(sm.dout, &tm_do, &sm.q_full, 0, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        // the first pass over the ring finds every stage free
+        sm90::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
+        sm90::tma_load_3d(sm.k[s], &tm_k, &sm.full[s], 0, j * kBlockN, bh);
+        sm90::tma_load_3d(sm.v[s], &tm_v, &sm.full[s], 0, j * kBlockN, bh);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    consume(sm, &tm_dq, lse, di, warpgroup - 1, bh, q0, sq, kv_valid,
+            n_tiles);
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* di, void* dq, int bh, int sq,
+           int skv, int kv_valid, cudaStream_t stream) {
+  int err = check_launch_regs(flash_bwd_dq_sm90);
+  if (err) return err;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
+  const uint64_t q_head = (uint64_t)sq * kRowBytes;
+  const uint64_t kv_head = (uint64_t)skv * kRowBytes;
+  err = sm90::encode_rows_sw128(&tm_q, q, sq, bh, q_head, kBlockM);
+  if (!err) err = sm90::encode_rows_sw128(&tm_do, dout, sq, bh, q_head, kBlockM);
+  if (!err) err = sm90::encode_rows_sw128(&tm_k, k, kv_valid, bh, kv_head, kBlockN);
+  if (!err) err = sm90::encode_rows_sw128(&tm_v, v, kv_valid, bh, kv_head, kBlockN);
+  if (!err) err = sm90::encode_rows_sw128(&tm_dq, dq, sq, bh, q_head, 64);
+  if (err) return err;
+  cudaError_t st = cudaFuncSetAttribute(
+      flash_bwd_dq_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (st != cudaSuccess) return static_cast<int>(st);
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
+  flash_bwd_dq_sm90<<<grid, kBlockThreads, kSmemBytes, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(di), sq, kv_valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k3
+
+namespace k4 {
+
+using namespace dense_bwd;
+
+constexpr int kBlockN = 64 * kConsumers;    // kv rows per block
+constexpr int kBlockM = 64;                 // q rows per stage
+constexpr int kStages = 3;
 constexpr uint32_t kKVBytes = kBlockN * kRowBytes;
 constexpr uint32_t kTileBytes = kBlockM * kRowBytes;
 constexpr int kStatLanes = 32;              // the warp that copies lse, di
@@ -103,19 +403,6 @@ __device__ __forceinline__ void issue_scores(float (&acc)[kBlockM / 2],
   }
 }
 
-// acc += A B over the tile's q rows: A from registers (p^T or ds^T), B the
-// tile's do (or q) rows read MN-major; k step ks takes rows 16ks..16ks+15.
-__device__ __forceinline__ void issue_accumulate(
-    float (&acc)[32], const uint32_t (&a)[kBlockM / 16][4],
-    const __nv_bfloat16* b_tile) {
-  const uint64_t desc_b = sm90::desc_sw128(b_tile, 1024, 1024);
-#pragma unroll
-  for (int ks = 0; ks < kBlockM / 16; ++ks) {
-    sm90::wgmma_m64n64k16_rs_tb(acc, a[ks],
-                                desc_b + ks * (16 * kRowBytes >> 4), 1);
-  }
-}
-
 // p^T = exp2(s^T - lse[col]) and ds^T = p^T (dp^T - di[col]), packed to
 // bf16 as the A fragments of the two accumulating products. Column
 // 8i + 2t + (e & 1) of the transposed scores is q row 8i + 2t + (e & 1) of
@@ -143,24 +430,6 @@ __device__ __forceinline__ void p_and_ds(float (&st)[kBlockM / 2],
       pa[ks][r] = pack_f32(st[8 * ks + 2 * r], st[8 * ks + 2 * r + 1]);
       da[ks][r] = pack_f32(dp[8 * ks + 2 * r], dp[8 * ks + 2 * r + 1]);
     }
-  }
-}
-
-// Rows r_a and r_b (= r_a + 8) of a 64 x 64 f32 accumulator, times
-// `scale`, as bf16 into 64 rows of shared memory in the 128-byte swizzled
-// layout a tensor map stores from (16-byte chunk i of row r at chunk
-// i ^ (r % 8)); a row whose keep flag is false is written as zeros.
-__device__ __forceinline__ void stage_rows(uint8_t* dst, const float (&acc)[32],
-                                           int r_a, bool keep_a, bool keep_b,
-                                           float scale, int t) {
-  const int r_b = r_a + 8;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int off = ((i ^ (r_a & 7)) << 4) + 4 * t;  // r_b % 8 == r_a % 8
-    *reinterpret_cast<uint32_t*>(dst + r_a * kRowBytes + off) =
-        keep_a ? pack_f32(acc[4 * i] * scale, acc[4 * i + 1] * scale) : 0u;
-    *reinterpret_cast<uint32_t*>(dst + r_b * kRowBytes + off) =
-        keep_b ? pack_f32(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale) : 0u;
   }
 }
 
@@ -257,7 +526,7 @@ __device__ __forceinline__ void copy_row_stats(Smem& sm, const float* lb,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_do,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -317,30 +586,24 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* di, void* dk, void* dv, int bh,
            int sq, int skv, int kv_valid, cudaStream_t stream) {
-  // setmaxnreg.inc waits for registers the producer gives back, so a
-  // launch with other than kLaunchRegs a thread would never finish
-  cudaFuncAttributes attr;
-  cudaError_t st = cudaFuncGetAttributes(&attr, flash_bwd_dkv_sm90);
-  if (st != cudaSuccess) return static_cast<int>(st);
-  if (attr.numRegs != kLaunchRegs) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+  int err = check_launch_regs(flash_bwd_dkv_sm90);
+  if (err) return err;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
   const uint64_t q_head = (uint64_t)sq * kRowBytes;
   const uint64_t kv_head = (uint64_t)skv * kRowBytes;
-  int err = sm90::encode_rows_sw128(&tm_q, q, sq, bh, q_head, kBlockM);
+  err = sm90::encode_rows_sw128(&tm_q, q, sq, bh, q_head, kBlockM);
   if (!err) err = sm90::encode_rows_sw128(&tm_do, dout, sq, bh, q_head, kBlockM);
   if (!err) err = sm90::encode_rows_sw128(&tm_k, k, kv_valid, bh, kv_head, kBlockN);
   if (!err) err = sm90::encode_rows_sw128(&tm_v, v, kv_valid, bh, kv_head, kBlockN);
   if (!err) err = sm90::encode_rows_sw128(&tm_dk, dk, skv, bh, kv_head, 64);
   if (!err) err = sm90::encode_rows_sw128(&tm_dv, dv, skv, bh, kv_head, 64);
   if (err) return err;
-  st = cudaFuncSetAttribute(flash_bwd_dkv_sm90,
-                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            static_cast<int>(kSmemBytes));
+  const cudaError_t st = cudaFuncSetAttribute(
+      flash_bwd_dkv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
   if (st != cudaSuccess) return static_cast<int>(st);
   const dim3 grid((skv + kBlockN - 1) / kBlockN, bh);
-  flash_bwd_dkv_sm90<<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_bwd_dkv_sm90<<<grid, kBlockThreads, kSmemBytes, stream>>>(
       tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, static_cast<const float*>(lse),
       static_cast<const float*>(di), sq, skv, kv_valid);
   return static_cast<int>(cudaGetLastError());
@@ -349,18 +612,22 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace k4
 }  // namespace ea
 
+extern "C" int ea_flash_bwd_uses_sm90(int head_dim) {
+  return head_dim == ea::dense_bwd::kD;
+}
+
 extern "C" int ea_flash_bwd_dq_bf16(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* di, void* dq,
                                     int bh, int sq, int skv, int kv_valid,
                                     int head_dim, void* stream) {
+  if (ea_flash_bwd_uses_sm90(head_dim)) {
+    return ea::k3::launch(q, k, v, dout, lse, di, dq, bh, sq, skv, kv_valid,
+                          reinterpret_cast<cudaStream_t>(stream));
+  }
   return ea::launch_attn_bwd_dq<false>(q, k, v, dout, lse, di, dq, bh, sq,
                                        skv, kv_valid, /*window=*/0, head_dim,
                                        stream);
-}
-
-extern "C" int ea_flash_bwd_dkv_uses_sm90(int head_dim) {
-  return head_dim == ea::k4::kD;
 }
 
 extern "C" int ea_flash_bwd_dkv_bf16(const void* q, const void* k,
@@ -369,7 +636,7 @@ extern "C" int ea_flash_bwd_dkv_bf16(const void* q, const void* k,
                                      void* dk, void* dv, int bh, int sq,
                                      int skv, int kv_valid, int head_dim,
                                      void* stream) {
-  if (ea_flash_bwd_dkv_uses_sm90(head_dim)) {
+  if (ea_flash_bwd_uses_sm90(head_dim)) {
     return ea::k4::launch(q, k, v, dout, lse, di, dk, dv, bh, sq, skv,
                           kv_valid, reinterpret_cast<cudaStream_t>(stream));
   }

@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels.
 //
-// Users: K1, the dense flash-attention forward (flash_fwd.cu), and K4, the
-// dense backward's dk/dv kernel (flash_bwd.cu), both at head_dim 64 and
-// both bound by operations at the flagship shape ([96, 13360, 64] bf16).
-// Their common shape: one producer warpgroup keeps TMA loads in flight
-// through a ring of shared-memory stages guarded by full/empty mbarriers,
-// and consumer warpgroups run the products on the tensor cores with wgmma
-// (score-like products with both operands in shared memory, products with
-// a probability-like operand from registers). K3 (dq) is to follow.
+// Users: K1, the dense flash-attention forward (flash_fwd.cu), and K3 and
+// K4, the dense backward's dq and dk/dv kernels (flash_bwd.cu), all at
+// head_dim 64 and all bound by operations at the flagship shape
+// ([96, 13360, 64] bf16). Their common shape: one producer warpgroup keeps
+// TMA loads in flight through a ring of shared-memory stages guarded by
+// full/empty mbarriers, and consumer warpgroups run the products on the
+// tensor cores with wgmma (score-like products with both operands in
+// shared memory, products with a probability-like operand from registers).
 //
 // Conventions the pieces rely on:
 //   - Tiles are bf16 rows of 64 elements (128 bytes), loaded by TMA with

@@ -1,7 +1,7 @@
 """Dense attention over [bh, S, d]: the hand-written Hopper kernels
-(csrc/flash_fwd.cu, K1: TMA + wgmma at d 64; csrc/flash_bwd.cu, K3 and K4,
-K4 a TMA + wgmma kernel at d 64), their plain PyTorch versions, and the
-autograd Function that joins them.
+(csrc/flash_fwd.cu, K1; csrc/flash_bwd.cu, K3 and K4; all three TMA +
+wgmma kernels at d 64), their plain PyTorch versions, and the autograd
+Function that joins them.
 
 All take q pre-scaled by sm_scale * log2(e) (ops/attention.py folds it in
 and rounds back to the input dtype, as the JAX wrapper does at
@@ -136,8 +136,8 @@ def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     tensor contiguous (a caller with a strided do makes it contiguous
     first), bf16 except the float32 lse. A CPU tensor takes
     flash_attention_bwd_plain. `flash_attention_bwd.launches` counts calls
-    that launched the pair, `.launches_sm90` those whose K4 ran the TMA +
-    wgmma kernel (d 64; d 16 and 32 run the mma.sync one)."""
+    that launched the pair, `.launches_sm90` those in which both ran their
+    TMA + wgmma kernels (d 64; d 16 and 32 run the mma.sync ones)."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
@@ -159,7 +159,7 @@ def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                   dv.data_ptr(), bh, sq, skv, kv_valid, d)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_sm90 += _build.load_library(
-        ).ea_flash_bwd_dkv_uses_sm90(d)
+        ).ea_flash_bwd_uses_sm90(d)
     return dq, dk, dv
 
 

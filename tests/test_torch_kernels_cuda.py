@@ -90,11 +90,15 @@ def _grad_close(got, want, bound=2e-2):
 @pytest.mark.parametrize("sq,skv,kv_valid,d", [
     (256, 256, 256, 64), (333, 1027, 1000, 64), (1001, 1100, 1037, 64),
     (100, 70, 70, 32), (65, 129, 100, 16),
-    # K4 at d 64 is the TMA + wgmma kernel (128 kv rows a block, 64 q rows
-    # a stage): exactly one kv block and one q tile; kv_valid inside the
-    # last kv block with rows past it; kv_valid on a block boundary with a
-    # whole block past it; one q row; the SWA cross pass cut
+    # at d 64 both are TMA + wgmma kernels. K4 (128 kv rows a block, 64 q
+    # rows a stage): exactly one kv block and one q tile; kv_valid inside
+    # the last kv block with rows past it; kv_valid on a block boundary
+    # with a whole block past it. K3 (128 q rows a block, 128 kv rows a
+    # stage): exactly one block and one tile; q rows past Sq in the second
+    # block with kv_valid inside the second tile; kv_valid on a tile
+    # boundary with rows past it. Both: one q row; the SWA cross pass cut
     (64, 128, 128, 64), (256, 300, 270, 64), (200, 400, 256, 64),
+    (128, 128, 128, 64), (129, 257, 200, 64), (300, 1100, 1024, 64),
     (1, 300, 300, 64), (1337, 1027, 1027, 64)])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, sq, skv,
                                                kv_valid, d):
@@ -117,6 +121,33 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, sq, skv,
                                                        kv_valid)):
         _grad_close(got, want)
     assert not dk[:, kv_valid:].any() and not dv[:, kv_valid:].any()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dq_masks_pad_columns_at_deep_lse_on_card(cuda_device):
+    """Every score of a row near -256 (q all +2, k near -2, d 64), so lse
+    is about -248: the zero k rows past kv_valid score 0, and 2^(-lse) would
+    overflow to inf there (inf * 0 = NaN in ds k) unless K3 masks the pad
+    columns of its last kv tile. k carries a little noise: with a constant
+    k, dq = ln2 * k * sum_j ds_j is 0 up to rounding (the ds of a row sum
+    to 0), and the comparison would hold noise against noise."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    sq, skv, kv_valid, d = 200, 300, 270, 64
+    q = torch.full((4, sq, d), 2.0, device=cuda_device).to(torch.bfloat16)
+    k = (-2.0 + 0.25 * torch.randn(4, skv, d, generator=g, device=cuda_device)
+         ).to(torch.bfloat16)
+    v = torch.randn(4, skv, d, generator=g, device=cuda_device
+                    ).to(torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
+    assert lse.max().item() < -200, lse.max().item()
+    do = torch.randn(o.shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, kv_valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq.float()).all()
+    for got, want in zip((dq, dk, dv),
+                         tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       kv_valid)):
+        _grad_close(got, want)
 
 
 @pytest.mark.cuda

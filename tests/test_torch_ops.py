@@ -407,3 +407,20 @@ def test_cpu_tensors_take_plain_version_without_launch(rng):
     assert tfa.flash_attention_fwd.launches_sm90 == n_sm90
     _close(o1, o2, 1e-5)
     _close(l1, l2, 1e-5)
+
+
+def test_cpu_backward_takes_plain_version_without_launch(rng):
+    """flash_attention_bwd on CPU tensors is flash_attention_bwd_plain, and
+    no kernel launch is counted."""
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 40, 16))
+                                    .astype(np.float32)) for _ in range(4))
+    o, lse = tfa.flash_attention_fwd(q, k, v, 33)
+    n, n_sm90 = (tfa.flash_attention_bwd.launches,
+                 tfa.flash_attention_bwd.launches_sm90)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, 33)
+    assert (tfa.flash_attention_bwd.launches,
+            tfa.flash_attention_bwd.launches_sm90) == (n, n_sm90)
+    for a, b in zip(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       33)):
+        assert torch.equal(a, b)
+    assert not got[1][:, 33:].any() and not got[2][:, 33:].any()
