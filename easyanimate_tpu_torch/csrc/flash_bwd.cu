@@ -111,6 +111,19 @@ int check_launch_regs(Kernel* kernel) {
              ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
+// acc = A B^T over d: A the consumer's 64 rows (descriptor desc_a), B a
+// tile's 64 rows, both K-major in shared memory; 4 k steps of 16 over d
+// (32 bytes along the 128-byte rows). K3's s = q k^T, dp = do v^T; K4's
+// s^T = k q^T, dp^T = v do^T.
+__device__ __forceinline__ void issue_scores(float (&acc)[32], uint64_t desc_a,
+                                             const __nv_bfloat16* b_tile) {
+  const uint64_t desc_b = sm90::desc_sw128(b_tile, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    sm90::wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
+  }
+}
+
 // acc += A B over KS * 16 rows of a tile: A from registers (p, ds, p^T or
 // ds^T), B the tile's rows read MN-major; k step ks takes rows
 // 16ks..16ks+15 (2048 bytes further on).
@@ -151,8 +164,9 @@ namespace k3 {
 using namespace dense_bwd;
 
 constexpr int kBlockM = 64 * kConsumers;    // q rows per block
-constexpr int kBlockN = 128;                // kv rows per stage
-constexpr int kStages = 2;
+constexpr int kBlockN = 64;                 // kv rows per stage
+constexpr int kStages = 4;
+static_assert(kBlockN == 64, "issue_scores is an m64n64 product");
 constexpr uint32_t kQBytes = kBlockM * kRowBytes;
 constexpr uint32_t kTileBytes = kBlockN * kRowBytes;
 
@@ -167,22 +181,6 @@ struct Smem {
   uint64_t q_full;
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
-
-// acc = A B^T over d for one kv tile: A the consumer's 64 q (or do) rows, B
-// the tile's kBlockN k (or v) rows, both K-major; 4 k steps of 16 over d.
-template <int N>  // acc's length, kBlockN / 2
-__device__ __forceinline__ void issue_scores(float (&acc)[N], uint64_t desc_a,
-                                             const __nv_bfloat16* b_tile) {
-  const uint64_t desc_b = sm90::desc_sw128(b_tile, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    if constexpr (N == 64) {
-      sm90::wgmma_m64n128k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
-    } else {
-      sm90::wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
-    }
-  }
-}
 
 // ds = p (dp - di) with p = exp2(s - lse) for one kv tile (col0 its first
 // column), in place in sc, packed to bf16 as the A fragments of ds k (the
@@ -390,18 +388,6 @@ struct Smem {
   uint64_t kv_full;
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
-
-// acc = A B^T over d for one q tile: A the consumer's 64 k (or v) rows, B
-// the tile's q (or do) rows, both K-major; 4 k steps of 16 over d.
-__device__ __forceinline__ void issue_scores(float (&acc)[kBlockM / 2],
-                                             uint64_t desc_a,
-                                             const __nv_bfloat16* b_tile) {
-  const uint64_t desc_b = sm90::desc_sw128(b_tile, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    sm90::wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk, kk);
-  }
-}
 
 // p^T = exp2(s^T - lse[col]) and ds^T = p^T (dp^T - di[col]), packed to
 // bf16 as the A fragments of the two accumulating products. Column
