@@ -32,11 +32,12 @@
 // K3, flash_bwd_dq_sm90 (dq = ln2 * ds k), K1's walk (flash_fwd.cu) with one
 // more score product:
 //   - a block per (128 q rows, b*h); its q and do rows arrive once, k and v
-//     stream in 128-row tiles (their maps take kv_valid as the extent);
+//     stream in 64-row tiles through a 4-stage ring (their maps take
+//     kv_valid as the extent);
 //   - lse and di vary along the rows here, so each consumer thread loads its
 //     two rows' values once into registers (+inf and 0 past Sq, so p = 0
 //     and ds = 0 there); their head stride, 4 * Sq bytes, never meets TMA;
-//   - per kv tile: s = q k^T and dp = do v^T (SS wgmma m64n128, both
+//   - per kv tile: s = q k^T and dp = do v^T (SS wgmma m64n64, both
 //     operands K-major), then in registers p = exp2(s - lse) and ds =
 //     p (dp - di), packed to bf16 as the A fragments of dq += ds k (RS
 //     wgmma, k read MN-major from the same stage: K1's p v). The stage is
@@ -45,8 +46,8 @@
 //     overflows to inf once lse < -128 (and inf * 0 is NaN): on the last
 //     tile, and only there, columns >= kv_valid get s = -inf first (K1's
 //     last-tile test).
-//   Per kv tile a consumer runs 3 products of 2 * 64 * 128 * 64 (~768
-//   tensor-core cycles at the peak) against 8,192 exponentials (~512 cycles
+//   Per kv tile a consumer runs 3 products of 2 * 64 * 64 * 64 (~384
+//   tensor-core cycles at the peak) against 4,096 exponentials (~256 cycles
 //   on the MUFU units): the products lead, and the two consumers fill each
 //   other's elementwise gaps.
 //
@@ -72,10 +73,14 @@
 //   tensor-core cycles at the peak) against 8,192 exponentials (~512 cycles
 //   on the MUFU units).
 //
-// Tried on the card and dropped (PERF.md): for K4, 128-row q tiles and 3
-// consumers (192 kv rows at 160 registers) both spill; issuing the next
-// tile's score products ahead of this tile's accumulating ones spilled at
-// 240 registers. Two and three stages time alike.
+// Tried on the card and dropped (PERF.md). ptxas fitted the consumers'
+// code into the launch's 168 registers, not setmaxnreg's 240: K3 with
+// 128-column kv tiles (2 stages) spilled dq (384 B) with about 180 values
+// live, beside the two 64-float score accumulators, and ran 1.2x slower; issuing tile j + 1's score products right behind tile
+// j's dq product, without a wait between, ran 1.25x slower. K4: 128-row q
+// tiles and 3 consumers (192 kv rows at 160 registers) both spill; issuing
+// the next tile's score products ahead of this tile's accumulating ones
+// spilled. Two and three stages time alike.
 //
 // Head dims 16 and 32 (the tiny test preset only) run the mma.sync bodies of
 // attn_bwd.cuh: a dispatch by shape in the entry points below, never a
@@ -166,7 +171,6 @@ using namespace dense_bwd;
 constexpr int kBlockM = 64 * kConsumers;    // q rows per block
 constexpr int kBlockN = 64;                 // kv rows per stage
 constexpr int kStages = 4;
-static_assert(kBlockN == 64, "issue_scores is an m64n64 product");
 constexpr uint32_t kQBytes = kBlockM * kRowBytes;
 constexpr uint32_t kTileBytes = kBlockN * kRowBytes;
 
