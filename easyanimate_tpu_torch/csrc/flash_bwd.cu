@@ -251,45 +251,32 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_dq,
   float dq[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-  float sc[kBlockN / 2], dp[kBlockN / 2];
-  uint32_t da[kBlockN / 16][4] = {};
 
   sm90::mbar_wait(&sm.q_full, 0);
-  sm90::mbar_wait(&sm.full[0], 0);
-  sm90::wgmma_fence();
-  issue_scores(sc, desc_q, sm.k[0]);
-  issue_scores(dp, desc_do, sm.v[0]);
-  sm90::wgmma_commit();
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
-    // tile j's scores, and tile j - 1's dq product committed before them
+    sm90::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    float sc[kBlockN / 2], dp[kBlockN / 2];
+    sm90::wgmma_fence();
+    issue_scores(sc, desc_q, sm.k[s]);   // s = q k^T
+    issue_scores(dp, desc_do, sm.v[s]);  // dp = do v^T
+    sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
     sm90::fence_regs(dp);
-    sm90::fence_regs(dq);
-    sm90::fence_regs(da);
-    if (j > 0) {
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&sm.empty[(j - 1) % kStages]);
-    }
+    uint32_t da[kBlockN / 16][4];
     ds_tile(sc, dp, lse_a, lse_b, di_a, di_b, j * kBlockN, kv_valid, t, da);
     sm90::fence_regs(dq);  // ds lands before the fence
     sm90::fence_regs(da);
     sm90::wgmma_fence();
     issue_accumulate(dq, da, sm.k[s]);  // dq += ds k
     sm90::wgmma_commit();
-    if (j + 1 < n_tiles) {  // tile j + 1's scores right behind it
-      const int s1 = (j + 1) % kStages;
-      sm90::mbar_wait(&sm.full[s1], ((j + 1) / kStages) & 1);
-      sm90::wgmma_fence();
-      issue_scores(sc, desc_q, sm.k[s1]);
-      issue_scores(dp, desc_do, sm.v[s1]);
-      sm90::wgmma_commit();
-    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
   }
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(dq);
-  sm90::fence_regs(da);
 
   // dq * ln2 into this consumer's q rows (all its products are done); the
   // store clips rows past sq
