@@ -6,7 +6,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             the TMA + wgmma kernels (K1, K3's dq and K4's dk/dv kernels)
+             the TMA + wgmma kernels (K1, K2, K3's dq and K4's dk/dv
+             kernels)
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes, with kernel / plain /
@@ -30,8 +31,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
              4 layers: layer 0 dense, 1-3 SWA
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after, and that every K1, K3 and K4 launch (d 64) ran
-its TMA + wgmma kernel. Then the per-kernel JSON line and, last, the device
+and checks them just after, and that every K1, K2, K3 and K4 launch (d 64)
+ran its TMA + wgmma kernel. Then the per-kernel JSON line and, last, the device
 line.
 """
 import argparse
@@ -97,6 +98,7 @@ PEAK_BYTES = 3.35e12
 # video tokens (window = one frame), the 256 + 771 global rows
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
+K2_SM90 = "swa_fwd_sm90"  # K2's (csrc/swa_fwd.cu)
 K3_SM90 = "flash_bwd_dq_sm90"  # K3's (csrc/flash_bwd.cu)
 K4_SM90 = "flash_bwd_dkv_sm90"  # K4's (csrc/flash_bwd.cu)
 
@@ -206,7 +208,7 @@ def phase_device():
 
 
 def phase_build():
-    """Build the kernels; report the TMA + wgmma kernels (K1, K3, K4) as
+    """Build the kernels; report the TMA + wgmma kernels (K1-K4) as
     ptxas and cuobjdump see them, and fail unless each one's SASS issues wgmma
     (HGMMA) and TMA loads (UTMALDG)."""
     t0 = time.perf_counter()
@@ -214,7 +216,8 @@ def phase_build():
     _build.load_library()
     seconds = time.perf_counter() - t0
     out, report = {}, {}
-    for key, kernel in (("K1", K1_SM90), ("K3", K3_SM90), ("K4", K4_SM90)):
+    for key, kernel in (("K1", K1_SM90), ("K2", K2_SM90), ("K3", K3_SM90),
+                        ("K4", K4_SM90)):
         ptxas = _build.ptxas_report(kernel)
         sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
                                            "USETMAXREG", "STL", "LDL"))
@@ -353,6 +356,8 @@ def phase_kernels(gen):
     qr, kr, vr = rand(8, 3001, 64, scale=qs), rand(8, 3001, 64), rand(8, 3001, 64)
     errs.append(_compare("K2 ragged 3001 window 300", sliding_window_fwd,
                          sliding_window_plain, (qr, kr, vr, 300)))
+    errs.append(_compare("K2 ragged heads 1001 window 200", sliding_window_fwd,
+                         sliding_window_plain, (qh, kh, vh, 200)))
     stats["K2"].update(max_abs_err=max(e[0] for e in errs),
                        max_rel_err=max(e[1] for e in errs))
     gr, hr = rand(8, 300, 64), rand(8, 300, 64)
@@ -823,10 +828,10 @@ def phase_swa_fused(ins, cot, fused):
 
 
 DEVICE = torch.device("cuda")
-# flash_attention_fwd.launches_sm90 counts the K1 launches that ran the
-# TMA + wgmma kernel (d 64), flash_attention_bwd.launches_sm90 the K3 + K4
-# launches that ran theirs (both kernels, one call); every main path runs
-# at d 64
+# flash_attention_fwd.launches_sm90 and sliding_window_fwd.launches_sm90
+# count the K1 and K2 launches that ran their TMA + wgmma kernels (d 64),
+# flash_attention_bwd.launches_sm90 the K3 + K4 launches that ran theirs
+# (both kernels, one call); every main path runs at d 64
 COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
             "K3": flash_attention_bwd, "K4": flash_attention_bwd,
             "K5": swa_local_global_fwd,
@@ -839,6 +844,7 @@ def reset_counts():
     for fn in COUNTERS.values():
         fn.launches = 0
     flash_attention_fwd.launches_sm90 = 0
+    sliding_window_fwd.launches_sm90 = 0
     flash_attention_bwd.launches_sm90 = 0
 
 
@@ -987,15 +993,16 @@ def main():
 
     model, vae = build_12b(args.seed)
     totals = dict.fromkeys(COUNTERS, 0)
-    # launches_sm90 of K1, K3 and K4 over the path runs
-    totals_sm90 = {"K1": 0, "K3": 0, "K4": 0}
+    # launches_sm90 of K1-K4 over the path runs
+    totals_sm90 = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
     sm90_counters = {"K1": (flash_attention_fwd, K1_SM90),
+                     "K2": (sliding_window_fwd, K2_SM90),
                      "K3": (flash_attention_bwd, K3_SM90),
                      "K4": (flash_attention_bwd, K4_SM90)}
 
     def path_run(phase, fn, expect=None):
         """One main-path run: counts set to 0 just before, read just after;
-        every K1, K3 and K4 launch (d 64) ran its TMA + wgmma kernel."""
+        every K1-K4 launch (d 64) ran its TMA + wgmma kernel."""
         reset_counts()
         result = fn()
         got = read_counts()
@@ -1078,40 +1085,48 @@ def main():
             out["max_rel_err"] = st["max_rel_err"]
         return out
 
-    def sm90_row(out, key, src, products, cross_library):
+    def sm90_row(out, key, sources, flops, cross_library=None):
         """`out`, a TMA + wgmma kernel's row, with its path launches on that
-        kernel, rate and share of the bound at the flagship and the cross
-        pass, ptxas and SASS."""
+        kernel, rate (`flops`: the operations of the timed call) and share
+        of the bound at the flagship (and at the SWA cross pass, for the
+        dense kernels), ptxas and SASS."""
         ptxas, st = build[key]["ptxas"], stats[key]
         out.update(
             sources=[f"easyanimate_tpu_torch/csrc/{f}"
-                     for f in (src, "hopper.cuh")],
+                     for f in (*sources, "hopper.cuh")],
             kernel=sm90_counters[key][1], launches_sm90=totals_sm90[key],
-            tflops=products * 2 * BH * S_DENSE ** 2 * HEAD_DIM / out["ms"] / 1e9,
+            tflops=flops / out["ms"] / 1e9,
             share_of_bound=bounds[key][0] / out["ms"],
-            cross_ms=st["cross_ms"], cross_plain_ms=st["cross_plain_ms"],
-            cross_bound_ms=bounds[key + " cross"][0],
-            cross_bound_by=bounds[key + " cross"][1],
-            cross_library_ms=st[cross_library],
-            cross_share_of_bound=bounds[key + " cross"][0] / st["cross_ms"],
             registers=ptxas.get("registers"),
             spill_bytes=(ptxas.get("spill_store_bytes", 0)
                          + ptxas.get("spill_load_bytes", 0)),
             sass=build[key]["sass"])
+        if cross_library is not None:
+            out.update(
+                cross_ms=st["cross_ms"], cross_plain_ms=st["cross_plain_ms"],
+                cross_bound_ms=bounds[key + " cross"][0],
+                cross_bound_by=bounds[key + " cross"][1],
+                cross_library_ms=st[cross_library],
+                cross_share_of_bound=bounds[key + " cross"][0] / st["cross_ms"])
         return out
+
+    dense = 2 * BH * S_DENSE ** 2 * HEAD_DIM     # one dense product
+    band = 2 * BH * band_columns(S_VID, WINDOW) * HEAD_DIM
 
     emit({"kernels": [
         sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
                      "easyanimate_tpu/ops/flash_attention.py:92"),
-                 "K1", "flash_fwd.cu", 2, "cross_sdpa_ms"),
-        row("K2", "sliding_window_fwd", "swa_fwd.cu",
-            "easyanimate_tpu/ops/swa.py:32"),
+                 "K1", ("flash_fwd.cu", "fwd_sm90.cuh"), 2 * dense,
+                 "cross_sdpa_ms"),
+        sm90_row(row("K2", "sliding_window_fwd", "swa_fwd.cu",
+                     "easyanimate_tpu/ops/swa.py:32"),
+                 "K2", ("swa_fwd.cu", "fwd_sm90.cuh"), 2 * band),
         sm90_row(row("K3", "flash_attention_bwd (dq)", "flash_bwd.cu",
                      "easyanimate_tpu/ops/flash_attention.py:228"),
-                 "K3", "flash_bwd.cu", 3, "cross_sdpa_bwd_ms"),
+                 "K3", ("flash_bwd.cu",), 3 * dense, "cross_sdpa_bwd_ms"),
         sm90_row(row("K4", "flash_attention_bwd (dk, dv)", "flash_bwd.cu",
                      "easyanimate_tpu/ops/flash_attention.py:267"),
-                 "K4", "flash_bwd.cu", 4, "cross_sdpa_bwd_ms"),
+                 "K4", ("flash_bwd.cu",), 4 * dense, "cross_sdpa_bwd_ms"),
         row("K5", "swa_local_global_fwd", "swa_fused_fwd.cu",
             "easyanimate_tpu/ops/swa.py:159"),
         row("K6", "sliding_window_bwd (dq)", "swa_bwd.cu",
@@ -1122,8 +1137,9 @@ def main():
                "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
                "over max |plain|, the bound's measure. K1, K3, K4: ms at "
                "the dense flagship, cross_* at the SWA cross pass (13360 x "
-               "1027), library = SDPA (its backward for K3/K4); every path "
-               "launch ran their TMA + wgmma kernels (launches_sm90). "
+               "1027), library = SDPA (its backward for K3/K4); K2's tflops "
+               "counts the band's visible pairs; every path launch of K1-K4 "
+               "ran their TMA + wgmma kernels (launches_sm90). "
                "K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "

@@ -1,6 +1,7 @@
-// The mma.sync forward-attention body of K2 (swa_fwd.cu: banded) and K5
-// (swa_fused_fwd.cu: banded + global), and of K1 (flash_fwd.cu: dense) at
-// head dims 16 and 32 only; K1 at d 64 is flash_fwd.cu's TMA + wgmma kernel.
+// The mma.sync forward-attention body of K5 (swa_fused_fwd.cu: banded +
+// global), and of K1 (flash_fwd.cu: dense) and K2 (swa_fwd.cu: banded) at
+// head dims 16 and 32 only; K1 and K2 at d 64 are TMA + wgmma kernels on
+// fwd_sm90.cuh.
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -25,8 +26,9 @@
 // What bounds it on an H100: at head_dim 64 each kv element loaded from
 // shared memory feeds 64 q rows, and the mma.sync path reaches a fraction
 // of the wgmma peak; with no load/compute overlap the tensor cores idle
-// during every tile load. hopper.cuh holds the TMA + wgmma + producer
-// warpgroup pieces K1 moved onto; K2 and K5 are to follow.
+// during every tile load. hopper.cuh and fwd_sm90.cuh hold the TMA + wgmma
+// + producer warpgroup pieces K1 and K2 moved onto; only K5 (and K1, K2 at
+// d 16 and 32) still run this body.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -315,15 +317,8 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
       attn_fwd_kernel<32, kWindowed><<<grid, block, 0, st>>>(
           qp, kp, vp, op, lp, sq, skv, kv_len, window);
       break;
-    case 64:
-      // dense d 64 is flash_fwd.cu's TMA + wgmma kernel: no instance here
-      if constexpr (kWindowed) {
-        attn_fwd_kernel<64, kWindowed><<<grid, block, 0, st>>>(
-            qp, kp, vp, op, lp, sq, skv, kv_len, window);
-        break;
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
+    // d 64 runs the TMA + wgmma kernels (flash_fwd.cu, swa_fwd.cu): no
+    // instance here
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -105,17 +105,6 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kRowBytes = kD * 2;           // one bf16 row: 128 bytes
 
-// setmaxnreg.inc waits for registers the producer gives back, so a launch
-// with other than kLaunchRegs a thread would never finish: refuse it.
-template <typename Kernel>
-int check_launch_regs(Kernel* kernel) {
-  cudaFuncAttributes attr;
-  const cudaError_t st = cudaFuncGetAttributes(&attr, kernel);
-  if (st != cudaSuccess) return static_cast<int>(st);
-  return attr.numRegs == kLaunchRegs
-             ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
-}
-
 // acc = A B^T over d: A the consumer's 64 rows (descriptor desc_a), B a
 // tile's 64 rows, both K-major in shared memory; 4 k steps of 16 over d
 // (32 bytes along the 128-byte rows). K3's s = q k^T, dp = do v^T; K4's
@@ -344,7 +333,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* di, void* dq, int bh, int sq,
            int skv, int kv_valid, cudaStream_t stream) {
-  int err = check_launch_regs(flash_bwd_dq_sm90);
+  int err = sm90::check_launch_regs(flash_bwd_dq_sm90, kLaunchRegs);
   if (err) return err;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
   const uint64_t q_head = (uint64_t)sq * kRowBytes;
@@ -576,7 +565,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* di, void* dk, void* dv, int bh,
            int sq, int skv, int kv_valid, cudaStream_t stream) {
-  int err = check_launch_regs(flash_bwd_dkv_sm90);
+  int err = sm90::check_launch_regs(flash_bwd_dkv_sm90, kLaunchRegs);
   if (err) return err;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
   const uint64_t q_head = (uint64_t)sq * kRowBytes;

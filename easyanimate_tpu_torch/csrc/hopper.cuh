@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels.
 //
-// Users: K1, the dense flash-attention forward (flash_fwd.cu), and K3 and
-// K4, the dense backward's dq and dk/dv kernels (flash_bwd.cu), all at
-// head_dim 64 and all bound by operations at the flagship shape
-// ([96, 13360, 64] bf16). Their common shape: one producer warpgroup keeps
+// Users: K1 and K2, the dense and the sliding-window forward (flash_fwd.cu
+// and swa_fwd.cu on fwd_sm90.cuh), and K3 and K4, the dense backward's dq
+// and dk/dv kernels (flash_bwd.cu), all at head_dim 64 and all bound by
+// operations at the flagship shapes ([96, 13360, 64] bf16; K2 [96, 13104,
+// 64] banded to 1,008). Their common shape: one producer warpgroup keeps
 // TMA loads in flight through a ring of shared-memory stages guarded by
 // full/empty mbarriers, and consumer warpgroups run the products on the
 // tensor cores with wgmma (score-like products with both operands in
@@ -290,6 +291,20 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// setmaxnreg.inc waits for registers the producer gives back, so a kernel
+// launched with other than the `regs` a thread its setmaxnreg balance
+// assumes may never finish. Returns 0 if ptxas gave the kernel `regs`, else
+// cudaErrorInvalidConfiguration (or the query's error): the caller then
+// refuses the launch.
+template <typename Kernel>
+int check_launch_regs(Kernel* kernel, int regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t st = cudaFuncGetAttributes(&attr, kernel);
+  if (st != cudaSuccess) return static_cast<int>(st);
+  return attr.numRegs == regs
+             ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 // ---- host: tensor maps --------------------------------------------------

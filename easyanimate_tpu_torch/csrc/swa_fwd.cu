@@ -1,23 +1,99 @@
 // K2: sliding-window (banded) attention forward for the local pass of the
-// V5.1 SWA layers: row i sees columns j with |i - j| <= window.
+// V5.1 SWA layers: row i sees columns j < S with |i - j| <= window.
 //
 // Replaces the TPU kernel easyanimate_tpu/ops/swa.py::_swa_kernel (driven by
 // _swa_fwd). The TPU kernel enumerates window offsets on its sequential grid
 // axis, clamps the kv block address and predicates duplicate tiles away, and
 // removes the zero-pad tail's mass per row in closed form. Here each block
-// loops over exactly the kv rows its q tile can see,
-// [max(0, q0 - W), min(S, q0 + 64 + W)), with no clamp and no duplicate
-// tiles, and masks j < S and |i - j| <= W by column index.
+// loops over exactly the kv rows its q rows can see, with no clamp and no
+// duplicate tiles, and hides the rest by index.
 //
-// Bound on the H100: with window 1,008 a 64-row q tile visits ~2,100 kv rows,
-// about 1/6 of the dense call's work at the flagship shape; the same
-// mma.sync body as K1 (attn_fwd.cuh) bounds it, and about 5% of the visited
-// scores (33 tiles of 64 columns for a band of 2,017) are masked away.
-#include "attn_fwd.cuh"
+// What it computes: o = softmax2(q k^T) v over the band, q pre-scaled by
+// sm_scale * log2(e), an online base-2 softmax in f32; o bf16 [bh, S, d],
+// lse2 f32 [bh, S, 1] (base 2), the residual K6 and K7 read.
+//
+// Bound on the H100: at the flagship call (b*h = 96, S = 13,104, window
+// 1,008: one latent frame, all 6 permuted head groups in one call) the band
+// holds 25,413,696 visible (i, j) pairs a head, so the 2 products take
+// 2 * 2 * 96 * 25,413,696 * 64 = 0.625 TFLOP: 0.632 ms at 989 TFLOP/s,
+// against 0.19 ms for the q/k/v/o/lse bytes. It is bound by operations.
+//
+// Design at head_dim 64 (every production preset), swa_fwd_sm90 below: K1's
+// TMA + wgmma block (fwd_sm90.cuh; the producer warpgroup, the k/v ring,
+// SS wgmma for q k^T, RS wgmma for p v, the TMA store), with the banded walk
+// of fwd_sm90.cuh::BandWalk:
+//   - the walk: the block of q rows [q0, q0 + kBlockM) visits kv rows
+//     [max(0, q0 - W), min(S, q0 + kBlockM + W)) in 128-row tiles from the
+//     first (not 128-aligned: TMA boxes start at any row). At the flagship a
+//     192-row block visits 18 tiles (2,304 rows) for its band of 2,208; K1's
+//     dense walk visits 105. The k/v maps take S as their row extent, so
+//     rows past S arrive as zeros and no tile reads another head's rows;
+//   - the mask: a tile that crosses the band's edge for a consumer's 64 rows
+//     (a test uniform across the warpgroup: about 2 tiles at each end of the
+//     walk) sets s = -inf before the row max for j >= S or |i - j| > W;
+//     interior tiles take no mask. j >= S matters: the zero rows past S
+//     score 0, which would take the max of a row whose visible scores are
+//     all very negative. A row that has seen nothing yet keeps m = -inf and
+//     K1's guard exponentiates it against 0;
+//   - the same block as K1 rather than a copy: K1's dense instance keeps its
+//     code (its walk is the other policy of the same template).
+//
+// Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync body
+// of attn_fwd.cuh: a dispatch by shape in ea_swa_fwd_bf16, never a fallback
+// on failure. ea_swa_fwd_uses_sm90 tells the wrapper which ran.
+#include "fwd_sm90.cuh"
+
+namespace ea {
+namespace k2 {
+
+constexpr int kConsumers = 3;                // consumer warpgroups
+// a consumer runs no product on a tile wholly outside its rows' band
+constexpr bool kSkipHidden = false;
+using B = fwd90::Block<kConsumers>;
+using Walk = fwd90::BandWalk<kSkipHidden>;
+constexpr size_t kSmemBytes = fwd90::kSmemBytes<kConsumers>;
+
+__global__ void __launch_bounds__(B::kThreads, 1)
+swa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_o,
+             float* __restrict__ lse, int s, int window) {
+  fwd90::run_block<kConsumers>(tm_q, tm_k, tm_v, tm_o, lse, s,
+                               Walk{s, window});
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int bh, int s, int window, cudaStream_t stream) {
+  if (window > s) window = s;  // |i - j| < S: a wider window sees the same
+  fwd90::Maps m;
+  int err = fwd90::encode_maps<kConsumers>(m, q, k, v, o, bh, s, s, s);
+  if (!err) err = sm90::check_launch_regs(swa_fwd_sm90, B::kLaunchRegs);
+  if (err) return err;
+  cudaError_t st = cudaFuncSetAttribute(
+      swa_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (st != cudaSuccess) return static_cast<int>(st);
+  const dim3 grid((s + B::kBlockM - 1) / B::kBlockM, bh);
+  swa_fwd_sm90<<<grid, B::kThreads, kSmemBytes, stream>>>(
+      m.q, m.k, m.v, m.o, static_cast<float*>(lse), s, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k2
+}  // namespace ea
+
+extern "C" int ea_swa_fwd_uses_sm90(int head_dim) {
+  return head_dim == ea::fwd90::kD;
+}
 
 extern "C" int ea_swa_fwd_bf16(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int s, int window,
                                int head_dim, void* stream) {
+  if (ea_swa_fwd_uses_sm90(head_dim)) {
+    return ea::k2::launch(q, k, v, o, lse, bh, s, window,
+                          reinterpret_cast<cudaStream_t>(stream));
+  }
   return ea::launch_attn_fwd<true>(q, k, v, o, lse, bh, s, s, s, window,
                                    head_dim, stream);
 }

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "ea_flash_fwd_uses_sm90": (_I,),
     # q, k, v, o, lse, bh, s, window, head_dim, stream
     "ea_swa_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # head_dim -> 1 if ea_swa_fwd_bf16 runs the TMA + wgmma kernel
+    "ea_swa_fwd_uses_sm90": (_I,),
     # q, k, v, gk, gv, o, bh, s, sg, window, head_dim, stream
     "ea_swa_fused_fwd_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
     # q, k, v, do, lse, di, dq, bh, sq, skv, kv_valid, head_dim, stream

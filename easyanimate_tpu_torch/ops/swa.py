@@ -78,7 +78,8 @@ def sliding_window_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 
     A CUDA tensor launches K2 (bf16, d in 16/32/64, contiguous) or raises; a
     CPU tensor takes sliding_window_plain. `sliding_window_fwd.launches`
-    counts kernel launches."""
+    counts kernel launches, `.launches_sm90` those that ran the TMA + wgmma
+    kernel (d 64; d 16 and 32 run the mma.sync one)."""
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if qf.device.type == "cpu":
@@ -94,10 +95,13 @@ def sliding_window_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                   vf.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n, window,
                   d)
     sliding_window_fwd.launches += 1
+    sliding_window_fwd.launches_sm90 += _build.load_library(
+        ).ea_swa_fwd_uses_sm90(d)
     return o, lse
 
 
 sliding_window_fwd.launches = 0
+sliding_window_fwd.launches_sm90 = 0
 
 
 def sliding_window_bwd_plain(qf: torch.Tensor, kf: torch.Tensor,

@@ -55,14 +55,52 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,window,d", [(1000, 100, 64), (777, 63, 32),
-                                        (300, 500, 16)])
-def test_swa_kernel_matches_plain_on_card(cuda_device, s, window, d):
+@pytest.mark.parametrize("bh,s,window,d", [
+    (4, 1000, 100, 64), (4, 777, 63, 32), (4, 300, 500, 16),
+    # d 64 runs the TMA + wgmma kernel (192 q rows a block, 128-row kv
+    # tiles from max(0, q0 - window)): window 0; a window past S (every
+    # row sees everything); S below one q block; ragged S with a window
+    # that is not a multiple of 128; a band narrower than two tiles; 12
+    # heads of 1001 rows, each offset by its own mean (a tile that read
+    # across a head's end would carry another head's values)
+    (4, 1000, 0, 64), (4, 300, 500, 64), (4, 100, 30, 64),
+    (4, 3001, 300, 64), (4, 777, 63, 64), (12, 1001, 200, 64)])
+def test_swa_kernel_matches_plain_on_card(cuda_device, bh, s, window, d):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    q, k, v = (torch.randn(4, s, d, generator=g, device=cuda_device
-                           ).to(torch.bfloat16) for _ in range(3))
+    shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 3 - 1.0
+             if bh == 12 else 0.0)
+    q, k, v = ((torch.randn(bh, s, d, generator=g, device=cuda_device)
+                + (0.0 if i == 0 else shift)).to(torch.bfloat16)
+               for i in range(3))
+    before = tswa.sliding_window_fwd.launches
+    before_sm90 = tswa.sliding_window_fwd.launches_sm90
     o, lse = tswa.sliding_window_fwd(q, k, v, window)
     torch.cuda.synchronize()
+    assert tswa.sliding_window_fwd.launches == before + 1
+    assert tswa.sliding_window_fwd.launches_sm90 == before_sm90 + (d == 64)
+    o_p, lse_p = tswa.sliding_window_plain(q, k, v, window)
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+def test_swa_kernel_masks_pad_rows_at_deep_scores_on_card(cuda_device):
+    """Every visible score of a row near -256 (q all +2, k near -2, d 64):
+    the zero k rows past S that TMA fills into the last kv tile of every
+    block score 0, and would take the row max (and all of p) unless K2
+    hides columns j >= S. k carries a little noise, so o depends on which
+    columns were kept."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    s, window, d = 200, 50, 64
+    q = torch.full((4, s, d), 2.0, device=cuda_device).to(torch.bfloat16)
+    k = (-2.0 + 0.25 * torch.randn(4, s, d, generator=g, device=cuda_device)
+         ).to(torch.bfloat16)
+    v = torch.randn(4, s, d, generator=g, device=cuda_device
+                    ).to(torch.bfloat16)
+    o, lse = tswa.sliding_window_fwd(q, k, v, window)
+    torch.cuda.synchronize()
+    assert lse.max().item() < -200, lse.max().item()
+    assert torch.isfinite(o.float()).all()
     o_p, lse_p = tswa.sliding_window_plain(q, k, v, window)
     _close(o.float(), o_p.float(), 2e-2)
     _close(lse, lse_p, 1e-3)

@@ -184,10 +184,12 @@ def test_joint_attention_matches_jax(rng):
 
 
 @pytest.mark.parametrize("s,window,d", [(256, 64, 64), (200, 50, 64),
-                                        (384, 100, 64), (150, 20, 32)])
+                                        (384, 100, 64), (150, 20, 32),
+                                        (130, 0, 64), (100, 150, 32)])
 def test_swa_plain_matches_jax_kernel(rng, s, window, d):
     """o and lse of K2's plain version against the Pallas windowed kernel
-    in interpret mode (ragged S at 200 and 150)."""
+    in interpret mode (ragged S at 200, 150, 130 and 100; window 0, and a
+    window past S, where every row sees every column)."""
     bh, blk = 2, 128
     q, k, v = (rng.standard_normal((bh, s, d)).astype(np.float32)
                for _ in range(3))
@@ -399,12 +401,14 @@ def test_cpu_tensors_take_plain_version_without_launch(rng):
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 40, 16))
                                 .astype(np.float32)) for _ in range(3))
     n1, n2 = tfa.flash_attention_fwd.launches, tswa.sliding_window_fwd.launches
-    n_sm90 = tfa.flash_attention_fwd.launches_sm90
+    n_sm90 = (tfa.flash_attention_fwd.launches_sm90,
+              tswa.sliding_window_fwd.launches_sm90)
     o1, l1 = tfa.flash_attention_fwd(q, k, v)
     o2, l2 = tswa.sliding_window_fwd(q, k, v, 40)  # window covers all
     assert (tfa.flash_attention_fwd.launches, tswa.sliding_window_fwd.launches
             ) == (n1, n2)
-    assert tfa.flash_attention_fwd.launches_sm90 == n_sm90
+    assert (tfa.flash_attention_fwd.launches_sm90,
+            tswa.sliding_window_fwd.launches_sm90) == n_sm90
     _close(o1, o2, 1e-5)
     _close(l1, l2, 1e-5)
 
