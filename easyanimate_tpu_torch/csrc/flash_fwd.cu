@@ -49,9 +49,9 @@
 // the softmax; that overlap with 3 consumers (it spills at 160 registers);
 // the consumers taking turns on named barriers; rings of 3 or 4 stages.
 //
-// The block itself lives in fwd_sm90.cuh, which K2 (swa_fwd.cu) shares
-// with another walk over kv; this file instantiates it with the dense walk
-// (kv rows [0, kv_valid) for every block, the last tile masked).
+// The block's pieces live in fwd_sm90.cuh, which K2 (swa_fwd.cu) shares;
+// the consumer loop below, over every kv tile with the last one masked, is
+// K1's own.
 //
 // Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync
 // body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16, never a
@@ -61,32 +61,98 @@
 namespace ea {
 namespace k1 {
 
-constexpr int kConsumers = 3;                // consumer warpgroups
-using B = fwd90::Block<kConsumers>;          // 192 q rows, 512 threads
-constexpr size_t kSmemBytes = fwd90::kSmemBytes<kConsumers>;
+using fwd90::kBlockM;
+using fwd90::kBlockN;
+using fwd90::kConsumerRegs;
+using fwd90::kD;
+using fwd90::kSmemBytes;
+using fwd90::kStages;
+using fwd90::kThreads;
+using fwd90::Smem;
 
-__global__ void __launch_bounds__(B::kThreads, 1)
+// Columns >= kv_valid (col0 is the tile's first) set to -inf on the last
+// tile: the zero rows TMA fills in would otherwise score 0.
+__device__ __forceinline__ void mask_tail(float (&sc)[64], int col0,
+                                          int kv_valid, int t) {
+  if (col0 + kBlockN > kv_valid) {  // the last tile
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
+          sc[4 * i + e] = -INFINITY;
+          sc[4 * i + 2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+}
+
+// One consumer warpgroup: 64 q rows against every kv tile, then the store.
+// Within a consumer the products and the softmax run in turn; the other
+// consumers' products fill the tensor cores meanwhile.
+__device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
+                                        float* __restrict__ lse, int c,
+                                        int bh, int q0, int sq, int kv_valid,
+                                        int n_tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g;  // this thread's two rows in the 64
+  const int r_b = r_a + 8;
+  __nv_bfloat16* sq_c = sm.q + c * 64 * kD;  // this consumer's q rows
+  const uint64_t desc_q = sm90::desc_sw128(sq_c, 16, 1024);
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  fwd90::RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
+
+  sm90::mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(&sm.full[s], (j / kStages) & 1);
+    float sc[64];
+    sm90::wgmma_fence();
+    fwd90::issue_qk(sc, desc_q, sm.k[s]);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    mask_tail(sc, j * kBlockN, kv_valid, t);
+    fwd90::softmax_pv(sc, o, st, sm, s, lane);
+  }
+  fwd90::store_o_lse(o, st, sq_c, tm_o, lse, c, bh, q0, sq, tid, t, r_a, r_b);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_o,
                float* __restrict__ lse, int sq, int kv_valid) {
-  fwd90::run_block<kConsumers>(tm_q, tm_k, tm_v, tm_o, lse, sq,
-                               fwd90::DenseWalk{kv_valid});
+  Smem& sm = fwd90::init_smem();
+  const int warpgroup = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  const int n_tiles = (kv_valid + kBlockN - 1) / kBlockN;
+  if (warpgroup == 0) {
+    fwd90::produce(sm, &tm_q, &tm_k, &tm_v, q0, bh, 0, n_tiles);
+  } else {
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    consume(sm, &tm_o, lse, warpgroup - 1, bh, q0, sq, kv_valid, n_tiles);
+  }
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int sq, int skv, int kv_valid, cudaStream_t stream) {
   fwd90::Maps m;
-  const int err = fwd90::encode_maps<kConsumers>(m, q, k, v, o, bh, sq, skv,
-                                                 kv_valid);
+  const int err = fwd90::encode_maps(m, q, k, v, o, bh, sq, skv, kv_valid);
   if (err) return err;
   cudaError_t st = cudaFuncSetAttribute(
       flash_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (st != cudaSuccess) return static_cast<int>(st);
-  const dim3 grid((sq + B::kBlockM - 1) / B::kBlockM, bh);
-  flash_fwd_sm90<<<grid, B::kThreads, kSmemBytes, stream>>>(
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
+  flash_fwd_sm90<<<grid, kThreads, kSmemBytes, stream>>>(
       m.q, m.k, m.v, m.o, static_cast<float*>(lse), sq, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,26 +1,13 @@
-// The TMA + wgmma forward-attention block at head_dim 64, shared by K1
-// (flash_fwd.cu: every block walks all kv rows) and K2 (swa_fwd.cu: a block
-// walks only the kv rows its q rows can see). The design is K1's, described
-// in flash_fwd.cu's note: a producer warpgroup streams 128-row k and v tiles
-// by TMA through a ring of kStages stages with full/empty mbarriers; each
-// consumer warpgroup owns 64 q rows, forms s = q k^T by SS wgmma, runs the
-// online base-2 softmax on the f32 accumulator in registers and adds p v by
-// RS wgmma; the epilogue stores o by TMA from the consumer's own q rows.
-//
-// A walk policy says which kv rows a block visits and which scores it hides:
-//   begin(q0), end(q0, block_m)  the kv rows [begin, end) of the block whose
-//                     q rows start at q0, walked in tiles of kBlockN from
-//                     begin (any row: a TMA box need not start aligned; the
-//                     producer and the consumers count the same tiles, as
-//                     the mbarrier parities need);
-//   needs_mask(col0, row0)  whether the tile at kv row col0 hides any score
-//                     of the consumer's q rows [row0, row0 + 64): one test
-//                     for the whole warpgroup, so other tiles take no mask;
-//   mask(sc, col0, row_a, row_b, t)  the hidden scores of a thread's two
-//                     rows set to -inf, before the row max;
-//   skips(col0, row0)  whether the tile hides every score of those rows:
-//                     the consumer then runs neither product on it, but
-//                     still waits for the stage and releases it.
+// The pieces of K1's TMA + wgmma forward-attention block at head_dim 64
+// (flash_fwd.cu's note gives the design) that K2 (swa_fwd.cu) runs too: the
+// tile shape and register split, the shared-memory layout, the barriers and
+// the producer's loads, the two products, the online base-2 softmax of one
+// tile and the epilogue. What differs between them is which kv rows a block
+// walks and which scores it hides, so each kernel keeps its own consumer
+// loop: K1's walks kv rows [0, kv_valid) and masks its last tile, K2's walks
+// the rows its q rows can see and masks the band's edge tiles. (One
+// consumer templated on the walk cost K1 registers: its spills grew from
+// 16 to 24 bytes a direction. Kept apart, K1 compiles as before.)
 #pragma once
 
 #include "attn_fwd.cuh"
@@ -30,51 +17,74 @@ namespace ea {
 namespace fwd90 {
 
 constexpr int kD = 64;                       // head_dim of the block
+constexpr int kConsumers = 3;                // consumer warpgroups
+constexpr int kBlockM = 64 * kConsumers;     // q rows per block
 constexpr int kBlockN = 128;                 // kv rows per stage
 constexpr int kStages = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+// registers a thread: the launch gives 65536 / 512 = 128; the producer's
+// 128 x (128 - 32) given back are the consumers' 384 x (160 - 128)
+constexpr int kLaunchRegs = 128;
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 160;
 constexpr int kRowBytes = kD * 2;            // one bf16 row: 128 bytes
+constexpr uint32_t kQBytes = kBlockM * kRowBytes;
 constexpr uint32_t kTileBytes = kBlockN * kRowBytes;
 
-// The register balance of a block of kConsumers consumer warpgroups and one
-// producer: the launch gives 65536 / threads a thread (rounded down to 8),
-// and the registers the producer gives back by setmaxnreg are the
-// consumers' rise.
-template <int kConsumers>
-struct Split;
-template <>
-struct Split<3> {  // 512 threads: 128 x (128 - 32) = 384 x (160 - 128)
-  static constexpr int kLaunchRegs = 128;
-  static constexpr int kProducerRegs = 32;
-  static constexpr int kConsumerRegs = 160;
-};
-template <>
-struct Split<2> {  // 384 threads: 128 x (168 - 24) = 256 x (240 - 168)
-  static constexpr int kLaunchRegs = 168;
-  static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = 240;
-};
-
-template <int kConsumers>
-struct Block : Split<kConsumers> {
-  static constexpr int kBlockM = 64 * kConsumers;  // q rows per block
-  static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr uint32_t kQBytes = kBlockM * kRowBytes;
-};
-
 // Every tile starts 1024-byte aligned (the 128-byte swizzle's atom).
-template <int kConsumers>
 struct Smem {
-  __nv_bfloat16 q[64 * kConsumers * kD];
+  __nv_bfloat16 q[kBlockM * kD];
   __nv_bfloat16 k[kStages][kBlockN * kD];
   __nv_bfloat16 v[kStages][kBlockN * kD];
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t q_full;
 };
-template <int kConsumers>
-constexpr size_t kSmemBytes = sizeof(Smem<kConsumers>) + 1024;  // + alignment slack
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
 using sm90::fast_exp2;
+
+// The block's shared memory, 1024-byte aligned, with its barriers
+// initialised (one thread, then the whole block synchronised).
+__device__ __forceinline__ Smem& init_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::smem_u32(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);                // the producer's arrive
+      sm90::mbar_init(&sm.empty[s], kConsumers * 4);  // one per consumer warp
+    }
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// The producer warpgroup: one thread loads the block's q rows once, then
+// n_tiles k and v tiles of kBlockN rows from kv row kv_begin on (any row: a
+// TMA box need not start aligned) through the ring. The consumers count the
+// same tiles, as the mbarrier parities need.
+__device__ __forceinline__ void produce(Smem& sm, const CUtensorMap* tm_q,
+                                        const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, int q0, int bh,
+                                        int kv_begin, int n_tiles) {
+  sm90::setmaxnreg_dec<kProducerRegs>();
+  if (threadIdx.x == 0) {
+    sm90::mbar_arrive_expect_tx(&sm.q_full, kQBytes);
+    sm90::tma_load_3d(sm.q, tm_q, &sm.q_full, 0, q0, bh);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      // the first pass over the ring finds every stage free
+      sm90::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
+      sm90::tma_load_3d(sm.k[s], tm_k, &sm.full[s], 0, kv_begin + j * kBlockN, bh);
+      sm90::tma_load_3d(sm.v[s], tm_v, &sm.full[s], 0, kv_begin + j * kBlockN, bh);
+    }
+  }
+}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -85,75 +95,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
-
-// K1: every block walks kv rows [0, kv_valid); only the last tile holds
-// columns to hide (j >= kv_valid: the zero rows TMA fills in would score 0).
-struct DenseWalk {
-  int kv_valid;
-
-  __device__ __forceinline__ int begin(int) const { return 0; }
-  __device__ __forceinline__ int end(int, int) const { return kv_valid; }
-  __device__ __forceinline__ bool skips(int, int) const { return false; }
-  __device__ __forceinline__ bool needs_mask(int col0, int) const {
-    return col0 + kBlockN > kv_valid;
-  }
-  __device__ __forceinline__ void mask(float (&sc)[64], int col0, int, int,
-                                       int t) const {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
-          sc[4 * i + e] = -INFINITY;
-          sc[4 * i + 2 + e] = -INFINITY;
-        }
-      }
-    }
-  }
-};
-
-// K2: row i sees the columns j < s with |i - j| <= window (window <= s, as
-// the launch ensures: no sum overflows), so the block of q rows
-// [q0, q0 + block_m) walks [max(0, q0 - window), min(s, q0 + block_m +
-// window)). The tiles at either
-// end of the walk cross the band's edges; the last may also hold zero rows
-// past s, which would score 0 and could take the max of a row whose visible
-// scores are all very negative, so j >= s is hidden too. With kSkipHidden a
-// consumer runs no product on a tile wholly outside its rows' band.
-template <bool kSkipHidden>
-struct BandWalk {
-  int s, window;
-
-  __device__ __forceinline__ int begin(int q0) const {
-    return max(0, q0 - window);
-  }
-  __device__ __forceinline__ int end(int q0, int block_m) const {
-    return min(s, q0 + block_m + window);
-  }
-  __device__ __forceinline__ bool skips(int col0, int row0) const {
-    return kSkipHidden && (col0 + kBlockN - 1 < row0 - window ||
-                           col0 > row0 + 63 + window);
-  }
-  __device__ __forceinline__ bool needs_mask(int col0, int row0) const {
-    return col0 + kBlockN > s || row0 + 63 - col0 > window ||
-           col0 + kBlockN - 1 - row0 > window;
-  }
-  __device__ __forceinline__ void mask(float (&sc)[64], int col0, int row_a,
-                                       int row_b, int t) const {
-    // the visible columns of each row: [row - window, min(row + window, s - 1)]
-    const int lo_a = row_a - window, hi_a = min(row_a + window, s - 1);
-    const int lo_b = row_b - window, hi_b = min(row_b + window, s - 1);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = col0 + 8 * i + 2 * t + e;
-        if (j < lo_a || j > hi_a) sc[4 * i + e] = -INFINITY;
-        if (j < lo_b || j > hi_b) sc[4 * i + 2 + e] = -INFINITY;
-      }
-    }
-  }
-};
 
 // A consumer thread's running max and partial sum of its two rows.
 struct RowStats {
@@ -187,12 +128,12 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
   sm90::wgmma_commit();
 }
 
-// The online base-2 softmax of one tile's (masked) scores, in place: the
-// row maxima folded into st.m, the scores turned into p = exp2(s - m) and
-// summed into st.l. Returns in alpha_* the factors o must be scaled by
-// before this tile's p v.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowStats& st,
-                                             float& alpha_a, float& alpha_b) {
+// The online base-2 softmax of one tile's scores (hidden ones already
+// -inf), in place: the row maxima folded into st.m, the scores turned into
+// p = exp2(s - m) and summed into st.l. Returns in alpha_* the factors o
+// must be scaled by before this tile's p v.
+__device__ __forceinline__ void online_softmax(float (&sc)[64], RowStats& st,
+                                               float& alpha_a, float& alpha_b) {
   float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -235,75 +176,52 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64],
   }
 }
 
-// One consumer warpgroup: its 64 q rows against the block's kv tiles, then
-// the store. Within a consumer the products and the softmax run in turn;
-// the other consumers' products fill the tensor cores meanwhile.
-template <int kConsumers, class Walk>
-__device__ __forceinline__ void consume(Smem<kConsumers>& sm,
-                                        const CUtensorMap* tm_o,
-                                        float* __restrict__ lse, int c, int bh,
-                                        int q0, int sq, const Walk& walk,
-                                        int kv_begin, int n_tiles) {
-  const int tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r_a = warp * 16 + g;  // this thread's two rows in the 64
-  const int r_b = r_a + 8;
-  const int row0 = q0 + c * 64;   // the consumer's first q row
-  __nv_bfloat16* sq_c = sm.q + c * 64 * kD;  // this consumer's q rows
-  const uint64_t desc_q = sm90::desc_sw128(sq_c, 16, 1024);
-
-  float o[32];
+// One tile of a consumer, after its scores are masked: the softmax, o
+// rescaled, o += p v; then the stage released (its empty barrier) once
+// wgmma.wait_group shows the p v on it complete.
+__device__ __forceinline__ void softmax_pv(float (&sc)[64], float (&o)[32],
+                                           RowStats& st, Smem& sm, int s,
+                                           int lane) {
+  float alpha_a, alpha_b;
+  online_softmax(sc, st, alpha_a, alpha_b);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
-
-  sm90::mbar_wait(&sm.q_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % kStages;
-    sm90::mbar_wait(&sm.full[s], (j / kStages) & 1);
-    const int col0 = kv_begin + j * kBlockN;
-    if (walk.skips(col0, row0)) {  // nothing visible: only release the stage
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
-      continue;
-    }
-    float sc[64], alpha_a, alpha_b;
-    sm90::wgmma_fence();
-    issue_qk(sc, desc_q, sm.k[s]);
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(sc);
-    if (walk.needs_mask(col0, row0)) {
-      walk.mask(sc, col0, row0 + r_a, row0 + r_b, t);
-    }
-    softmax_tile(sc, st, alpha_a, alpha_b);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      o[4 * i] *= alpha_a;
-      o[4 * i + 1] *= alpha_a;
-      o[4 * i + 2] *= alpha_b;
-      o[4 * i + 3] *= alpha_b;
-    }
-    uint32_t pa[8][4];
-    pack_p(sc, pa);
-    sm90::fence_regs(o);  // the rescale and p land before the fence
-    sm90::fence_regs(pa);
-    sm90::wgmma_fence();
-    issue_pv(o, pa, sm.v[s]);
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(o);
-    sm90::fence_regs(pa);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
+  for (int i = 0; i < 8; ++i) {
+    o[4 * i] *= alpha_a;
+    o[4 * i + 1] *= alpha_a;
+    o[4 * i + 2] *= alpha_b;
+    o[4 * i + 3] *= alpha_b;
   }
+  uint32_t pa[8][4];
+  pack_p(sc, pa);
+  sm90::fence_regs(o);  // the rescale and p land before the fence
+  sm90::fence_regs(pa);
+  sm90::wgmma_fence();
+  issue_pv(o, pa, sm.v[s]);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(o);
+  sm90::fence_regs(pa);
+  __syncwarp();
+  if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
+}
+
+// A consumer's epilogue: o * (1 / l) in bf16 into its own q rows sq_c (all
+// its q k^T products are done) in the 128-byte swizzled layout the o map
+// stores from, one TMA store of its 64 rows from q0 + 64 c (rows past sq
+// clipped), and lse = m + log2(l) for rows below sq. tid, t, r_a and r_b
+// are the consumer thread's index in its warpgroup, in its quad, and its
+// two rows in the 64.
+__device__ __forceinline__ void store_o_lse(const float (&o)[32],
+                                            const RowStats& st,
+                                            __nv_bfloat16* sq_c,
+                                            const CUtensorMap* tm_o,
+                                            float* __restrict__ lse, int c,
+                                            int bh, int q0, int sq, int tid,
+                                            int t, int r_a, int r_b) {
   const float l_sum_a = quad_sum(st.l_a), l_sum_b = quad_sum(st.l_b);
   // 1/l, or 1 for a row that saw nothing (its o is 0)
   const float inv_a = l_sum_a <= 0.f ? 1.f : 1.f / l_sum_a;
   const float inv_b = l_sum_b <= 0.f ? 1.f : 1.f / l_sum_b;
-
-  // o into this consumer's q rows (all its q k^T products are done), in the
-  // 128-byte swizzled layout the o map stores from: the 16-byte chunk i of
-  // row r sits at chunk i ^ (r % 8)
+  // the 16-byte chunk i of row r sits at chunk i ^ (r % 8)
   sm90::named_barrier_sync(1 + c, 128);
   uint8_t* so = reinterpret_cast<uint8_t*>(sq_c);
 #pragma unroll
@@ -316,6 +234,7 @@ __device__ __forceinline__ void consume(Smem<kConsumers>& sm,
   }
   sm90::fence_proxy_async();
   sm90::named_barrier_sync(1 + c, 128);
+  const int row0 = q0 + c * 64;
   if (tid == 0 && row0 < sq) {
     sm90::tma_store_3d(tm_o, so, 0, row0, bh);
     sm90::tma_store_wait();
@@ -327,77 +246,20 @@ __device__ __forceinline__ void consume(Smem<kConsumers>& sm,
   }
 }
 
-// The body of a block over q rows [blockIdx.x * kBlockM, + kBlockM) of head
-// blockIdx.y: the barriers, the producer's loads, the consumers. The tensor
-// maps are the kernel's __grid_constant__ parameters.
-template <int kConsumers, class Walk>
-__device__ __forceinline__ void run_block(const CUtensorMap& tm_q,
-                                          const CUtensorMap& tm_k,
-                                          const CUtensorMap& tm_v,
-                                          const CUtensorMap& tm_o,
-                                          float* __restrict__ lse, int sq,
-                                          const Walk& walk) {
-  using B = Block<kConsumers>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = sm90::smem_u32(smem_raw);
-  Smem<kConsumers>& sm = *reinterpret_cast<Smem<kConsumers>*>(
-      smem_raw + (((base + 1023) & ~1023u) - base));
-
-  const int warpgroup = threadIdx.x / 128;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * B::kBlockM;
-  const int kv_begin = walk.begin(q0);
-  const int n_tiles =
-      (walk.end(q0, B::kBlockM) - kv_begin + kBlockN - 1) / kBlockN;
-
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&sm.full[s], 1);                // the producer's arrive
-      sm90::mbar_init(&sm.empty[s], kConsumers * 4);  // one per consumer warp
-    }
-    sm90::mbar_init(&sm.q_full, 1);
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warpgroup == 0) {
-    sm90::setmaxnreg_dec<B::kProducerRegs>();
-    if (threadIdx.x == 0) {
-      sm90::mbar_arrive_expect_tx(&sm.q_full, B::kQBytes);
-      sm90::tma_load_3d(sm.q, &tm_q, &sm.q_full, 0, q0, bh);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kStages;
-        const int row = kv_begin + j * kBlockN;
-        // the first pass over the ring finds every stage free
-        sm90::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
-        sm90::tma_load_3d(sm.k[s], &tm_k, &sm.full[s], 0, row, bh);
-        sm90::tma_load_3d(sm.v[s], &tm_v, &sm.full[s], 0, row, bh);
-      }
-    }
-  } else {
-    sm90::setmaxnreg_inc<B::kConsumerRegs>();
-    consume<kConsumers>(sm, &tm_o, lse, warpgroup - 1, bh, q0, sq, walk,
-                        kv_begin, n_tiles);
-  }
-}
-
-// The tensor maps of a launch, 3-D (d, rows, b*h) with the 128-byte swizzle:
-// q over sq rows in boxes of the block's rows, o over sq rows in boxes of a
-// consumer's 64, k and v over kv_rows rows (rows at or past it, and past the
-// head's skv, read as zeros) in boxes of kBlockN.
+// A launch's tensor maps, 3-D (d, rows, b*h) with the 128-byte swizzle: q
+// and o over sq rows, in boxes of the block's rows and a consumer's 64; k
+// and v over kv_rows rows (rows at or past it, and past the head's skv,
+// read as zeros, so no tile reads another head's rows), in boxes of
+// kBlockN.
 struct Maps {
   CUtensorMap q, k, v, o;
 };
 
-template <int kConsumers>
 inline int encode_maps(Maps& m, const void* q, const void* k, const void* v,
                        void* o, int bh, int sq, int skv, int kv_rows) {
   const uint64_t q_head = (uint64_t)sq * kRowBytes;
   const uint64_t kv_head = (uint64_t)skv * kRowBytes;
-  int err = sm90::encode_rows_sw128(&m.q, q, sq, bh, q_head,
-                                    Block<kConsumers>::kBlockM);
+  int err = sm90::encode_rows_sw128(&m.q, q, sq, bh, q_head, kBlockM);
   if (!err) err = sm90::encode_rows_sw128(&m.k, k, kv_rows, bh, kv_head, kBlockN);
   if (!err) err = sm90::encode_rows_sw128(&m.v, v, kv_rows, bh, kv_head, kBlockN);
   if (!err) err = sm90::encode_rows_sw128(&m.o, o, sq, bh, q_head, 64);

@@ -19,15 +19,16 @@
 // against 0.19 ms for the q/k/v/o/lse bytes. It is bound by operations.
 //
 // Design at head_dim 64 (every production preset), swa_fwd_sm90 below: K1's
-// TMA + wgmma block (fwd_sm90.cuh; the producer warpgroup, the k/v ring,
-// SS wgmma for q k^T, RS wgmma for p v, the TMA store), with the banded walk
-// of fwd_sm90.cuh::BandWalk:
-//   - the walk: the block of q rows [q0, q0 + kBlockM) visits kv rows
-//     [max(0, q0 - W), min(S, q0 + kBlockM + W)) in 128-row tiles from the
-//     first (not 128-aligned: TMA boxes start at any row). At the flagship a
-//     192-row block visits 18 tiles (2,304 rows) for its band of 2,208; K1's
-//     dense walk visits 105. The k/v maps take S as their row extent, so
-//     rows past S arrive as zeros and no tile reads another head's rows;
+// TMA + wgmma block (a producer warpgroup streaming 128-row k/v tiles by TMA
+// through a 2-stage mbarrier ring; 3 consumer warpgroups of 64 q rows, SS
+// wgmma for q k^T, RS wgmma for p v; the swizzled TMA store), from
+// fwd_sm90.cuh, with its own walk and mask:
+//   - the walk: the block of q rows [q0, q0 + 192) visits kv rows
+//     [max(0, q0 - W), min(S, q0 + 192 + W)) in 128-row tiles from the
+//     first (not 128-aligned: a TMA box starts at any row). At the flagship
+//     a block visits 18 tiles (2,304 rows) for its band of 2,208; K1's dense
+//     walk visits 105. The k/v maps take S as their row extent, so rows past
+//     S arrive as zeros and no tile reads another head's rows;
 //   - the mask: a tile that crosses the band's edge for a consumer's 64 rows
 //     (a test uniform across the warpgroup: about 2 tiles at each end of the
 //     walk) sets s = -inf before the row max for j >= S or |i - j| > W;
@@ -35,8 +36,13 @@
 //     score 0, which would take the max of a row whose visible scores are
 //     all very negative. A row that has seen nothing yet keeps m = -inf and
 //     K1's guard exponentiates it against 0;
-//   - the same block as K1 rather than a copy: K1's dense instance keeps its
-//     code (its walk is the other policy of the same template).
+//   - a tile that lies wholly outside a consumer's band (the outer
+//     consumers' first or last) runs neither product: the consumer only
+//     waits for the stage and releases it.
+// K2 keeps its own consumer loop rather than sharing K1's through a
+// template on the walk, which cost K1 registers (fwd_sm90.cuh). Tried on
+// the card and dropped (tools/k2_variants.py): 2 consumers of 240
+// registers (128 q rows, 8% padding against 14%).
 //
 // Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync body
 // of attn_fwd.cuh: a dispatch by shape in ea_swa_fwd_bf16, never a fallback
@@ -46,36 +52,129 @@
 namespace ea {
 namespace k2 {
 
-constexpr int kConsumers = 3;                // consumer warpgroups
-// a consumer runs no product on a tile wholly outside its rows' band
-constexpr bool kSkipHidden = false;
-using B = fwd90::Block<kConsumers>;
-using Walk = fwd90::BandWalk<kSkipHidden>;
-constexpr size_t kSmemBytes = fwd90::kSmemBytes<kConsumers>;
+using fwd90::kBlockM;
+using fwd90::kBlockN;
+using fwd90::kConsumerRegs;
+using fwd90::kD;
+using fwd90::kSmemBytes;
+using fwd90::kStages;
+using fwd90::kThreads;
+using fwd90::Smem;
 
-__global__ void __launch_bounds__(B::kThreads, 1)
+// a consumer runs no product on a tile wholly outside its rows' band
+constexpr bool kSkipHidden = true;
+
+// Whether the kv tile at col0 hides any (hides_any) or every (hides_all)
+// score of the q rows [row0, row0 + 64): row i sees the columns j < s with
+// |i - j| <= window, and the walk keeps col0 < s.
+__device__ __forceinline__ bool hides_any(int col0, int row0, int s,
+                                          int window) {
+  return col0 + kBlockN > s || row0 + 63 - col0 > window ||
+         col0 + kBlockN - 1 - row0 > window;
+}
+
+__device__ __forceinline__ bool hides_all(int col0, int row0, int window) {
+  return col0 + kBlockN - 1 < row0 - window || col0 > row0 + 63 + window;
+}
+
+// The hidden scores of a thread's rows row_a, row_b (t its index in the
+// quad) set to -inf: the visible columns of row i are
+// [i - window, min(i + window, s - 1)].
+__device__ __forceinline__ void mask_band(float (&sc)[64], int col0,
+                                          int row_a, int row_b, int s,
+                                          int window, int t) {
+  const int lo_a = row_a - window, hi_a = min(row_a + window, s - 1);
+  const int lo_b = row_b - window, hi_b = min(row_b + window, s - 1);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = col0 + 8 * i + 2 * t + e;
+      if (j < lo_a || j > hi_a) sc[4 * i + e] = -INFINITY;
+      if (j < lo_b || j > hi_b) sc[4 * i + 2 + e] = -INFINITY;
+    }
+  }
+}
+
+// One consumer warpgroup: its 64 q rows against the block's kv tiles, then
+// the store.
+__device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
+                                        float* __restrict__ lse, int c,
+                                        int bh, int q0, int s, int window,
+                                        int kv_begin, int n_tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g;  // this thread's two rows in the 64
+  const int r_b = r_a + 8;
+  const int row0 = q0 + c * 64;   // the consumer's first q row
+  __nv_bfloat16* sq_c = sm.q + c * 64 * kD;  // this consumer's q rows
+  const uint64_t desc_q = sm90::desc_sw128(sq_c, 16, 1024);
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  fwd90::RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
+
+  sm90::mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % kStages;
+    sm90::mbar_wait(&sm.full[stage], (j / kStages) & 1);
+    const int col0 = kv_begin + j * kBlockN;
+    if (kSkipHidden && hides_all(col0, row0, window)) {
+      __syncwarp();  // nothing visible: only release the stage
+      if (lane == 0) sm90::mbar_arrive(&sm.empty[stage]);
+      continue;
+    }
+    float sc[64];
+    sm90::wgmma_fence();
+    fwd90::issue_qk(sc, desc_q, sm.k[stage]);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    if (hides_any(col0, row0, s, window)) {
+      mask_band(sc, col0, row0 + r_a, row0 + r_b, s, window, t);
+    }
+    fwd90::softmax_pv(sc, o, st, sm, stage, lane);
+  }
+  fwd90::store_o_lse(o, st, sq_c, tm_o, lse, c, bh, q0, s, tid, t, r_a, r_b);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 swa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
              const __grid_constant__ CUtensorMap tm_o,
              float* __restrict__ lse, int s, int window) {
-  fwd90::run_block<kConsumers>(tm_q, tm_k, tm_v, tm_o, lse, s,
-                               Walk{s, window});
+  Smem& sm = fwd90::init_smem();
+  const int warpgroup = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  // window <= s (the launch ensures it), so no sum overflows
+  const int kv_begin = max(0, q0 - window);
+  const int n_tiles =
+      (min(s, q0 + kBlockM + window) - kv_begin + kBlockN - 1) / kBlockN;
+  if (warpgroup == 0) {
+    fwd90::produce(sm, &tm_q, &tm_k, &tm_v, q0, bh, kv_begin, n_tiles);
+  } else {
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    consume(sm, &tm_o, lse, warpgroup - 1, bh, q0, s, window, kv_begin,
+            n_tiles);
+  }
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int s, int window, cudaStream_t stream) {
   if (window > s) window = s;  // |i - j| < S: a wider window sees the same
   fwd90::Maps m;
-  int err = fwd90::encode_maps<kConsumers>(m, q, k, v, o, bh, s, s, s);
-  if (!err) err = sm90::check_launch_regs(swa_fwd_sm90, B::kLaunchRegs);
+  int err = fwd90::encode_maps(m, q, k, v, o, bh, s, s, s);
+  if (!err) err = sm90::check_launch_regs(swa_fwd_sm90, fwd90::kLaunchRegs);
   if (err) return err;
   cudaError_t st = cudaFuncSetAttribute(
       swa_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (st != cudaSuccess) return static_cast<int>(st);
-  const dim3 grid((s + B::kBlockM - 1) / B::kBlockM, bh);
-  swa_fwd_sm90<<<grid, B::kThreads, kSmemBytes, stream>>>(
+  const dim3 grid((s + kBlockM - 1) / kBlockM, bh);
+  swa_fwd_sm90<<<grid, kThreads, kSmemBytes, stream>>>(
       m.q, m.k, m.v, m.o, static_cast<float*>(lse), s, window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,15 @@
-"""Time K2's TMA + wgmma kernel (csrc/swa_fwd.cu) in the shape variants its
-constants select, against the tree's mma.sync K2 and K1, on one card.
+"""Time K2's TMA + wgmma kernel (csrc/swa_fwd.cu) with and without its
+skip of the tiles wholly outside a consumer's band (`kSkipHidden`), against
+another tree's K2 and K1, on one card.
 
-Each variant is swa_fwd.cu with `kConsumers` and `kSkipHidden` set, built
+Each build is one source (swa_fwd.cu for K2, flash_fwd.cu for K1) built
 alone with the library's nvcc flags into build/k2_variants/; `--parent`
-names another tree's csrc directory, whose swa_fwd.cu (K2) and flash_fwd.cu
-(K1) are built the same way and timed beside this tree's. Every K2 build is
-held against sliding_window_plain at the flagship shape ([96, 13104, 64],
-window 1008) with chip_smoke.py's bounds; the builds are timed in turns,
-forward then backward (A B B A), by CUDA events. One JSON line a build,
-then a summary line.
+names another tree's csrc directory, whose swa_fwd.cu and flash_fwd.cu are
+built the same way. Every K2 build is held against sliding_window_plain at
+the flagship shape ([96, 13104, 64], window 1008), and K1's SASS against
+the other tree's (the same instructions, or not); the builds are timed in
+turns, forward then backward, twice (A B B A A B B A), by CUDA events. One
+JSON line a build, then a summary line.
 
     python tools/k2_variants.py --parent <other tree>/easyanimate_tpu_torch/csrc
 """
@@ -32,17 +33,26 @@ from easyanimate_tpu_torch.ops.swa import sliding_window_plain  # noqa: E402
 
 OUT = ROOT / "build" / "k2_variants"
 BH, S_VID, S_DENSE, WINDOW, D = 96, 13104, 13360, 1008, 64
-CONSUMERS = "constexpr int kConsumers = 3;"
-SKIP = "constexpr bool kSkipHidden = false;"
+SKIP = "constexpr bool kSkipHidden = true;"
 
 
-def variant_source(csrc, consumers, skip):
+def variant_source(csrc, skip):
     src = (csrc / "swa_fwd.cu").read_text()
-    assert src.count(CONSUMERS) == 1 and src.count(SKIP) == 1, \
-        "swa_fwd.cu's shape constants moved"
-    return src.replace(CONSUMERS, f"constexpr int kConsumers = {consumers};"
-                       ).replace(SKIP, f"constexpr bool kSkipHidden = "
-                                 f"{'true' if skip else 'false'};")
+    assert src.count(SKIP) == 1, "swa_fwd.cu's kSkipHidden moved"
+    return src.replace(SKIP, f"constexpr bool kSkipHidden = "
+                       f"{'true' if skip else 'false'};")
+
+
+def sass(lib, kernel):
+    """The SASS of the function whose name holds `kernel` in `lib`."""
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    for section in out.split("Function : ")[1:]:
+        name, body = section.split("\n", 1)
+        if kernel in name:
+            return body
+    raise RuntimeError(f"no {kernel} in {lib}")
 
 
 def build(name, csrc, source, text=None):
@@ -87,9 +97,9 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     csrc = _build.CSRC
-    jobs = {f"k2_c{c}_{'skip' if s else 'all'}":
-            (csrc, "swa_fwd.cu", variant_source(csrc, c, s), "swa_fwd_sm90")
-            for c in (3, 2) for s in (False, True)}
+    jobs = {f"k2_{'skip' if s else 'all'}":
+            (csrc, "swa_fwd.cu", variant_source(csrc, s), "swa_fwd_sm90")
+            for s in (True, False)}
     jobs["k1"] = (csrc, "flash_fwd.cu", None, "flash_fwd_sm90")
     if args.parent:
         jobs["k2_parent"] = (args.parent, "swa_fwd.cu", None, "ILi64ELb1E")
@@ -111,6 +121,10 @@ def main():
     for name, (lib_path, log) in built.items():
         lib = ctypes.CDLL(str(lib_path))
         rows[name] = {"name": name, "ms": [], **ptxas(log, jobs[name][3])}
+        if name == "k1" and "k1_parent" in built:
+            rows[name]["sass_same_as_parent"] = (
+                sass(lib_path, "flash_fwd_sm90")
+                == sass(built["k1_parent"][0], "flash_fwd_sm90"))
         o = torch.empty_like(band[0] if name.startswith("k2") else dense[0])
         lse = torch.empty(BH, o.shape[1], 1, device=dev)
         ptrs = [x.data_ptr() for x in (band if name.startswith("k2") else dense)]
@@ -137,7 +151,7 @@ def main():
                 max_abs_err_lse=(lse - lse_p).abs().max().item())
         calls[name] = call
     order = list(calls)
-    for turn in (order, order[::-1]):
+    for turn in (order, order[::-1]) * 2:
         for name in turn:
             call = calls[name]
             call()
