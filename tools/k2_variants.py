@@ -7,9 +7,10 @@ alone with the library's nvcc flags into build/k2_variants/; `--parent`
 names another tree's csrc directory, whose swa_fwd.cu and flash_fwd.cu are
 built the same way. Every K2 build is held against sliding_window_plain at
 the flagship shape ([96, 13104, 64], window 1008), and K1's SASS against
-the other tree's (the same instructions, or not); the builds are timed in
-turns, forward then backward, twice (A B B A A B B A), by CUDA events. One
-JSON line a build, then a summary line.
+the other tree's (the same instructions, or not; the other tree's K1 is
+also built twice, for the spread of two identical kernels); the builds are
+timed in `--turns` turns, alternately forward and backward (A B B A ...),
+by CUDA events. One JSON line a build, then a summary line.
 
     python tools/k2_variants.py --parent <other tree>/easyanimate_tpu_torch/csrc
 """
@@ -95,6 +96,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, help="another tree's csrc directory")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--turns", type=int, default=4,
+                    help="timing turns, alternately forward and backward")
+    ap.add_argument("--only", help="comma-separated builds to time")
     args = ap.parse_args()
     csrc = _build.CSRC
     jobs = {f"k2_{'skip' if s else 'all'}":
@@ -104,6 +108,10 @@ def main():
     if args.parent:
         jobs["k2_parent"] = (args.parent, "swa_fwd.cu", None, "ILi64ELb1E")
         jobs["k1_parent"] = (args.parent, "flash_fwd.cu", None, "flash_fwd_sm90")
+        # the same source built again: the spread of two identical kernels
+        jobs["k1_parent_twin"] = jobs["k1_parent"]
+    if args.only:
+        jobs = {n: jobs[n] for n in args.only.split(",")}
     OUT.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: build(j, *jobs[j][:3]), jobs)))
@@ -121,10 +129,12 @@ def main():
     for name, (lib_path, log) in built.items():
         lib = ctypes.CDLL(str(lib_path))
         rows[name] = {"name": name, "ms": [], **ptxas(log, jobs[name][3])}
-        if name == "k1" and "k1_parent" in built:
-            rows[name]["sass_same_as_parent"] = (
-                sass(lib_path, "flash_fwd_sm90")
-                == sass(built["k1_parent"][0], "flash_fwd_sm90"))
+        if name.startswith("k1"):  # kept for a diff against the other tree's
+            body = sass(lib_path, "flash_fwd_sm90")
+            (OUT / f"{name}.sass").write_text(body)
+            if name != "k1_parent" and "k1_parent" in built:
+                rows[name]["sass_same_as_parent"] = body == sass(
+                    built["k1_parent"][0], "flash_fwd_sm90")
         o = torch.empty_like(band[0] if name.startswith("k2") else dense[0])
         lse = torch.empty(BH, o.shape[1], 1, device=dev)
         ptrs = [x.data_ptr() for x in (band if name.startswith("k2") else dense)]
@@ -151,7 +161,7 @@ def main():
                 max_abs_err_lse=(lse - lse_p).abs().max().item())
         calls[name] = call
     order = list(calls)
-    for turn in (order, order[::-1]) * 2:
+    for turn in (order, order[::-1]) * (args.turns // 2):
         for name in turn:
             call = calls[name]
             call()
@@ -164,6 +174,7 @@ def main():
             torch.cuda.synchronize()
             rows[name]["ms"].append(start.elapsed_time(end) / args.iters)
     for row in rows.values():
+        row["median_ms"] = sorted(row["ms"])[len(row["ms"]) // 2] if row["ms"] else None
         print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
