@@ -6,8 +6,9 @@
 // walks and which scores it hides, so each kernel keeps its own consumer
 // loop: K1's walks kv rows [0, kv_valid) and masks its last tile, K2's walks
 // the rows its q rows can see and masks the band's edge tiles. (One
-// consumer templated on the walk cost K1 registers: its spills grew from
-// 16 to 24 bytes a direction. Kept apart, K1 compiles as before.)
+// consumer loop templated on the walk grew K1's spills from 16 to 24 bytes
+// a direction; with the loops apart K1 keeps its 128 registers, its 16
+// bytes and its time.)
 #pragma once
 
 #include "attn_fwd.cuh"

@@ -40,9 +40,11 @@
 //     consumers' first or last) runs neither product: the consumer only
 //     waits for the stage and releases it.
 // K2 keeps its own consumer loop rather than sharing K1's through a
-// template on the walk, which cost K1 registers (fwd_sm90.cuh). Tried on
-// the card and dropped (tools/k2_variants.py): 2 consumers of 240
-// registers (128 q rows, 8% padding against 14%).
+// template on the walk, which cost K1 spills (fwd_sm90.cuh). Tried on the
+// card and dropped: 2 consumers of 240 registers (128 q rows a block: the
+// walk pads 8% rather than 14%, but each block loads its band for fewer
+// rows), about 10% slower; the products run on the wholly hidden tiles too,
+// about 4% slower, with 32 bytes of spills (none with the skip).
 //
 // Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync body
 // of attn_fwd.cuh: a dispatch by shape in ea_swa_fwd_bf16, never a fallback
@@ -60,9 +62,6 @@ using fwd90::kSmemBytes;
 using fwd90::kStages;
 using fwd90::kThreads;
 using fwd90::Smem;
-
-// a consumer runs no product on a tile wholly outside its rows' band
-constexpr bool kSkipHidden = true;
 
 // Whether the kv tile at col0 hides any (hides_any) or every (hides_all)
 // score of the q rows [row0, row0 + 64): row i sees the columns j < s with
@@ -121,7 +120,7 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
     const int stage = j % kStages;
     sm90::mbar_wait(&sm.full[stage], (j / kStages) & 1);
     const int col0 = kv_begin + j * kBlockN;
-    if (kSkipHidden && hides_all(col0, row0, window)) {
+    if (hides_all(col0, row0, window)) {
       __syncwarp();  // nothing visible: only release the stage
       if (lane == 0) sm90::mbar_arrive(&sm.empty[stage]);
       continue;
