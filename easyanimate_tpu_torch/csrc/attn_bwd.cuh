@@ -1,7 +1,7 @@
-// The mma.sync backward-attention bodies of K6 and K7 (swa_bwd.cu: banded
-// dq and dk, dv), and of K3 and K4 (flash_bwd.cu: dense dq and dk, dv) at
-// head dims 16 and 32 only; K3 and K4 at d 64 are flash_bwd.cu's TMA +
-// wgmma kernels.
+// The mma.sync backward-attention bodies of K6 (swa_bwd.cu: banded dq), and
+// of K3, K4 and K7 (flash_bwd.cu: dense dq and dk, dv; swa_bwd.cu: banded
+// dk, dv) at head dims 16 and 32 only; K3, K4 and K7 at d 64 are TMA +
+// wgmma kernels on bwd_sm90.cuh.
 //
 // What they compute, given the forward's residuals: q (pre-scaled by
 // sm_scale * log2(e)), k, v, do bf16 [bh, S, d] row-major; the base-2
@@ -9,8 +9,8 @@
 // [bh, Sq], computed by the wrapper. With p = exp2(q k^T - lse) recomputed
 // and ds = p * (do v^T - di):
 //   dq = ln2 * ds k          (dq kernel: K3 dense, K6 banded)
-//   dk = ln2 * ds^T q,  dv = p^T do   (dkv kernel: K4 dense at d 16/32,
-//                                      K7 banded)
+//   dk = ln2 * ds^T q,  dv = p^T do   (dkv kernel: K4 dense and K7
+//                                      banded, both at d 16/32)
 // The ln2 is d exp2(x)/dx; it is applied once at the store, as the TPU dense
 // kernels do. Every output has exactly one writer block, so the result is
 // deterministic (no atomics).
@@ -36,8 +36,8 @@
 // What bounds it on an H100: the backward is 2.5x the forward's matrix
 // work (5 products per tile instead of 2) on the same mma.sync path, with
 // no load/compute overlap; the dq and dkv kernels each recompute p, which
-// is the price of having one writer per output. K6 and K7 moving onto
-// hopper.cuh's TMA + wgmma pieces, as K3 and K4 did, is later work.
+// is the price of having one writer per output. K7 moved onto bwd_sm90.cuh's
+// TMA + wgmma pieces as K3 and K4 did; K6 moving onto K3's is later work.
 #pragma once
 
 #include "attn_fwd.cuh"
@@ -387,16 +387,8 @@ int launch_attn_bwd_dkv(const void* q, const void* k, const void* v,
       attn_bwd_dkv_kernel<32, kWindowed><<<grid, block, 0, st>>>(
           qp, kp, vp, op, lp, dp, dkp, dvp, sq, skv, kv_len, window);
       break;
-    case 64:
-      // dense d 64 is flash_bwd.cu's TMA + wgmma kernel: no instance here
-      if constexpr (kWindowed) {
-        attn_bwd_dkv_kernel<64, kWindowed><<<grid, block, 0, st>>>(
-            qp, kp, vp, op, lp, dp, dkp, dvp, sq, skv, kv_len, window);
-        break;
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-    default:
+    default:  // d 64: flash_bwd.cu's and swa_bwd.cu's TMA + wgmma kernels
+
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

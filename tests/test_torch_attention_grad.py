@@ -103,11 +103,13 @@ def test_flash_bwd_plain_matches_jax_kernels(rng, sq, skv, kv_valid, d):
 
 
 @pytest.mark.parametrize("s,window,d", [(200, 50, 64), (384, 100, 32),
-                                        (150, 20, 16)])
+                                        (150, 20, 16), (130, 0, 64),
+                                        (100, 150, 32)])
 def test_swa_bwd_plain_matches_jax_kernels(rng, s, window, d):
     """(dq, dk, dv) of sliding_window_bwd_plain against jax.vjp of the JAX
     custom_vjp over K2, whose backward runs K6 and K7 in interpret mode
-    (ragged S at 200 and 150)."""
+    (ragged S at 200, 150, 130 and 100; window 0, and a window past S,
+    where every row sees every column)."""
     bh, blk = 2, 128
     qf = _randn(rng, bh, s, d) * (d ** -0.5 * tfa.LOG2E)
     k, v, do = _randn(rng, bh, s, d), _randn(rng, bh, s, d), _randn(rng, bh, s, d)

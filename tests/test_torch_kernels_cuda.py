@@ -189,20 +189,92 @@ def test_flash_bwd_dq_masks_pad_columns_at_deep_lse_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,window,d", [(1000, 100, 64), (3001, 300, 64),
-                                        (777, 63, 32), (300, 500, 16)])
-def test_swa_bwd_kernels_match_plain_on_card(cuda_device, s, window, d):
+@pytest.mark.parametrize("bh,s,window,d", [
+    (4, 1000, 100, 64), (4, 3001, 300, 64), (4, 777, 63, 32),
+    (4, 300, 500, 16),
+    # d 64 runs K7's TMA + wgmma kernel (128 kv rows a block, 64-row q
+    # tiles from max(0, k0 - window)): window 0; a window past S (every
+    # row sees everything); S below one kv block; ragged S with a window
+    # that is not a multiple of 64; 12 heads of 1001 rows, each offset by
+    # its own mean (a tile that read across a head's end would carry
+    # another head's values)
+    (4, 1000, 0, 64), (4, 300, 500, 64), (4, 100, 30, 64),
+    (4, 777, 63, 64), (12, 1001, 200, 64)])
+def test_swa_bwd_kernels_match_plain_on_card(cuda_device, bh, s, window, d):
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    q, k, v, do = (torch.randn(4, s, d, generator=g, device=cuda_device
-                               ).to(torch.bfloat16) for _ in range(4))
+    shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 3 - 1.0
+             if bh == 12 else 0.0)
+    q, k, v, do = ((torch.randn(bh, s, d, generator=g, device=cuda_device)
+                    + shift).to(torch.bfloat16) for _ in range(4))
     q = (q.float() * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
     o, lse = tswa.sliding_window_fwd(q, k, v, window)
     before = tswa.sliding_window_bwd.launches
+    before_sm90 = tswa.sliding_window_bwd.launches_sm90
     grads = tswa.sliding_window_bwd(q, k, v, o, lse, do, window)
     torch.cuda.synchronize()
     assert tswa.sliding_window_bwd.launches == before + 1
+    assert tswa.sliding_window_bwd.launches_sm90 == before_sm90 + (d == 64)
+    plain = tswa.sliding_window_bwd_plain(q, k, v, o, lse, do, window)
+    if window == 0:
+        # a one-column softmax has no gradient with respect to its score:
+        # ds = p (dp - di) = do.v - do.o is 0 up to float32 rounding in both
+        # versions, so dq and dk are held to 0 (an unmasked off-diagonal
+        # pair would make them O(0.1)) and dv = p^T do = do to the plain
+        for got, want in zip(grads[:2], plain[:2]):
+            assert got.float().abs().max().item() <= 1e-3
+            assert want.float().abs().max().item() <= 1e-3
+        _grad_close(grads[2], plain[2])
+        return
+    for got, want in zip(grads, plain):
+        _grad_close(got, want)
+
+
+def _out_of_band_high(g, dev, s, window, d):
+    """q_i = a u(i), k_j = -a u(j) with u(i) = (cos, sin)(pi i / (2W + 2))
+    and a^2 = 64: q_i . k_j = -64 cos(pi (i - j) / (2W + 2)) is below 0 for
+    every pair in the band and rises to +64 outside it, where an unmasked
+    edge tile would give p up to 2^64."""
+    ang = torch.arange(s, device=dev, dtype=torch.float32) * (
+        torch.pi / (2 * window + 2))
+    u = torch.zeros(s, d, device=dev)
+    u[:, 0], u[:, 1] = torch.cos(ang), torch.sin(ang)
+    q = (8.0 * u).expand(4, s, d).to(torch.bfloat16).contiguous()
+    return q, (-q.float()).to(torch.bfloat16).contiguous()
+
+
+def _deep_lse(g, dev, s, window, d):
+    """Every score near -256 (q all +2, k near -2): lse is about -249, so
+    the zero kv rows past S in the last block score 0 and get p^T =
+    2^(-lse) = inf unless their dk, dv rows are zeroed. k carries a little
+    noise, so dq depends on which columns were kept."""
+    q = torch.full((4, s, d), 2.0, device=dev).to(torch.bfloat16)
+    k = (-2.0 + 0.25 * torch.randn(4, s, d, generator=g, device=dev)
+         ).to(torch.bfloat16)
+    return q, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,s,window", [(_out_of_band_high, 1000, 100),
+                                           (_deep_lse, 200, 50)],
+                         ids=["out_of_band_high", "deep_lse"])
+def test_swa_bwd_kernels_mask_what_they_must_on_card(cuda_device, make, s,
+                                                     window):
+    """K6 + K7 where a missed mask shows: out-of-band scores far above the
+    band's (an edge tile of K7 left unmasked), and an lse so deep that the
+    zero kv rows past S (S not a multiple of 128) overflow."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    d = 64
+    q, k = make(g, cuda_device, s, window, d)
+    v, do = (torch.randn(4, s, d, generator=g, device=cuda_device
+                         ).to(torch.bfloat16) for _ in range(2))
+    o, lse = tswa.sliding_window_fwd(q, k, v, window)
+    if make is _deep_lse:
+        assert lse.max().item() < -200, lse.max().item()
+    grads = tswa.sliding_window_bwd(q, k, v, o, lse, do, window)
+    torch.cuda.synchronize()
     for got, want in zip(grads, tswa.sliding_window_bwd_plain(
             q, k, v, o, lse, do, window)):
+        assert torch.isfinite(got.float()).all()
         _grad_close(got, want)
 
 

@@ -428,3 +428,19 @@ def test_cpu_backward_takes_plain_version_without_launch(rng):
                                                        33)):
         assert torch.equal(a, b)
     assert not got[1][:, 33:].any() and not got[2][:, 33:].any()
+
+
+def test_cpu_swa_backward_takes_plain_version_without_launch(rng):
+    """sliding_window_bwd on CPU tensors is sliding_window_bwd_plain, and
+    neither its launches nor K7's TMA + wgmma launches are counted."""
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 40, 16))
+                                    .astype(np.float32)) for _ in range(4))
+    o, lse = tswa.sliding_window_fwd(q, k, v, 7)
+    counts = (tswa.sliding_window_bwd.launches,
+              tswa.sliding_window_bwd.launches_sm90)
+    got = tswa.sliding_window_bwd(q, k, v, o, lse, do, 7)
+    assert (tswa.sliding_window_bwd.launches,
+            tswa.sliding_window_bwd.launches_sm90) == counts
+    for a, b in zip(got, tswa.sliding_window_bwd_plain(q, k, v, o, lse, do,
+                                                       7)):
+        assert torch.equal(a, b)

@@ -1,0 +1,126 @@
+"""Time the attention-backward kernels of two builds in alternating turns.
+
+    python3 tools/bwd_ab.py A_DIR B_DIR [--turns 12] [--iters 10]
+
+A_DIR and B_DIR are checkouts of this repository (for example `git
+archive`s of a parent commit and of a change, unpacked into a directory
+that .gitignore lists). Each is built by its own ops/_build.py in a
+subprocess; both libraries are then loaded into this process, and each
+backward kernel's C entry point is timed by CUDA events on the same inputs
+in the turns A B B A A B B A ..., `iters` launches a turn: K3 and K4 at
+the dense flagship [96, 13360, 64], K6 and K7 at the banded one [96, 13104,
+64], window 1008. The inputs are random bf16 q, k, v, do (q pre-scaled as
+the wrappers do) with the lse of B's own forward kernel and di = rowsum(o
+* do). Prints the card's name and power limit, then one JSON line per
+kernel: every turn's ms, and each side's median and mean. Needs one CUDA
+device and nvcc.
+"""
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from easyanimate_tpu_torch.ops._build import _SIGNATURES  # noqa: E402
+
+BH, S_DENSE, S_VID, WINDOW, D = 96, 13360, 13104, 1008, 64
+LOG2E = 1.4426950408889634
+
+
+def build(tree: Path) -> ctypes.CDLL:
+    """Build `tree`'s kernel library with its own _build.py; load it."""
+    path = subprocess.run(
+        [sys.executable, "-c", "from easyanimate_tpu_torch.ops import _build;"
+         " print(_build.build_library())"], cwd=tree, check=True,
+        capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def call(lib, name, *args):
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: error {err}")
+
+
+def inputs(lib, s, window, gen):
+    """q, k, v, do, lse, di for one shape, lse from `lib`'s forward."""
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn(BH, s, D, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    q = (q.float() * D ** -0.5 * LOG2E).to(torch.bfloat16)
+    o = torch.empty_like(q)
+    lse = torch.empty(BH, s, 1, dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr() for x in (q, k, v, o, lse)]
+    if window is None:
+        call(lib, "ea_flash_fwd_bf16", *ptrs, BH, s, s, s, D)
+    else:
+        call(lib, "ea_swa_fwd_bf16", *ptrs, BH, s, window, D)
+    di = (o.float() * do.float()).sum(-1)
+    return q, k, v, do, lse, di
+
+
+def turn_ms(fn, iters):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("a", type=Path)
+    ap.add_argument("b", type=Path)
+    ap.add_argument("--turns", type=int, default=12)
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bwd_ab: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    libs = {"a": build(args.a), "b": build(args.b)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = (("K3", "ea_flash_bwd_dq_bf16", None), ("K4", "ea_flash_bwd_dkv_bf16", None),
+             ("K6", "ea_swa_bwd_dq_bf16", WINDOW), ("K7", "ea_swa_bwd_dkv_bf16", WINDOW))
+    shapes = {}
+    for key, name, window in cases:
+        s = S_DENSE if window is None else S_VID
+        if window not in shapes:
+            shapes[window] = inputs(libs["b"], s, window, gen)
+        q, k, v, do, lse, di = shapes[window]
+        outs = [torch.empty_like(q)] if name.endswith("_dq_bf16") else \
+            [torch.empty_like(k), torch.empty_like(v)]
+        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, di, *outs)]
+        sizes = (BH, s, s, s, D) if window is None else (BH, s, window, D)
+        fns = {side: (lambda lib=lib: call(lib, name, *ptrs, *sizes))
+               for side, lib in libs.items()}
+        for fn in fns.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        ms = {"a": [], "b": []}
+        for t in range(args.turns):
+            order = ("a", "b") if t % 2 == 0 else ("b", "a")
+            for side in order:
+                ms[side].append(turn_ms(fns[side], args.iters))
+        print(json.dumps({"kernel": key, "entry": name, "iters": args.iters,
+                          "ms": ms,
+                          "median": {x: statistics.median(v) for x, v in ms.items()},
+                          "mean": {x: statistics.fmean(v) for x, v in ms.items()}}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
