@@ -1,7 +1,6 @@
-// The mma.sync backward-attention bodies of K6 (swa_bwd.cu: banded dq), and
-// of K3, K4 and K7 (flash_bwd.cu: dense dq and dk, dv; swa_bwd.cu: banded
-// dk, dv) at head dims 16 and 32 only; K3, K4 and K7 at d 64 are TMA +
-// wgmma kernels on bwd_sm90.cuh.
+// The mma.sync backward-attention bodies of K3, K4, K6 and K7 (flash_bwd.cu:
+// dense dq and dk, dv; swa_bwd.cu: banded dq and dk, dv) at head dims 16 and
+// 32 only; at d 64 all four are TMA + wgmma kernels on bwd_sm90.cuh.
 //
 // What they compute, given the forward's residuals: q (pre-scaled by
 // sm_scale * log2(e)), k, v, do bf16 [bh, S, d] row-major; the base-2
@@ -36,8 +35,8 @@
 // What bounds it on an H100: the backward is 2.5x the forward's matrix
 // work (5 products per tile instead of 2) on the same mma.sync path, with
 // no load/compute overlap; the dq and dkv kernels each recompute p, which
-// is the price of having one writer per output. K7 moved onto bwd_sm90.cuh's
-// TMA + wgmma pieces as K3 and K4 did; K6 moving onto K3's is later work.
+// is the price of having one writer per output. At d 64 every one of them
+// moved onto bwd_sm90.cuh's TMA + wgmma blocks (K6 onto K3's, K7 onto K4's).
 #pragma once
 
 #include "attn_fwd.cuh"

@@ -1,14 +1,23 @@
 // The pieces of the TMA + wgmma attention backward at head_dim 64
 // (flash_bwd.cu's note gives the design) that its kernels share:
 //   - bwd90: the warpgroup split and its register balance, the two score
-//     products, the accumulating product and the epilogue's staging; K3
-//     (flash_bwd.cu, dense dq) and the dk/dv kernels run them;
+//     products, the accumulating product, the epilogue's staging, and the
+//     band's tile tests and edge mask (|i - j| <= W is symmetric, and a dq
+//     accumulator has the layout of the dk/dv kernels' transposed scores,
+//     so one set serves K6's q rows x kv columns and K7's kv rows x q
+//     columns);
+//   - bwd90::dq: the dq block of 128 q rows, its shared memory, the
+//     producer's loads (q and do once, then k/v tiles from any first row),
+//     the row stats, the score step, the ds step, the dq product and the dq
+//     store. K3 (flash_bwd.cu, dense: kv rows from 0) and K6 (swa_bwd.cu,
+//     banded: kv rows from q0 - W) run them; K3 keeps its own copy of the
+//     prologue and the producer (flash_bwd.cu says why);
 //   - bwd90::dkv: the dk/dv block of 128 kv rows, its shared memory, the
 //     producer's loads (k and v once, then q/do tiles from any first row),
 //     the row-stats warp, the p^T/ds^T step and the dk/dv stores. K4
 //     (flash_bwd.cu, dense: q rows from 0) and K7 (swa_bwd.cu, banded: q
 //     rows from k0 - W) run them.
-// Each kernel keeps its own consumer loop: what differs is which q rows a
+// Each kernel keeps its own consumer loop: what differs is which rows a
 // block walks and which scores it hides, and one consumer loop templated on
 // the walk grew K1's spills in the forward (fwd_sm90.cuh).
 #pragma once
@@ -75,6 +84,239 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, const float (&acc)[32],
         keep_b ? pack_f32(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale) : 0u;
   }
 }
+
+// Whether the 64-column tile at col0 hides any (hides_any) or every
+// (hides_all) pair with the 64 rows [row0, row0 + 64) in the band
+// |i - j| <= window: the tests are uniform across a consumer warpgroup.
+// K6 passes a kv tile against its q rows, K7 a q tile against its kv rows.
+__device__ __forceinline__ bool hides_any(int col0, int row0, int window) {
+  return row0 + 63 - col0 > window || col0 + 63 - row0 > window;
+}
+
+__device__ __forceinline__ bool hides_all(int col0, int row0, int window) {
+  return col0 + 63 < row0 - window || col0 > row0 + 63 + window;
+}
+
+// The hidden scores of a thread's rows row_a and row_a + 8 (t its index in
+// the quad) set to -inf before the exponential: element 4i + e of the
+// 64 x 64 accumulator holds column col0 + 8i + 2t + (e & 1), of row_a for
+// e < 2 and of row_a + 8 after.
+__device__ __forceinline__ void mask_band(float (&acc)[32], int col0,
+                                          int row_a, int window, int t) {
+  // the visible columns of row_a, counted from the tile's first
+  const int lo = row_a - window - col0, hi = row_a + window - col0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * i + 2 * t + e;
+      if (c < lo || c > hi) acc[4 * i + e] = -INFINITY;
+      if (c < lo + 8 || c > hi + 8) acc[4 * i + 2 + e] = -INFINITY;
+    }
+  }
+}
+
+namespace dq {
+
+constexpr int kBlockM = 64 * kConsumers;    // q rows per block
+constexpr int kBlockN = 64;                 // kv rows per stage
+constexpr int kStages = 4;
+constexpr uint32_t kQBytes = kBlockM * kRowBytes;
+constexpr uint32_t kTileBytes = kBlockN * kRowBytes;
+
+// Every tile starts 1024-byte aligned (the 128-byte swizzle's atom).
+struct Smem {
+  __nv_bfloat16 q[kBlockM * kD];
+  __nv_bfloat16 dout[kBlockM * kD];
+  __nv_bfloat16 k[kStages][kBlockN * kD];
+  __nv_bfloat16 v[kStages][kBlockN * kD];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t q_full;
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+
+// The block's shared memory, 1024-byte aligned, with its barriers
+// initialised (one thread, then the whole block synchronised).
+__device__ __forceinline__ Smem& init_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::smem_u32(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);                // the producer's arrive
+      sm90::mbar_init(&sm.empty[s], kConsumers * 4);  // one per consumer warp
+    }
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// The producer warpgroup: its first thread loads the block's q and do rows
+// [q0, q0 + kBlockM) once, then n_tiles k and v tiles of kBlockN rows from
+// kv row kv_begin on (any row: a TMA box need not start aligned) through
+// the ring. The consumers count the same tiles, as the mbarrier parities
+// need.
+__device__ __forceinline__ void produce(Smem& sm, const CUtensorMap* tm_q,
+                                        const CUtensorMap* tm_do,
+                                        const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, int bh,
+                                        int q0, int kv_begin, int n_tiles) {
+  sm90::setmaxnreg_dec<kProducerRegs>();
+  if (threadIdx.x == 0) {
+    sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kQBytes);
+    sm90::tma_load_3d(sm.q, tm_q, &sm.q_full, 0, q0, bh);
+    sm90::tma_load_3d(sm.dout, tm_do, &sm.q_full, 0, q0, bh);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      // the first pass over the ring finds every stage free
+      sm90::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
+      const int row = kv_begin + j * kBlockN;
+      sm90::tma_load_3d(sm.k[s], tm_k, &sm.full[s], 0, row, bh);
+      sm90::tma_load_3d(sm.v[s], tm_v, &sm.full[s], 0, row, bh);
+    }
+  }
+}
+
+// lse and di of a consumer thread's two q rows, loaded once: +inf and 0
+// past sq, so p = 0 and ds = 0 there. Their head stride, 4 * sq bytes,
+// never meets TMA.
+struct RowStats {
+  float lse_a, lse_b, di_a, di_b;
+};
+
+__device__ __forceinline__ RowStats row_stats(const float* __restrict__ lse,
+                                              const float* __restrict__ di,
+                                              int bh, int sq, int i_a) {
+  const float* lb = lse + (size_t)bh * sq;
+  const float* db = di + (size_t)bh * sq;
+  const int i_b = i_a + 8;
+  return {i_a < sq ? lb[i_a] : INFINITY, i_b < sq ? lb[i_b] : INFINITY,
+          i_a < sq ? db[i_a] : 0.f, i_b < sq ? db[i_b] : 0.f};
+}
+
+// s = q k^T and dp = do v^T for the kv tile of stage s: the consumer's 64 q
+// rows (descriptors desc_q, desc_do) against the tile's 64 kv rows.
+__device__ __forceinline__ void tile_scores(float (&sc)[kBlockN / 2],
+                                            float (&dp)[kBlockN / 2],
+                                            uint64_t desc_q, uint64_t desc_do,
+                                            Smem& sm, int s) {
+  sm90::wgmma_fence();
+  issue_scores(sc, desc_q, sm.k[s]);   // s = q k^T
+  issue_scores(dp, desc_do, sm.v[s]);  // dp = do v^T
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  sm90::fence_regs(dp);
+}
+
+// ds = p (dp - di) with p = exp2(s - lse) for one kv tile (col0 its first
+// column, any row), in place in sc, packed to bf16 as the A fragments of
+// ds k (the scores of two adjacent 8-column chunks form k step ks). On the
+// tile that crosses kv_valid the columns >= kv_valid get s = -inf first, so
+// p = 0 there: their zero k rows score 0, and 2^(-lse) overflows once
+// lse < -128.
+__device__ __forceinline__ void ds_tile(float (&sc)[kBlockN / 2],
+                                        const float (&dp)[kBlockN / 2],
+                                        const RowStats& st, int col0,
+                                        int kv_valid, int t,
+                                        uint32_t (&da)[kBlockN / 16][4]) {
+  if (col0 + kBlockN > kv_valid) {  // the tile that crosses kv_valid
+#pragma unroll
+    for (int i = 0; i < kBlockN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
+          sc[4 * i + e] = -INFINITY;
+          sc[4 * i + 2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kBlockN / 8; ++i) {
+    sc[4 * i] = sm90::fast_exp2(sc[4 * i] - st.lse_a) * (dp[4 * i] - st.di_a);
+    sc[4 * i + 1] = sm90::fast_exp2(sc[4 * i + 1] - st.lse_a) * (dp[4 * i + 1] - st.di_a);
+    sc[4 * i + 2] = sm90::fast_exp2(sc[4 * i + 2] - st.lse_b) * (dp[4 * i + 2] - st.di_b);
+    sc[4 * i + 3] = sm90::fast_exp2(sc[4 * i + 3] - st.lse_b) * (dp[4 * i + 3] - st.di_b);
+  }
+#pragma unroll
+  for (int ks = 0; ks < kBlockN / 16; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      da[ks][r] = pack_f32(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
+    }
+  }
+}
+
+// Stage s's k/v tile read by this warp: one arrive on its empty barrier.
+__device__ __forceinline__ void release(Smem& sm, int s, int lane) {
+  __syncwarp();
+  if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
+}
+
+// dq += ds k (RS wgmma, k read MN-major from stage s: K1's p v), then the
+// stage released once wgmma.wait_group shows the product complete.
+__device__ __forceinline__ void tile_accumulate(float (&dq)[32],
+                                                uint32_t (&da)[kBlockN / 16][4],
+                                                Smem& sm, int s, int lane) {
+  sm90::fence_regs(dq);  // ds lands before the fence
+  sm90::fence_regs(da);
+  sm90::wgmma_fence();
+  issue_accumulate(dq, da, sm.k[s]);  // dq += ds k
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dq);
+  sm90::fence_regs(da);
+  release(sm, s, lane);  // k and v of stage s read
+}
+
+// The epilogue of consumer c (q rows [row0, row0 + 64), all its products
+// done): dq * ln2 as bf16 into its own q rows of shared memory, then one
+// TMA store, which clips rows past sq.
+__device__ __forceinline__ void store_dq(Smem& sm, const CUtensorMap* tm_dq,
+                                         const float (&dq)[32], int c, int bh,
+                                         int row0, int sq) {
+  const int tid = threadIdx.x % 128;
+  const int r_a = (tid / 32) * 16 + (tid % 32) / 4;
+  const int t = tid % 4;
+  sm90::named_barrier_sync(1 + c, 128);
+  uint8_t* sdq = reinterpret_cast<uint8_t*>(sm.q + c * 64 * kD);
+  stage_rows(sdq, dq, r_a, true, true, kLn2, t);
+  sm90::fence_proxy_async();
+  sm90::named_barrier_sync(1 + c, 128);
+  if (tid == 0 && row0 < sq) {
+    sm90::tma_store_3d(tm_dq, sdq, 0, row0, bh);
+    sm90::tma_store_wait();
+  }
+}
+
+// The five tensor maps of a dq launch: q, do and dq [bh, sq, 64] (q and do
+// in kBlockM-row boxes, dq in 64-row ones), k and v [bh, skv, 64] in
+// kBlockN-row boxes with kv_rows as their extent (rows past it arrive as
+// zeros).
+struct Maps {
+  CUtensorMap q, dout, k, v, dq;
+};
+
+inline int encode_maps(Maps& m, const void* q, const void* dout,
+                       const void* k, const void* v, void* dq, int bh, int sq,
+                       int skv, int kv_rows) {
+  const uint64_t q_head = (uint64_t)sq * kRowBytes;
+  const uint64_t kv_head = (uint64_t)skv * kRowBytes;
+  int err = sm90::encode_rows_sw128(&m.q, q, sq, bh, q_head, kBlockM);
+  if (!err) err = sm90::encode_rows_sw128(&m.dout, dout, sq, bh, q_head, kBlockM);
+  if (!err) err = sm90::encode_rows_sw128(&m.k, k, kv_rows, bh, kv_head, kBlockN);
+  if (!err) err = sm90::encode_rows_sw128(&m.v, v, kv_rows, bh, kv_head, kBlockN);
+  if (!err) err = sm90::encode_rows_sw128(&m.dq, dq, sq, bh, q_head, 64);
+  return err;
+}
+
+}  // namespace dq
 
 namespace dkv {
 

@@ -17,21 +17,22 @@
 //
 // At head_dim 64 (every production preset) both are warp-specialised TMA +
 // wgmma kernels on hopper.cuh, with the pieces they share (and share with
-// K7, swa_bwd.cu) in bwd_sm90.cuh, and one split: a block of 3 warpgroups
-// (384 threads, 168 registers a thread at launch); warpgroup 0 is the producer
-// (24 registers by setmaxnreg), whose elected thread loads the block's own
-// rows once by TMA and streams the other side's tiles through a ring of
-// kStages shared-memory stages (full/empty mbarriers); warpgroups 1-2 are
-// consumers (240 registers), each owning 64 of the block's rows. Tensor maps
-// are 3-D (d, rows, b*h): rows past a map's extent arrive as zeros and no
-// tile reads another head's rows. Every output row has one writer block, so
-// there are no atomics and the result is deterministic. Each epilogue writes
-// its bf16 rows into the consumer's finished operand rows of shared memory
-// (128-byte swizzle) and stores them by one TMA store, which clips rows past
-// the tensor's end.
+// K6 and K7, swa_bwd.cu) in bwd_sm90.cuh, and one split: a block of 3
+// warpgroups (384 threads, 168 registers a thread at launch); warpgroup 0 is
+// the producer (24 registers by setmaxnreg), whose elected thread loads the
+// block's own rows once by TMA and streams the other side's tiles through a
+// ring of kStages shared-memory stages (full/empty mbarriers); warpgroups
+// 1-2 are consumers (240 registers), each owning 64 of the block's rows.
+// Tensor maps are 3-D (d, rows, b*h): rows past a map's extent arrive as
+// zeros and no tile reads another head's rows. Every output row has one
+// writer block, so there are no atomics and the result is deterministic.
+// Each epilogue writes its bf16 rows into the consumer's finished operand
+// rows of shared memory (128-byte swizzle) and stores them by one TMA store,
+// which clips rows past the tensor's end.
 //
 // K3, flash_bwd_dq_sm90 (dq = ln2 * ds k), K1's walk (flash_fwd.cu) with one
-// more score product:
+// more score product, on bwd_sm90.cuh's dq block, which K6 walks over its
+// band only:
 //   - a block per (128 q rows, b*h); its q and do rows arrive once, k and v
 //     stream in 64-row tiles through a 4-stage ring (their maps take
 //     kv_valid as the extent);
@@ -46,7 +47,7 @@
 //   - the zero k rows past kv_valid score s = 0, so p = 2^(-lse), which
 //     overflows to inf once lse < -128 (and inf * 0 is NaN): on the last
 //     tile, and only there, columns >= kv_valid get s = -inf first (K1's
-//     last-tile test).
+//     last-tile test; K6 applies it to the tile that crosses S).
 //   Per kv tile a consumer runs 3 products of 2 * 64 * 64 * 64 (~384
 //   tensor-core cycles at the peak) against 4,096 exponentials (~256 cycles
 //   on the MUFU units): the products lead, and the two consumers fill each
@@ -78,8 +79,9 @@
 // Tried on the card and dropped (PERF.md). ptxas fitted the consumers'
 // code into the launch's 168 registers, not setmaxnreg's 240: K3 with
 // 128-column kv tiles (2 stages) spilled dq (384 B) with about 180 values
-// live, beside the two 64-float score accumulators, and ran 1.2x slower; issuing tile j + 1's score products right behind tile
-// j's dq product, without a wait between, ran 1.25x slower. K4: 128-row q
+// live, beside the two 64-float score accumulators, and ran 1.2x slower;
+// issuing tile j + 1's score products right behind tile j's dq product,
+// without a wait between, ran 1.25x slower. K4: 128-row q
 // tiles and 3 consumers (192 kv rows at 160 registers) both spill; issuing
 // the next tile's score products ahead of this tile's accumulating ones
 // spilled. Two and three stages time alike.
@@ -94,61 +96,7 @@ namespace ea {
 namespace k3 {
 
 using namespace bwd90;
-
-constexpr int kBlockM = 64 * kConsumers;    // q rows per block
-constexpr int kBlockN = 64;                 // kv rows per stage
-constexpr int kStages = 4;
-constexpr uint32_t kQBytes = kBlockM * kRowBytes;
-constexpr uint32_t kTileBytes = kBlockN * kRowBytes;
-
-// Every tile starts 1024-byte aligned (the 128-byte swizzle's atom).
-struct Smem {
-  __nv_bfloat16 q[kBlockM * kD];
-  __nv_bfloat16 dout[kBlockM * kD];
-  __nv_bfloat16 k[kStages][kBlockN * kD];
-  __nv_bfloat16 v[kStages][kBlockN * kD];
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
-  uint64_t q_full;
-};
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
-
-// ds = p (dp - di) with p = exp2(s - lse) for one kv tile (col0 its first
-// column), in place in sc, packed to bf16 as the A fragments of ds k (the
-// scores of two adjacent 8-column chunks form k step ks). On the last tile
-// the columns >= kv_valid get s = -inf first, so p = 0 there.
-__device__ __forceinline__ void ds_tile(float (&sc)[kBlockN / 2],
-                                        const float (&dp)[kBlockN / 2],
-                                        float lse_a, float lse_b, float di_a,
-                                        float di_b, int col0, int kv_valid,
-                                        int t, uint32_t (&da)[kBlockN / 16][4]) {
-  if (col0 + kBlockN > kv_valid) {  // the last tile
-#pragma unroll
-    for (int i = 0; i < kBlockN / 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
-          sc[4 * i + e] = -INFINITY;
-          sc[4 * i + 2 + e] = -INFINITY;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kBlockN / 8; ++i) {
-    sc[4 * i] = sm90::fast_exp2(sc[4 * i] - lse_a) * (dp[4 * i] - di_a);
-    sc[4 * i + 1] = sm90::fast_exp2(sc[4 * i + 1] - lse_a) * (dp[4 * i + 1] - di_a);
-    sc[4 * i + 2] = sm90::fast_exp2(sc[4 * i + 2] - lse_b) * (dp[4 * i + 2] - di_b);
-    sc[4 * i + 3] = sm90::fast_exp2(sc[4 * i + 3] - lse_b) * (dp[4 * i + 3] - di_b);
-  }
-#pragma unroll
-  for (int ks = 0; ks < kBlockN / 16; ++ks) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      da[ks][r] = pack_f32(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
-    }
-  }
-}
+using namespace bwd90::dq;
 
 // One consumer warpgroup: its 64 q rows against every kv tile, then the
 // store of its dq rows.
@@ -162,18 +110,9 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_dq,
   const int g = lane / 4, t = lane % 4;
   const int r_a = warp * 16 + g;  // this thread's two rows in the 64
   const int row0 = q0 + c * 64;
-  __nv_bfloat16* sq_c = sm.q + c * 64 * kD;  // this consumer's q rows
-  const uint64_t desc_q = sm90::desc_sw128(sq_c, 16, 1024);
+  const uint64_t desc_q = sm90::desc_sw128(sm.q + c * 64 * kD, 16, 1024);
   const uint64_t desc_do = sm90::desc_sw128(sm.dout + c * 64 * kD, 16, 1024);
-
-  // the two rows' lse and di: +inf and 0 past sq, so p = 0 and ds = 0 there
-  const float* lb = lse + (size_t)bh * sq;
-  const float* db = di + (size_t)bh * sq;
-  const int i_a = row0 + r_a, i_b = i_a + 8;
-  const float lse_a = i_a < sq ? lb[i_a] : INFINITY;
-  const float lse_b = i_b < sq ? lb[i_b] : INFINITY;
-  const float di_a = i_a < sq ? db[i_a] : 0.f;
-  const float di_b = i_b < sq ? db[i_b] : 0.f;
+  const RowStats st = row_stats(lse, di, bh, sq, row0 + r_a);
 
   float dq[32];
 #pragma unroll
@@ -184,40 +123,19 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_dq,
     const int s = j % kStages;
     sm90::mbar_wait(&sm.full[s], (j / kStages) & 1);
     float sc[kBlockN / 2], dp[kBlockN / 2];
-    sm90::wgmma_fence();
-    issue_scores(sc, desc_q, sm.k[s]);   // s = q k^T
-    issue_scores(dp, desc_do, sm.v[s]);  // dp = do v^T
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(sc);
-    sm90::fence_regs(dp);
+    tile_scores(sc, dp, desc_q, desc_do, sm, s);
     uint32_t da[kBlockN / 16][4];
-    ds_tile(sc, dp, lse_a, lse_b, di_a, di_b, j * kBlockN, kv_valid, t, da);
-    sm90::fence_regs(dq);  // ds lands before the fence
-    sm90::fence_regs(da);
-    sm90::wgmma_fence();
-    issue_accumulate(dq, da, sm.k[s]);  // dq += ds k
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(dq);
-    sm90::fence_regs(da);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
+    ds_tile(sc, dp, st, j * kBlockN, kv_valid, t, da);
+    tile_accumulate(dq, da, sm, s, lane);
   }
-
-  // dq * ln2 into this consumer's q rows (all its products are done); the
-  // store clips rows past sq
-  sm90::named_barrier_sync(1 + c, 128);
-  uint8_t* sdq = reinterpret_cast<uint8_t*>(sq_c);
-  stage_rows(sdq, dq, r_a, true, true, kLn2, t);
-  sm90::fence_proxy_async();
-  sm90::named_barrier_sync(1 + c, 128);
-  if (tid == 0 && row0 < sq) {
-    sm90::tma_store_3d(tm_dq, sdq, 0, row0, bh);
-    sm90::tma_store_wait();
-  }
+  store_dq(sm, tm_dq, dq, c, bh, row0, sq);
 }
 
+// The block's prologue and producer are bwd_sm90.cuh's dq::init_smem and
+// dq::produce written out: calling either helper here changes which of the
+// block indices ptxas keeps in uniform registers, and with them 15 opcode
+// counts of K3's integer address arithmetic (its products and exponentials
+// stay). Written out, K3's SASS opcode counts are those of its own design.
 __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_do,
@@ -273,22 +191,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int skv, int kv_valid, cudaStream_t stream) {
   int err = sm90::check_launch_regs(flash_bwd_dq_sm90, kLaunchRegs);
   if (err) return err;
-  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
-  const uint64_t q_head = (uint64_t)sq * kRowBytes;
-  const uint64_t kv_head = (uint64_t)skv * kRowBytes;
-  err = sm90::encode_rows_sw128(&tm_q, q, sq, bh, q_head, kBlockM);
-  if (!err) err = sm90::encode_rows_sw128(&tm_do, dout, sq, bh, q_head, kBlockM);
-  if (!err) err = sm90::encode_rows_sw128(&tm_k, k, kv_valid, bh, kv_head, kBlockN);
-  if (!err) err = sm90::encode_rows_sw128(&tm_v, v, kv_valid, bh, kv_head, kBlockN);
-  if (!err) err = sm90::encode_rows_sw128(&tm_dq, dq, sq, bh, q_head, 64);
+  Maps m;
+  err = encode_maps(m, q, dout, k, v, dq, bh, sq, skv, kv_valid);
   if (err) return err;
-  cudaError_t st = cudaFuncSetAttribute(
+  const cudaError_t st = cudaFuncSetAttribute(
       flash_bwd_dq_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (st != cudaSuccess) return static_cast<int>(st);
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
   flash_bwd_dq_sm90<<<grid, kBlockThreads, kSmemBytes, stream>>>(
-      tm_q, tm_do, tm_k, tm_v, tm_dq, static_cast<const float*>(lse),
+      m.q, m.dout, m.k, m.v, m.dq, static_cast<const float*>(lse),
       static_cast<const float*>(di), sq, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }

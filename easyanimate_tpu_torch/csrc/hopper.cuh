@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels.
 //
 // Users: K1 and K2, the dense and the sliding-window forward (flash_fwd.cu
-// and swa_fwd.cu on fwd_sm90.cuh), and K3 and K4, the dense backward's dq
-// and dk/dv kernels (flash_bwd.cu), all at head_dim 64 and all bound by
-// operations at the flagship shapes ([96, 13360, 64] bf16; K2 [96, 13104,
-// 64] banded to 1,008). Their common shape: one producer warpgroup keeps
+// and swa_fwd.cu on fwd_sm90.cuh), and K3/K4 and K6/K7, the dense and the
+// sliding-window backward's dq and dk/dv kernels (flash_bwd.cu and
+// swa_bwd.cu on bwd_sm90.cuh), all at head_dim 64 and all bound by
+// operations at the flagship shapes ([96, 13360, 64] bf16; the banded ones
+// [96, 13104, 64] banded to 1,008). Their common shape: one producer warpgroup keeps
 // TMA loads in flight through a ring of shared-memory stages guarded by
 // full/empty mbarriers, and consumer warpgroups run the products on the
 // tensor cores with wgmma (score-like products with both operands in

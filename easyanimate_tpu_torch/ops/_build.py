@@ -55,6 +55,8 @@ _SIGNATURES = {
     "ea_flash_bwd_uses_sm90": (_I,),
     # q, k, v, do, lse, di, dq, bh, s, window, head_dim, stream
     "ea_swa_bwd_dq_bf16": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # head_dim -> 1 if ea_swa_bwd_dq_bf16 runs the TMA + wgmma kernel
+    "ea_swa_bwd_dq_uses_sm90": (_I,),
     # q, k, v, do, lse, di, dk, dv, bh, s, window, head_dim, stream
     "ea_swa_bwd_dkv_bf16": (_P,) * 8 + (_I,) * 4 + (_P,),
     # head_dim -> 1 if ea_swa_bwd_dkv_bf16 runs the TMA + wgmma kernel

@@ -14,9 +14,10 @@ EasyAnimateSWAttnProcessor2_0, processor.py:320-459):
     the cross output to the concat -- kept verbatim).
 This is the single-device path; the head-parallel form is not ported. The
 banded pass is differentiable: its backward is K6 (dq) and K7 (dk, dv),
-csrc/swa_bwd.cu (K7 a TMA + wgmma kernel at d 64). With fuse_cross=True (off by default, as in JAX) the video
-queries' cross pass runs inside K5, whose backward recomputes through the
-unfused pair (K2 + K6/K7 for the band, K1 + K3/K4 for the global set).
+csrc/swa_bwd.cu (both TMA + wgmma kernels at d 64). With fuse_cross=True
+(off by default, as in JAX) the video queries' cross pass runs inside K5,
+whose backward recomputes through the unfused pair (K2 + K6/K7 for the
+band, K1 + K3/K4 for the global set).
 """
 from typing import Optional, Tuple
 
@@ -147,8 +148,8 @@ def sliding_window_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     A CUDA tensor launches K6 (dq) then K7 (dk, dv), or raises (contiguous
     bf16 inputs, float32 lse); a CPU tensor takes sliding_window_bwd_plain.
     `sliding_window_bwd.launches` counts calls that launched the pair,
-    `.launches_sm90` those whose K7 ran the TMA + wgmma kernel (d 64; K6,
-    and K7 at d 16 and 32, run the mma.sync ones)."""
+    `.launches_sm90` those in which both ran their TMA + wgmma kernels (d
+    64; d 16 and 32 run the mma.sync ones)."""
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if qf.device.type == "cpu":
@@ -168,8 +169,9 @@ def sliding_window_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     _build.launch("ea_swa_bwd_dkv_bf16", qf.device, *ptrs, dk.data_ptr(),
                   dv.data_ptr(), bh, n, window, d)
     sliding_window_bwd.launches += 1
-    sliding_window_bwd.launches_sm90 += _build.load_library(
-        ).ea_swa_bwd_dkv_uses_sm90(d)
+    lib = _build.load_library()
+    sliding_window_bwd.launches_sm90 += (lib.ea_swa_bwd_dq_uses_sm90(d)
+                                         and lib.ea_swa_bwd_dkv_uses_sm90(d))
     return dq, dk, dv
 
 

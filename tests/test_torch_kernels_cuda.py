@@ -192,14 +192,19 @@ def test_flash_bwd_dq_masks_pad_columns_at_deep_lse_on_card(cuda_device):
 @pytest.mark.parametrize("bh,s,window,d", [
     (4, 1000, 100, 64), (4, 3001, 300, 64), (4, 777, 63, 32),
     (4, 300, 500, 16),
-    # d 64 runs K7's TMA + wgmma kernel (128 kv rows a block, 64-row q
-    # tiles from max(0, k0 - window)): window 0; a window past S (every
-    # row sees everything); S below one kv block; ragged S with a window
-    # that is not a multiple of 64; 12 heads of 1001 rows, each offset by
-    # its own mean (a tile that read across a head's end would carry
-    # another head's values)
+    # d 64 runs K6's and K7's TMA + wgmma kernels (128 q rows a block
+    # walking 64-row kv tiles from max(0, q0 - window); 128 kv rows a block
+    # walking 64-row q tiles from max(0, k0 - window)): window 0; a window
+    # past S (every row sees everything); S below one block; ragged S with
+    # a window that is not a multiple of 64; 12 heads of 1001 rows, each
+    # offset by its own mean (a tile that read across a head's end would
+    # carry another head's values); S a multiple of 64 but not of 128 with
+    # a window of 64 (every walk starts on a tile boundary, and the last
+    # block's second consumer lies wholly past S, so its skip runs); S just
+    # above one block (the last block holds one real row)
     (4, 1000, 0, 64), (4, 300, 500, 64), (4, 100, 30, 64),
-    (4, 777, 63, 64), (12, 1001, 200, 64)])
+    (4, 777, 63, 64), (12, 1001, 200, 64), (4, 1088, 64, 64),
+    (4, 129, 40, 64)])
 def test_swa_bwd_kernels_match_plain_on_card(cuda_device, bh, s, window, d):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 3 - 1.0
@@ -260,8 +265,11 @@ def _deep_lse(g, dev, s, window, d):
 def test_swa_bwd_kernels_mask_what_they_must_on_card(cuda_device, make, s,
                                                      window):
     """K6 + K7 where a missed mask shows: out-of-band scores far above the
-    band's (an edge tile of K7 left unmasked), and an lse so deep that the
-    zero kv rows past S (S not a multiple of 128) overflow."""
+    band's (an edge tile of K6 or K7 left unmasked gives p up to 2^64, in
+    dq as in dk and dv), and an lse so deep that the zero kv rows past S
+    (S not a multiple of 128) overflow: in K6 unless the kv tile that
+    crosses S masks its columns >= S, in K7 unless the epilogue zeroes
+    those dk, dv rows."""
     g = torch.Generator(device=cuda_device).manual_seed(9)
     d = 64
     q, k = make(g, cuda_device, s, window, d)

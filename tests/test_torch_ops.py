@@ -432,7 +432,8 @@ def test_cpu_backward_takes_plain_version_without_launch(rng):
 
 def test_cpu_swa_backward_takes_plain_version_without_launch(rng):
     """sliding_window_bwd on CPU tensors is sliding_window_bwd_plain, and
-    neither its launches nor K7's TMA + wgmma launches are counted."""
+    neither its launches nor K6's and K7's TMA + wgmma launches are
+    counted."""
     q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 40, 16))
                                     .astype(np.float32)) for _ in range(4))
     o, lse = tswa.sliding_window_fwd(q, k, v, 7)

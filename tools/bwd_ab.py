@@ -11,13 +11,17 @@ in the turns A B B A A B B A ..., `iters` launches a turn: K3 and K4 at
 the dense flagship [96, 13360, 64], K6 and K7 at the banded one [96, 13104,
 64], window 1008. The inputs are random bf16 q, k, v, do (q pre-scaled as
 the wrappers do) with the lse of B's own forward kernel and di = rowsum(o
-* do). Prints the card's name and power limit, then one JSON line per
-kernel: every turn's ms, and each side's median and mean. Needs one CUDA
-device and nvcc.
+* do). Prints the card's name and power limit; one JSON line per TMA +
+wgmma backward kernel with each build's ptxas registers and spills, its
+SASS opcode counts and whether the two builds' SASS is the same
+instruction for instruction (a kernel that a build lacks is null there);
+then one JSON line per kernel: every turn's ms, and each side's median and
+mean. Needs one CUDA device and nvcc.
 """
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -30,20 +34,68 @@ from easyanimate_tpu_torch.ops._build import _SIGNATURES  # noqa: E402
 
 BH, S_DENSE, S_VID, WINDOW, D = 96, 13360, 13104, 1008, 64
 LOG2E = 1.4426950408889634
+# the TMA + wgmma backward kernels: K3, K4, K6, K7
+SM90_KERNELS = ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "swa_bwd_dq_sm90",
+                "swa_bwd_dkv_sm90")
+# run in each tree: build its library, then print the library's path and,
+# for each kernel it holds, ptxas's report and its SASS instructions
+_BUILD_AND_REPORT = '''
+import json, re, sys
+from easyanimate_tpu_torch.ops import _build
+print(_build.build_library())
+out = {}
+for kernel in sys.argv[1:]:
+    try:
+        body = _build._sass_function(kernel)
+    except RuntimeError:
+        continue
+    out[kernel] = {"ptxas": _build.ptxas_report(kernel), "sass": re.findall(
+        r"/\\*[0-9a-f]{4,}\\*/\\s+(.*?)\\s*;", body)}
+print(json.dumps(out))
+'''
 
 
-def build(tree: Path) -> ctypes.CDLL:
-    """Build `tree`'s kernel library with its own _build.py; load it."""
-    path = subprocess.run(
-        [sys.executable, "-c", "from easyanimate_tpu_torch.ops import _build;"
-         " print(_build.build_library())"], cwd=tree, check=True,
-        capture_output=True, text=True).stdout.strip().splitlines()[-1]
-    lib = ctypes.CDLL(path)
+def build(tree: Path):
+    """Build `tree`'s kernel library with its own _build.py; load it.
+    Returns the library and, for each of SM90_KERNELS that it holds,
+    ptxas's report and its SASS instructions."""
+    lines = subprocess.run(
+        [sys.executable, "-c", _BUILD_AND_REPORT, *SM90_KERNELS], cwd=tree,
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    lib = ctypes.CDLL(lines[-2])
     for name, argtypes in _SIGNATURES.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return lib, json.loads(lines[-1])
+
+
+def opcodes(instructions):
+    """How many instructions of each opcode (predicate dropped, modifiers
+    kept)."""
+    counts = {}
+    for ins in instructions:
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def compare_builds(reports):
+    """One JSON line per kernel: each build's registers, spills and
+    opcode counts, and whether the two SASS listings are equal."""
+    for kernel in SM90_KERNELS:
+        sides = {side: rep.get(kernel) for side, rep in reports.items()}
+        row = {"kernel": kernel}
+        for side, r in sides.items():
+            row[side] = None if r is None else {
+                "registers": r["ptxas"].get("registers"),
+                "spill_bytes": r["ptxas"].get("spill_store_bytes", 0)
+                + r["ptxas"].get("spill_load_bytes", 0),
+                "instructions": len(r["sass"]), "opcodes": opcodes(r["sass"])}
+        if None not in sides.values():
+            row["same_opcode_counts"] = row["a"]["opcodes"] == row["b"]["opcodes"]
+            row["same_sass"] = sides["a"]["sass"] == sides["b"]["sass"]
+        print(json.dumps(row), flush=True)
 
 
 def call(lib, name, *args):
@@ -91,7 +143,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = {"a": build(args.a), "b": build(args.b)}
+    built = {"a": build(args.a), "b": build(args.b)}
+    libs = {side: lib for side, (lib, _) in built.items()}
+    compare_builds({side: rep for side, (_, rep) in built.items()})
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = (("K3", "ea_flash_bwd_dq_bf16", None), ("K4", "ea_flash_bwd_dkv_bf16", None),
              ("K6", "ea_swa_bwd_dq_bf16", WINDOW), ("K7", "ea_swa_bwd_dkv_bf16", WINDOW))
