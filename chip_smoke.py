@@ -6,8 +6,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             the TMA + wgmma kernels (K1, K2, K3's and K6's dq and K4's and
-             K7's dk/dv kernels)
+             the TMA + wgmma kernels (K1, K2, K5, K3's and K6's dq and K4's
+             and K7's dk/dv kernels)
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes, with kernel / plain /
@@ -31,8 +31,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
              4 layers: layer 0 dense, 1-3 SWA
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after, and that every K1-K4, K6 and K7 launch (d 64)
-ran its TMA + wgmma kernel. Then the per-kernel JSON line and, last, the
+and checks them just after, and that every launch of K1-K7 (d 64) ran its
+TMA + wgmma kernel. Then the per-kernel JSON line and, last, the
 device line.
 """
 import argparse
@@ -99,6 +99,7 @@ PEAK_BYTES = 3.35e12
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
 K2_SM90 = "swa_fwd_sm90"  # K2's (csrc/swa_fwd.cu)
+K5_SM90 = "swa_fused_fwd_sm90"  # K5's (csrc/swa_fused_fwd.cu)
 K3_SM90 = "flash_bwd_dq_sm90"  # K3's (csrc/flash_bwd.cu)
 K4_SM90 = "flash_bwd_dkv_sm90"  # K4's (csrc/flash_bwd.cu)
 K6_SM90 = "swa_bwd_dq_sm90"  # K6's (csrc/swa_bwd.cu)
@@ -210,7 +211,7 @@ def phase_device():
 
 
 def phase_build():
-    """Build the kernels; report the TMA + wgmma kernels (K1-K4, K6, K7) as
+    """Build the kernels; report the TMA + wgmma kernels (K1-K7) as
     ptxas and cuobjdump see them, and fail unless each one's SASS issues wgmma
     (HGMMA) and TMA loads (UTMALDG)."""
     t0 = time.perf_counter()
@@ -219,7 +220,8 @@ def phase_build():
     seconds = time.perf_counter() - t0
     out, report = {}, {}
     for key, kernel in (("K1", K1_SM90), ("K2", K2_SM90), ("K3", K3_SM90),
-                        ("K4", K4_SM90), ("K6", K6_SM90), ("K7", K7_SM90)):
+                        ("K4", K4_SM90), ("K5", K5_SM90), ("K6", K6_SM90),
+                        ("K7", K7_SM90)):
         ptxas = _build.ptxas_report(kernel)
         sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
                                            "USETMAXREG", "STL", "LDL"))
@@ -830,11 +832,11 @@ def phase_swa_fused(ins, cot, fused):
 
 
 DEVICE = torch.device("cuda")
-# flash_attention_fwd.launches_sm90 and sliding_window_fwd.launches_sm90
-# count the K1 and K2 launches that ran their TMA + wgmma kernels (d 64),
-# flash_attention_bwd.launches_sm90 and sliding_window_bwd.launches_sm90
-# the K3 + K4 and K6 + K7 launches that ran theirs (both kernels, one
-# call); every main path runs at d 64
+# flash_attention_fwd.launches_sm90, sliding_window_fwd.launches_sm90 and
+# swa_local_global_fwd.launches_sm90 count the K1, K2 and K5 launches that
+# ran their TMA + wgmma kernels (d 64), flash_attention_bwd.launches_sm90
+# and sliding_window_bwd.launches_sm90 the K3 + K4 and K6 + K7 launches
+# that ran theirs (both kernels, one call); every main path runs at d 64
 COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
             "K3": flash_attention_bwd, "K4": flash_attention_bwd,
             "K5": swa_local_global_fwd,
@@ -848,6 +850,7 @@ def reset_counts():
         fn.launches = 0
     flash_attention_fwd.launches_sm90 = 0
     sliding_window_fwd.launches_sm90 = 0
+    swa_local_global_fwd.launches_sm90 = 0
     flash_attention_bwd.launches_sm90 = 0
     sliding_window_bwd.launches_sm90 = 0
 
@@ -997,18 +1000,19 @@ def main():
 
     model, vae = build_12b(args.seed)
     totals = dict.fromkeys(COUNTERS, 0)
-    # launches_sm90 of K1-K4, K6 and K7 over the path runs
-    totals_sm90 = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0}
+    # launches_sm90 of K1-K7 over the path runs
+    totals_sm90 = dict.fromkeys(COUNTERS, 0)
     sm90_counters = {"K1": (flash_attention_fwd, K1_SM90),
                      "K2": (sliding_window_fwd, K2_SM90),
                      "K3": (flash_attention_bwd, K3_SM90),
                      "K4": (flash_attention_bwd, K4_SM90),
+                     "K5": (swa_local_global_fwd, K5_SM90),
                      "K6": (sliding_window_bwd, K6_SM90),
                      "K7": (sliding_window_bwd, K7_SM90)}
 
     def path_run(phase, fn, expect=None):
         """One main-path run: counts set to 0 just before, read just after;
-        every K1-K4, K6 and K7 launch (d 64) ran its TMA + wgmma kernel."""
+        every launch of K1-K7 (d 64) ran its TMA + wgmma kernel."""
         reset_counts()
         result = fn()
         got = read_counts()
@@ -1118,6 +1122,7 @@ def main():
 
     dense = 2 * BH * S_DENSE ** 2 * HEAD_DIM     # one dense product
     band = 2 * BH * band_columns(S_VID, WINDOW) * HEAD_DIM
+    glob = 2 * BH * S_VID * S_GLOBAL * HEAD_DIM  # one global-pass product
 
     emit({"kernels": [
         sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
@@ -1135,8 +1140,11 @@ def main():
                      "easyanimate_tpu/ops/flash_attention.py:267"),
                  "K4", ("flash_bwd.cu", "bwd_sm90.cuh"), 4 * dense,
                  "cross_sdpa_bwd_ms"),
-        row("K5", "swa_local_global_fwd", "swa_fused_fwd.cu",
-            "easyanimate_tpu/ops/swa.py:159"),
+        sm90_row(row("K5", "swa_local_global_fwd", "swa_fused_fwd.cu",
+                     "easyanimate_tpu/ops/swa.py:159"),
+                 "K5", ("swa_fused_fwd.cu", "fwd_sm90.cuh"),
+                 2 * band + 2 * glob)
+        | {"unfused_pair_ms": stats["K5"]["unfused_pair_ms"]},
         sm90_row(row("K6", "sliding_window_bwd (dq)", "swa_bwd.cu",
                      "easyanimate_tpu/ops/swa.py:393"),
                  "K6", ("swa_bwd.cu", "bwd_sm90.cuh"), 3 * band),
@@ -1148,14 +1156,15 @@ def main():
                "over max |plain|, the bound's measure. K1, K3, K4: ms at "
                "the dense flagship, cross_* at the SWA cross pass (13360 x "
                "1027), library = SDPA (its backward for K3/K4); K2's, "
-               "K6's and K7's tflops count the band's visible pairs; every "
-               "path launch of K1-K4, K6 and K7 ran their TMA + wgmma "
-               "kernels (launches_sm90). "
-               "K3/K4 and K6/K7 "
+               "K5's, K6's and K7's tflops count the band's visible pairs; "
+               "every path launch of K1-K7 ran their TMA + wgmma kernels "
+               "(launches_sm90). K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "
                "kernels' gradients. K2 library_ms: SDPA with the band mask. "
-               "K5: no single PyTorch call computes it (library_ms null)"})
+               "K5: no single PyTorch call computes it (library_ms null); "
+               "unfused_pair_ms, K2 + the K1 cross pass on the same "
+               "inputs, is its yardstick"})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
-// The mma.sync forward-attention body of K5 (swa_fused_fwd.cu: banded +
-// global), and of K1 (flash_fwd.cu: dense) and K2 (swa_fwd.cu: banded) at
-// head dims 16 and 32 only; K1 and K2 at d 64 are TMA + wgmma kernels on
+// The mma.sync forward-attention body of K1 (flash_fwd.cu: dense), K2
+// (swa_fwd.cu: banded) and K5 (swa_fused_fwd.cu: banded + global) at head
+// dims 16 and 32 only; at d 64 all three are TMA + wgmma kernels on
 // fwd_sm90.cuh.
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
@@ -27,8 +27,8 @@
 // shared memory feeds 64 q rows, and the mma.sync path reaches a fraction
 // of the wgmma peak; with no load/compute overlap the tensor cores idle
 // during every tile load. hopper.cuh and fwd_sm90.cuh hold the TMA + wgmma
-// + producer warpgroup pieces K1 and K2 moved onto; only K5 (and K1, K2 at
-// d 16 and 32) still run this body.
+// + producer warpgroup pieces K1, K2 and K5 moved onto; only their d 16
+// and 32 calls (the tiny test preset) still run this body.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -70,24 +70,6 @@ using fwd90::kStages;
 using fwd90::kThreads;
 using fwd90::Smem;
 
-// Columns >= kv_valid (col0 is the tile's first) set to -inf on the last
-// tile: the zero rows TMA fills in would otherwise score 0.
-__device__ __forceinline__ void mask_tail(float (&sc)[64], int col0,
-                                          int kv_valid, int t) {
-  if (col0 + kBlockN > kv_valid) {  // the last tile
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
-          sc[4 * i + e] = -INFINITY;
-          sc[4 * i + 2 + e] = -INFINITY;
-        }
-      }
-    }
-  }
-}
-
 // One consumer warpgroup: 64 q rows against every kv tile, then the store.
 // Within a consumer the products and the softmax run in turn; the other
 // consumers' products fill the tensor cores meanwhile.
@@ -117,7 +99,7 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
     fwd90::issue_qk(sc, desc_q, sm.k[s]);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
-    mask_tail(sc, j * kBlockN, kv_valid, t);
+    fwd90::mask_tail(sc, j * kBlockN, kv_valid, t);
     fwd90::softmax_pv(sc, o, st, sm, s, lane);
   }
   fwd90::store_o_lse(o, st, sq_c, tm_o, lse, c, bh, q0, sq, tid, t, r_a, r_b);

@@ -1,14 +1,15 @@
 // The pieces of K1's TMA + wgmma forward-attention block at head_dim 64
-// (flash_fwd.cu's note gives the design) that K2 (swa_fwd.cu) runs too: the
-// tile shape and register split, the shared-memory layout, the barriers and
-// the producer's loads, the two products, the online base-2 softmax of one
-// tile and the epilogue. What differs between them is which kv rows a block
-// walks and which scores it hides, so each kernel keeps its own consumer
-// loop: K1's walks kv rows [0, kv_valid) and masks its last tile, K2's walks
-// the rows its q rows can see and masks the band's edge tiles. (One
-// consumer loop templated on the walk grew K1's spills from 16 to 24 bytes
-// a direction; with the loops apart K1 keeps its 128 registers, its 16
-// bytes and its time.)
+// (flash_fwd.cu's note gives the design) that K2 (swa_fwd.cu) and K5
+// (swa_fused_fwd.cu) run too: the tile shape and register split, the
+// shared-memory layout, the barriers and the producer's loads, the two
+// products, the online base-2 softmax of one tile, the two masks and the
+// epilogue. What differs between them is which kv rows a block walks and
+// which scores it hides, so each kernel keeps its own consumer loop: K1's
+// walks kv rows [0, kv_valid) and masks its last tile, K2's walks the rows
+// its q rows can see and masks the band's edge tiles, K5's walks K2's band
+// and then K1's global rows. (One consumer loop templated on the walk grew
+// K1's spills from 16 to 24 bytes a direction; with the loops apart K1
+// keeps its 128 registers, its 16 bytes and its time.)
 #pragma once
 
 #include "attn_fwd.cuh"
@@ -177,6 +178,56 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64],
   }
 }
 
+// Columns >= kv_valid (col0 is the tile's first) set to -inf on the last
+// tile: the zero rows TMA fills in would otherwise score 0.
+__device__ __forceinline__ void mask_tail(float (&sc)[64], int col0,
+                                          int kv_valid, int t) {
+  if (col0 + kBlockN > kv_valid) {  // the last tile
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col0 + 8 * i + 2 * t + e >= kv_valid) {
+          sc[4 * i + e] = -INFINITY;
+          sc[4 * i + 2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+}
+
+// Whether the kv tile at col0 hides any (hides_any) or every (hides_all)
+// score of the q rows [row0, row0 + 64): row i sees the columns j < s with
+// |i - j| <= window, and the walk keeps col0 < s.
+__device__ __forceinline__ bool hides_any(int col0, int row0, int s,
+                                          int window) {
+  return col0 + kBlockN > s || row0 + 63 - col0 > window ||
+         col0 + kBlockN - 1 - row0 > window;
+}
+
+__device__ __forceinline__ bool hides_all(int col0, int row0, int window) {
+  return col0 + kBlockN - 1 < row0 - window || col0 > row0 + 63 + window;
+}
+
+// The hidden scores of a thread's rows row_a, row_b (t its index in the
+// quad) set to -inf: the visible columns of row i are
+// [i - window, min(i + window, s - 1)].
+__device__ __forceinline__ void mask_band(float (&sc)[64], int col0,
+                                          int row_a, int row_b, int s,
+                                          int window, int t) {
+  const int lo_a = row_a - window, hi_a = min(row_a + window, s - 1);
+  const int lo_b = row_b - window, hi_b = min(row_b + window, s - 1);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = col0 + 8 * i + 2 * t + e;
+      if (j < lo_a || j > hi_a) sc[4 * i + e] = -INFINITY;
+      if (j < lo_b || j > hi_b) sc[4 * i + 2 + e] = -INFINITY;
+    }
+  }
+}
+
 // One tile of a consumer, after its scores are masked: the softmax, o
 // rescaled, o += p v; then the stage released (its empty barrier) once
 // wgmma.wait_group shows the p v on it complete.
@@ -205,23 +256,17 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[64], float (&o)[32],
   if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
 }
 
-// A consumer's epilogue: o * (1 / l) in bf16 into its own q rows sq_c (all
-// its q k^T products are done) in the 128-byte swizzled layout the o map
-// stores from, one TMA store of its 64 rows from q0 + 64 c (rows past sq
-// clipped), and lse = m + log2(l) for rows below sq. tid, t, r_a and r_b
-// are the consumer thread's index in its warpgroup, in its quad, and its
-// two rows in the 64.
-__device__ __forceinline__ void store_o_lse(const float (&o)[32],
-                                            const RowStats& st,
-                                            __nv_bfloat16* sq_c,
-                                            const CUtensorMap* tm_o,
-                                            float* __restrict__ lse, int c,
-                                            int bh, int q0, int sq, int tid,
-                                            int t, int r_a, int r_b) {
-  const float l_sum_a = quad_sum(st.l_a), l_sum_b = quad_sum(st.l_b);
-  // 1/l, or 1 for a row that saw nothing (its o is 0)
-  const float inv_a = l_sum_a <= 0.f ? 1.f : 1.f / l_sum_a;
-  const float inv_b = l_sum_b <= 0.f ? 1.f : 1.f / l_sum_b;
+// A consumer's store: o * inv_a (its row r_a) and o * inv_b (r_b) in bf16
+// into its own q rows sq_c (all its q k^T products are done) in the
+// 128-byte swizzled layout the o map stores from, then one TMA store of its
+// 64 rows from q0 + 64 c (rows past sq clipped). tid, t, r_a and r_b are
+// the consumer thread's index in its warpgroup, in its quad, and its two
+// rows in the 64.
+__device__ __forceinline__ void store_o(const float (&o)[32], float inv_a,
+                                        float inv_b, __nv_bfloat16* sq_c,
+                                        const CUtensorMap* tm_o, int c, int bh,
+                                        int q0, int sq, int tid, int t,
+                                        int r_a, int r_b) {
   // the 16-byte chunk i of row r sits at chunk i ^ (r % 8)
   sm90::named_barrier_sync(1 + c, 128);
   uint8_t* so = reinterpret_cast<uint8_t*>(sq_c);
@@ -240,6 +285,23 @@ __device__ __forceinline__ void store_o_lse(const float (&o)[32],
     sm90::tma_store_3d(tm_o, so, 0, row0, bh);
     sm90::tma_store_wait();
   }
+}
+
+// A consumer's epilogue: o * (1 / l) stored (store_o), and lse = m +
+// log2(l) for rows below sq.
+__device__ __forceinline__ void store_o_lse(const float (&o)[32],
+                                            const RowStats& st,
+                                            __nv_bfloat16* sq_c,
+                                            const CUtensorMap* tm_o,
+                                            float* __restrict__ lse, int c,
+                                            int bh, int q0, int sq, int tid,
+                                            int t, int r_a, int r_b) {
+  const float l_sum_a = quad_sum(st.l_a), l_sum_b = quad_sum(st.l_b);
+  // 1/l, or 1 for a row that saw nothing (its o is 0)
+  const float inv_a = l_sum_a <= 0.f ? 1.f : 1.f / l_sum_a;
+  const float inv_b = l_sum_b <= 0.f ? 1.f : 1.f / l_sum_b;
+  store_o(o, inv_a, inv_b, sq_c, tm_o, c, bh, q0, sq, tid, t, r_a, r_b);
+  const int row0 = q0 + c * 64;
   if (t == 0) {
     float* lb = lse + (size_t)bh * sq;
     if (row0 + r_a < sq) lb[row0 + r_a] = st.m_a + log2f(fmaxf(l_sum_a, 1e-30f));

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels.
 //
-// Users: K1 and K2, the dense and the sliding-window forward (flash_fwd.cu
-// and swa_fwd.cu on fwd_sm90.cuh), and K3/K4 and K6/K7, the dense and the
+// Users: K1, K2 and K5, the dense, the sliding-window and the fused
+// sliding-window + global forward (flash_fwd.cu, swa_fwd.cu and
+// swa_fused_fwd.cu on fwd_sm90.cuh), and K3/K4 and K6/K7, the dense and the
 // sliding-window backward's dq and dk/dv kernels (flash_bwd.cu and
 // swa_bwd.cu on bwd_sm90.cuh), all at head_dim 64 and all bound by
 // operations at the flagship shapes ([96, 13360, 64] bf16; the banded ones

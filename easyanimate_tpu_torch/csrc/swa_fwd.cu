@@ -63,38 +63,6 @@ using fwd90::kStages;
 using fwd90::kThreads;
 using fwd90::Smem;
 
-// Whether the kv tile at col0 hides any (hides_any) or every (hides_all)
-// score of the q rows [row0, row0 + 64): row i sees the columns j < s with
-// |i - j| <= window, and the walk keeps col0 < s.
-__device__ __forceinline__ bool hides_any(int col0, int row0, int s,
-                                          int window) {
-  return col0 + kBlockN > s || row0 + 63 - col0 > window ||
-         col0 + kBlockN - 1 - row0 > window;
-}
-
-__device__ __forceinline__ bool hides_all(int col0, int row0, int window) {
-  return col0 + kBlockN - 1 < row0 - window || col0 > row0 + 63 + window;
-}
-
-// The hidden scores of a thread's rows row_a, row_b (t its index in the
-// quad) set to -inf: the visible columns of row i are
-// [i - window, min(i + window, s - 1)].
-__device__ __forceinline__ void mask_band(float (&sc)[64], int col0,
-                                          int row_a, int row_b, int s,
-                                          int window, int t) {
-  const int lo_a = row_a - window, hi_a = min(row_a + window, s - 1);
-  const int lo_b = row_b - window, hi_b = min(row_b + window, s - 1);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = col0 + 8 * i + 2 * t + e;
-      if (j < lo_a || j > hi_a) sc[4 * i + e] = -INFINITY;
-      if (j < lo_b || j > hi_b) sc[4 * i + 2 + e] = -INFINITY;
-    }
-  }
-}
-
 // One consumer warpgroup: its 64 q rows against the block's kv tiles, then
 // the store.
 __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
@@ -120,7 +88,7 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
     const int stage = j % kStages;
     sm90::mbar_wait(&sm.full[stage], (j / kStages) & 1);
     const int col0 = kv_begin + j * kBlockN;
-    if (hides_all(col0, row0, window)) {
+    if (fwd90::hides_all(col0, row0, window)) {
       __syncwarp();  // nothing visible: only release the stage
       if (lane == 0) sm90::mbar_arrive(&sm.empty[stage]);
       continue;
@@ -130,8 +98,8 @@ __device__ __forceinline__ void consume(Smem& sm, const CUtensorMap* tm_o,
     fwd90::issue_qk(sc, desc_q, sm.k[stage]);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
-    if (hides_any(col0, row0, s, window)) {
-      mask_band(sc, col0, row0 + r_a, row0 + r_b, s, window, t);
+    if (fwd90::hides_any(col0, row0, s, window)) {
+      fwd90::mask_band(sc, col0, row0 + r_a, row0 + r_b, s, window, t);
     }
     fwd90::softmax_pv(sc, o, st, sm, stage, lane);
   }

@@ -45,7 +45,9 @@ _SIGNATURES = {
     # head_dim -> 1 if ea_swa_fwd_bf16 runs the TMA + wgmma kernel
     "ea_swa_fwd_uses_sm90": (_I,),
     # q, k, v, gk, gv, o, bh, s, sg, window, head_dim, stream
-    "ea_swa_fused_fwd_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "ea_swa_fused_fwd_bf16": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # head_dim -> 1 if ea_swa_fused_fwd_bf16 runs the TMA + wgmma kernel
+    "ea_swa_fused_fwd_uses_sm90": (_I,),
     # q, k, v, do, lse, di, dq, bh, sq, skv, kv_valid, head_dim, stream
     "ea_flash_bwd_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_P,),
     # q, k, v, do, lse, di, dk, dv, bh, sq, skv, kv_valid, head_dim, stream

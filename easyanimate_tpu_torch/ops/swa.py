@@ -15,9 +15,9 @@ EasyAnimateSWAttnProcessor2_0, processor.py:320-459):
 This is the single-device path; the head-parallel form is not ported. The
 banded pass is differentiable: its backward is K6 (dq) and K7 (dk, dv),
 csrc/swa_bwd.cu (both TMA + wgmma kernels at d 64). With fuse_cross=True
-(off by default, as in JAX) the video queries' cross pass runs inside K5,
-whose backward recomputes through the unfused pair (K2 + K6/K7 for the
-band, K1 + K3/K4 for the global set).
+(off by default, as in JAX) the video queries' cross pass runs inside K5
+(a TMA + wgmma kernel at d 64 too), whose backward recomputes through the
+unfused pair (K2 + K6/K7 for the band, K1 + K3/K4 for the global set).
 """
 from typing import Optional, Tuple
 
@@ -237,7 +237,8 @@ def swa_local_global_fwd(qf: torch.Tensor, kf: torch.Tensor,
 
     A CUDA tensor launches K5 (bf16, d in 16/32/64, contiguous) or raises; a
     CPU tensor takes swa_local_global_plain. `swa_local_global_fwd.launches`
-    counts kernel launches."""
+    counts kernel launches, `.launches_sm90` those that ran the TMA + wgmma
+    kernel (d 64; d 16 and 32 run the mma.sync one)."""
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if qf.device.type == "cpu":
@@ -254,10 +255,13 @@ def swa_local_global_fwd(qf: torch.Tensor, kf: torch.Tensor,
                   kf.data_ptr(), vf.data_ptr(), gk.data_ptr(), gv.data_ptr(),
                   o.data_ptr(), bh, n, gk.shape[1], window, d)
     swa_local_global_fwd.launches += 1
+    swa_local_global_fwd.launches_sm90 += _build.load_library(
+        ).ea_swa_fused_fwd_uses_sm90(d)
     return o
 
 
 swa_local_global_fwd.launches = 0
+swa_local_global_fwd.launches_sm90 = 0
 
 
 class SwaLocalGlobal(torch.autograd.Function):

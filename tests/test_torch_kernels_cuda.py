@@ -327,23 +327,72 @@ def test_bwd_kernels_reject_bad_inputs_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,sg,window,d", [
-    (1000, 1027, 100, 64), (777, 300, 63, 32), (300, 45, 500, 16),
-    (3001, 1027, 300, 64)])
-def test_swa_fused_kernel_matches_plain_on_card(cuda_device, s, sg, window, d):
-    """K5 against its plain version: S not a multiple of 64, a ragged global
-    set, and a window wider than S."""
+@pytest.mark.parametrize("bh,s,sg,window,d", [
+    (4, 1000, 1027, 100, 64), (4, 777, 300, 63, 32), (4, 300, 45, 500, 16),
+    (4, 3001, 1027, 300, 64),
+    # d 64 runs the TMA + wgmma kernel (192 q rows a block walking K2's
+    # 128-row band tiles from max(0, q0 - window), then the global tiles):
+    # window 0; a window past S; S a multiple of 64 but not of 192 with a
+    # window of 64 (the last block's third consumer lies wholly past S);
+    # S 129 (one q block, its third consumer holding one real row); one
+    # global row; exactly one global tile; 12 heads of 1001 rows, each
+    # offset by its own mean (a tile that read across a head's end, in
+    # either walk, would carry another head's values)
+    (4, 1000, 1027, 0, 64), (4, 300, 1027, 500, 64), (4, 1088, 1027, 64, 64),
+    (4, 129, 300, 40, 64), (4, 1000, 1, 100, 64), (4, 777, 128, 63, 64),
+    (12, 1001, 1027, 200, 64)])
+def test_swa_fused_kernel_matches_plain_on_card(cuda_device, bh, s, sg,
+                                                window, d):
+    """K5 against its plain version: S not a multiple of the q block, a
+    ragged global set (1,027 rows: its last tile holds 3), a window wider
+    than S."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
-    q, k, v = (torch.randn(4, s, d, generator=g, device=cuda_device
-                           ).to(torch.bfloat16) for _ in range(3))
-    gk, gv = (torch.randn(4, sg, d, generator=g, device=cuda_device
-                          ).to(torch.bfloat16) for _ in range(2))
+    shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 3 - 1.0
+             if bh == 12 else 0.0)
+    q, k, v = ((torch.randn(bh, s, d, generator=g, device=cuda_device)
+                + (0.0 if i == 0 else shift)).to(torch.bfloat16)
+               for i in range(3))
+    gk, gv = ((torch.randn(bh, sg, d, generator=g, device=cuda_device)
+               + shift).to(torch.bfloat16) for _ in range(2))
     q = (q.float() * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
     before = tswa.swa_local_global_fwd.launches
+    before_sm90 = tswa.swa_local_global_fwd.launches_sm90
     o = tswa.swa_local_global_fwd(q, k, v, gk, gv, window)
     torch.cuda.synchronize()
     assert tswa.swa_local_global_fwd.launches == before + 1
+    assert tswa.swa_local_global_fwd.launches_sm90 == before_sm90 + (d == 64)
     # bf16 output and the kernel's bf16 p before p @ v, in both halves
+    _close(o.float(), tswa.swa_local_global_plain(q, k, v, gk, gv,
+                                                  window).float(), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,s,sg,window,g_mean", [
+    (_out_of_band_high, 1000, 1027, 100, 0.0), (_deep_lse, 1000, 300, 100, -2.0)],
+    ids=["out_of_band_high", "deep_global"])
+def test_swa_fused_kernel_masks_what_it_must_on_card(cuda_device, make, s, sg,
+                                                     window, g_mean):
+    """K5 (d 64) where a missed mask shows: out-of-band scores far above the
+    band's (an edge tile left unmasked gives p up to 2^64), and, with q all
+    +2 and every key near -2, band and global scores near -256, so the zero
+    rows past S (S not a multiple of 128) and past Sg (nor Sg), which score
+    0, would win their rows' maxima unless K5 hides them. The keys carry a
+    little noise around their mean, so o depends on which columns were
+    kept."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    d = 64
+    q, k = make(g, cuda_device, s, window, d)
+    gk = (g_mean + 0.25 * torch.randn(4, sg, d, generator=g, device=cuda_device)
+          ).to(torch.bfloat16)
+    v, gv = (torch.randn(4, n, d, generator=g, device=cuda_device
+                         ).to(torch.bfloat16) for n in (s, sg))
+    if g_mean < 0:
+        assert (q.float() @ gk.float().transpose(1, 2)).max().item() < -100
+    before_sm90 = tswa.swa_local_global_fwd.launches_sm90
+    o = tswa.swa_local_global_fwd(q, k, v, gk, gv, window)
+    torch.cuda.synchronize()
+    assert tswa.swa_local_global_fwd.launches_sm90 == before_sm90 + 1
+    assert torch.isfinite(o.float()).all()
     _close(o.float(), tswa.swa_local_global_plain(q, k, v, gk, gv,
                                                   window).float(), 2e-2)
 

@@ -389,6 +389,20 @@ def test_launch_raises_on_a_refused_tensor_map(monkeypatch):
         _build.launch("ea_swa_fwd_bf16", torch.device("cuda"))
 
 
+def test_entry_point_signatures_match_the_sources():
+    """The ctypes argtypes of every C entry point name one type per
+    parameter of its extern "C" definition under csrc/, a pointer for each
+    pointer and an int for each int: with one missing, ctypes passes the
+    parameters after it in the wrong slots (the stream among them)."""
+    src = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name, argtypes in _build._SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        params = [p.strip() for p in m[1].split(",")]
+        want = [_build._P if "*" in p else _build._I for p in params]
+        assert list(argtypes) == want, name
+
+
 def test_kernel_input_checks_reject_cpu_and_bad_dtype():
     x = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):

@@ -50,9 +50,11 @@ def test_swa_local_global_matches_jax(rng, s, sg, window):
     want_grads = vjp(jnp.asarray(do))
 
     ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v, gk, gv)]
-    before = tswa.swa_local_global_fwd.launches
+    before = (tswa.swa_local_global_fwd.launches,
+              tswa.swa_local_global_fwd.launches_sm90)
     got = tswa.swa_local_global(*ts, window)
-    assert tswa.swa_local_global_fwd.launches == before  # CPU: plain version
+    assert (tswa.swa_local_global_fwd.launches,  # CPU: plain version
+            tswa.swa_local_global_fwd.launches_sm90) == before
     _close(got, want, ATTN_TOL)
     got.backward(torch.from_numpy(do))
     for t, w in zip(ts, want_grads):

@@ -1,22 +1,25 @@
-"""Time the attention-backward kernels of two builds in alternating turns.
+"""Time the attention kernels of two builds in alternating turns, and
+compare the two builds' SASS of every TMA + wgmma kernel.
 
-    python3 tools/bwd_ab.py A_DIR B_DIR [--turns 12] [--iters 10]
+    python3 tools/kernel_ab.py A_DIR B_DIR [--turns 12] [--iters 10]
 
 A_DIR and B_DIR are checkouts of this repository (for example `git
 archive`s of a parent commit and of a change, unpacked into a directory
 that .gitignore lists). Each is built by its own ops/_build.py in a
 subprocess; both libraries are then loaded into this process, and each
-backward kernel's C entry point is timed by CUDA events on the same inputs
-in the turns A B B A A B B A ..., `iters` launches a turn: K3 and K4 at
-the dense flagship [96, 13360, 64], K6 and K7 at the banded one [96, 13104,
-64], window 1008. The inputs are random bf16 q, k, v, do (q pre-scaled as
-the wrappers do) with the lse of B's own forward kernel and di = rowsum(o
-* do). Prints the card's name and power limit; one JSON line per TMA +
-wgmma backward kernel with each build's ptxas registers and spills, its
-SASS opcode counts and whether the two builds' SASS is the same
-instruction for instruction (a kernel that a build lacks is null there);
-then one JSON line per kernel: every turn's ms, and each side's median and
-mean. Needs one CUDA device and nvcc.
+kernel's C entry point is timed by CUDA events on the same inputs in the
+turns A B B A A B B A ..., `iters` launches a turn: K1, K3 and K4 at the
+dense flagship [96, 13360, 64]; K2, K5, K6 and K7 at the banded one [96,
+13104, 64], window 1008, K5 with the 1,027 global rows. K5 is timed in the
+same turns beside its yardstick, B's unfused pair (K2 + the K1 cross pass
+over the global rows). The inputs are random bf16 q, k, v, do (q
+pre-scaled as the wrappers do) with the lse of B's own forward kernel and
+di = rowsum(o * do). Prints the card's name and power limit; one JSON line
+per TMA + wgmma kernel (K1, K2, K5; K3, K4, K6, K7) with each build's
+ptxas registers and spills, its SASS opcode counts and whether the two
+builds' SASS is the same instruction for instruction (a kernel that a
+build lacks is null there); then one JSON line per kernel: every turn's
+ms, and each side's median and mean. Needs one CUDA device and nvcc.
 """
 import argparse
 import ctypes
@@ -32,10 +35,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from easyanimate_tpu_torch.ops._build import _SIGNATURES  # noqa: E402
 
-BH, S_DENSE, S_VID, WINDOW, D = 96, 13360, 13104, 1008, 64
+BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, D = 96, 13360, 13104, 1008, 1027, 64
 LOG2E = 1.4426950408889634
-# the TMA + wgmma backward kernels: K3, K4, K6, K7
-SM90_KERNELS = ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "swa_bwd_dq_sm90",
+# the TMA + wgmma kernels: K1, K2, K5; K3, K4, K6, K7
+SM90_KERNELS = ("flash_fwd_sm90", "swa_fwd_sm90", "swa_fused_fwd_sm90",
+                "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "swa_bwd_dq_sm90",
                 "swa_bwd_dkv_sm90")
 # run in each tree: build its library, then print the library's path and,
 # for each kernel it holds, ptxas's report and its SASS instructions
@@ -131,6 +135,40 @@ def turn_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def entry_calls(lib, key, ins, glob):
+    """The C entry point call(s) of kernel `key` on `ins` (q, k, v, do,
+    lse, di of its shape; glob: the global gk, gv), into fresh outputs."""
+    q, k, v, do, lse, di = ins
+    bh, s, _ = q.shape
+    o, o2, lse2 = torch.empty_like(q), torch.empty_like(q), torch.empty_like(lse)
+    bwd = [x.data_ptr() for x in (q, k, v, do, lse, di)]
+    if key == "K1":
+        return lambda: call(lib, "ea_flash_fwd_bf16", q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), o.data_ptr(), lse2.data_ptr(), bh, s,
+                            s, s, D)
+    if key == "K2":
+        return lambda: call(lib, "ea_swa_fwd_bf16", q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), o.data_ptr(), lse2.data_ptr(), bh, s,
+                            WINDOW, D)
+    if key == "K5":
+        return lambda: call(lib, "ea_swa_fused_fwd_bf16", q.data_ptr(),
+                            k.data_ptr(), v.data_ptr(), *glob, o.data_ptr(),
+                            bh, s, S_GLOBAL, WINDOW, D)
+    if key == "K5 pair":
+        k2 = entry_calls(lib, "K2", ins, glob)
+        return lambda: (k2(), call(
+            lib, "ea_flash_fwd_bf16", q.data_ptr(), *glob, o2.data_ptr(),
+            lse2.data_ptr(), bh, s, S_GLOBAL, S_GLOBAL, D))
+    if key in ("K3", "K6"):
+        name = "ea_flash_bwd_dq_bf16" if key == "K3" else "ea_swa_bwd_dq_bf16"
+        outs = [o.data_ptr()]
+    else:
+        name = "ea_flash_bwd_dkv_bf16" if key == "K4" else "ea_swa_bwd_dkv_bf16"
+        outs = [o.data_ptr(), o2.data_ptr()]
+    sizes = (bh, s, s, s, D) if key in ("K3", "K4") else (bh, s, WINDOW, D)
+    return lambda: call(lib, name, *bwd, *outs, *sizes)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("a", type=Path)
@@ -139,7 +177,7 @@ def main():
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("bwd_ab: no CUDA device")
+        raise SystemExit("kernel_ab: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -147,30 +185,25 @@ def main():
     libs = {side: lib for side, (lib, _) in built.items()}
     compare_builds({side: rep for side, (_, rep) in built.items()})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = (("K3", "ea_flash_bwd_dq_bf16", None), ("K4", "ea_flash_bwd_dkv_bf16", None),
-             ("K6", "ea_swa_bwd_dq_bf16", WINDOW), ("K7", "ea_swa_bwd_dkv_bf16", WINDOW))
-    shapes = {}
-    for key, name, window in cases:
-        s = S_DENSE if window is None else S_VID
-        if window not in shapes:
-            shapes[window] = inputs(libs["b"], s, window, gen)
-        q, k, v, do, lse, di = shapes[window]
-        outs = [torch.empty_like(q)] if name.endswith("_dq_bf16") else \
-            [torch.empty_like(k), torch.empty_like(v)]
-        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, di, *outs)]
-        sizes = (BH, s, s, s, D) if window is None else (BH, s, window, D)
-        fns = {side: (lambda lib=lib: call(lib, name, *ptrs, *sizes))
+    dense = inputs(libs["b"], S_DENSE, None, gen)
+    band = inputs(libs["b"], S_VID, WINDOW, gen)
+    gk, gv = (torch.randn(BH, S_GLOBAL, D, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    glob = (gk.data_ptr(), gv.data_ptr())
+    for key in ("K1", "K2", "K5", "K3", "K4", "K6", "K7"):
+        ins = dense if key in ("K1", "K3", "K4") else band
+        fns = {side: entry_calls(lib, key, ins, glob)
                for side, lib in libs.items()}
+        if key == "K5":  # its yardstick, in the same turns
+            fns["b pair"] = entry_calls(libs["b"], "K5 pair", ins, glob)
         for fn in fns.values():  # warm-up
             fn()
         torch.cuda.synchronize()
-        ms = {"a": [], "b": []}
+        ms = {side: [] for side in fns}
         for t in range(args.turns):
-            order = ("a", "b") if t % 2 == 0 else ("b", "a")
-            for side in order:
+            for side in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
                 ms[side].append(turn_ms(fns[side], args.iters))
-        print(json.dumps({"kernel": key, "entry": name, "iters": args.iters,
-                          "ms": ms,
+        print(json.dumps({"kernel": key, "iters": args.iters, "ms": ms,
                           "median": {x: statistics.median(v) for x, v in ms.items()},
                           "mean": {x: statistics.fmean(v) for x, v in ms.items()}}),
               flush=True)
