@@ -18,8 +18,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   reference  a tiny T2V and a tiny I2V run on the card (bf16, kernels)
              against the same weights on the CPU (float32, plain versions)
   train_reference  a tiny LoRA step and a tiny SFT step, the same way
-  dense      two requests to V5.1-12B (random bf16 weights, full depth and
-             width) + the full MagViT VAE at 384x672x49f, CFG 6.0
+  loader     a reference-layout V5.1 directory written by the port's own
+             safetensors writer into a temporary directory (transformer
+             at the 12B widths cut to 2 layers, layer 1 SWA, in 256 MB
+             shards; the full MagViT; a FlowMatch scheduler), loaded with
+             load_pipeline on the card: every tensor equal to the written
+             one; a 2-step request on the loaded and on the in-memory
+             modules (equal), then an fp8_weights load and its request;
+             directory bytes, write and load seconds
+  build_12b  V5.1-12B (random bf16 weights, full depth and width) + the
+             full MagViT VAE, built on meta and filled on the card
+  text       the full Qwen2-VL-7B text tower (27 of 28 layers, bf16,
+             random weights) encodes a CFG pair of 256 right-padded token
+             ids; text_encode_s, parameters, peak memory; then freed
+  dense      two requests to that 12B at 384x672x49f, CFG 6.0, the second
+             on the text phase's embeddings
   swa        one request with swa_layers = 1..47 on the same weights
   i2v        one image-to-video request to V5.1-12B-InP (the same weights,
              a random 33-channel proj): VAE encode of the start frame,
@@ -39,15 +52,22 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 import torch.nn.functional as F
 
-from easyanimate_tpu_torch.models.convert import init_random_
+from easyanimate_tpu_torch.loader import load_pipeline
+from easyanimate_tpu_torch.models.convert import (init_random_,
+                                                  mmdit_config_json,
+                                                  save_reference_checkpoint)
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
+from easyanimate_tpu_torch.models.text import (Qwen2Config, Qwen2TextEncoder,
+                                               QwenVLTextEncoder)
 from easyanimate_tpu_torch.models.vae import AutoencoderKLMagvit, MagvitVAEConfig
 from easyanimate_tpu_torch.ops import _build
 from easyanimate_tpu_torch.ops.flash_attention import (
@@ -62,6 +82,7 @@ from easyanimate_tpu_torch.pipeline import (EasyAnimateInpaintPipeline,
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.training import trainer as ttrainer
+from easyanimate_tpu_torch.utils.fp8 import fp8_byte_share
 from easyanimate_tpu_torch.utils.media import get_image_to_video_latent
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
@@ -691,16 +712,20 @@ def swa_variant(model):
     return swa
 
 
-def request(phase, pipe, seed, steps, counters, **inputs):
+def request(phase, pipe, seed, steps, counters, embeds=None, **inputs):
     """One request through the pipeline's __call__ (T2V, or I2V with the
     `inputs`); checks the output, the per-step latents and the kernels'
-    launch counts. A pre-hook stamps the transformer's first call, so the
-    time before it (the VAE encode of an I2V request) stands apart."""
+    launch counts. `embeds` (positive, negative) replace the random prompt
+    embeddings. A pre-hook stamps the transformer's first call, so the
+    time before it (the VAE encode of an I2V request) stands apart.
+    Returns the launches, the uint8 video and the final latents."""
     dev = pipe.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     pos = 0.02 * torch.randn(1, TEXT_LEN, pipe.transformer.cfg.text_embed_dim,
                              generator=gen, device=dev)
     neg = torch.zeros_like(pos)
+    if embeds is not None:
+        pos, neg = embeds
     lat0 = torch.randn(pipe.latent_shape(1, FRAMES, H, W), generator=gen,
                        device=dev)
     before = {k: f.launches for k, f in counters.items()}
@@ -747,10 +772,189 @@ def request(phase, pipe, seed, steps, counters, **inputs):
            "launches": launched}
     if "video" in inputs:
         out["vae_encode_s"] = out["before_denoise_s"]
+    if embeds is not None:
+        out["prompt_embeds"] = "text phase (Qwen2-VL tower)"
     emit(out)
     if video.shape != (1, 3, FRAMES, H, W) or video.dtype.name != "uint8":
         raise AssertionError(f"{phase}: video {video.shape} {video.dtype}")
-    return launched
+    return {"launched": launched, "video": video, "latents": prev[0]}
+
+
+LOADER_STEPS = 2
+# loader: the loaded and the in-memory modules on the same inputs. Equal
+# weights on one card give equal results; if they do not, max |difference|
+# over max |in-memory| is held to this
+LOADER_BOUND = 1e-3
+# the V5.1-12B widths cut to 2 layers, layer 1 SWA: K1 twice a step (the
+# dense layer and layer 1's cross pass), K2 once
+LOADER_LAUNCHES = {"K1": 2 * LOADER_STEPS, "K2": LOADER_STEPS}
+LOADER_SHARD_BYTES = 256 * 2 ** 20
+FULL_VAE_JSON = {"_class_name": "AutoencoderKLMagvit", "in_channels": 3,
+                 "out_channels": 3, "latent_channels": 16,
+                 "block_out_channels": [128, 256, 512, 512],
+                 "down_block_types": list(MagvitVAEConfig.down_block_types),
+                 "up_block_types": list(MagvitVAEConfig.up_block_types),
+                 "layers_per_block": 2, "norm_num_groups": 32,
+                 "mini_batch_encoder": 4, "mini_batch_decoder": 1,
+                 "scaling_factor": 0.7119, "cache_mag_vae": True}
+
+
+def _dir_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def _cosine(a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_loader(seed, path_run):
+    """A reference-layout V5.1 directory written by the port's own writer
+    (transformer at the 12B widths cut to 2 layers, layer 1 SWA, sharded;
+    the full MagViT; a FlowMatch scheduler) into a temporary directory,
+    loaded with load_pipeline on the card (strict), every tensor checked
+    equal to the written one; one request on the loaded and one on the
+    written in-memory modules (equal results), then an fp8 load and its
+    request."""
+    cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=2,
+                              swa_layers=(1,))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = init_random_(EasyAnimateTransformer3D(cfg, device="meta")
+                         .to_empty(device=DEVICE), gen)
+    vae = init_random_(AutoencoderKLMagvit(
+        MagvitVAEConfig(dtype="bfloat16", decode_chunk_frames=4),
+        device="meta").to_empty(device=DEVICE), gen)
+    out = {"phase": "loader", "layers": cfg.num_layers,
+           "swa_layers": list(cfg.swa_layers), "steps": LOADER_STEPS,
+           "params": sum(p.numel() for p in model.parameters()),
+           "vae_params": sum(p.numel() for p in vae.parameters())}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loader_") as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = save_reference_checkpoint(
+            os.path.join(root, "transformer"), model.state_dict(),
+            mmdit_config_json(cfg), max_shard_bytes=LOADER_SHARD_BYTES)
+        save_reference_checkpoint(os.path.join(root, "vae"), vae.state_dict(),
+                                  FULL_VAE_JSON)
+        os.makedirs(os.path.join(root, "scheduler"))
+        with open(os.path.join(root, "scheduler", "scheduler_config.json"),
+                  "w") as f:
+            json.dump({"_class_name": "FlowMatchEulerDiscreteScheduler",
+                       "num_train_timesteps": 1000, "shift": 3.0,
+                       "use_dynamic_shifting": True}, f)
+        out.update(write_s=time.perf_counter() - t0, dir_bytes=_dir_bytes(root),
+                   transformer_shards=len(shards))
+
+        t0 = time.perf_counter()
+        pipe = load_pipeline(root)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        pairs = [(model.state_dict(), pipe.transformer.state_dict()),
+                 (vae.state_dict(), pipe.vae.state_dict())]
+        same_keys = all(set(want) == set(got) for want, got in pairs)
+        unequal = [k for want, got in pairs for k, v in want.items()
+                   if k not in got or not torch.equal(got[k], v)]
+        del pairs  # its references would keep the loaded copy alive
+        out.update(tensors_equal=not unequal and same_keys,
+                   loaded_device=str(pipe.device))
+        if unequal or not same_keys:
+            raise AssertionError(f"loader: loaded tensors differ: {unequal[:6]}")
+
+        def run(phase, p):
+            return path_run(phase, lambda: request(
+                phase, p, seed + 1, LOADER_STEPS, COUNTERS),
+                dict(dict.fromkeys(COUNTERS, 0), **LOADER_LAUNCHES))
+
+        loaded = run("loader_loaded", pipe)
+        del pipe
+        memory = run("loader_in_memory", EasyAnimatePipeline(model, vae))
+        ref = memory["latents"].float()
+        out["latents_identical"] = torch.equal(loaded["latents"],
+                                               memory["latents"])
+        out["video_identical"] = bool((loaded["video"] == memory["video"]).all())
+        out["latents_rel_diff"] = ((loaded["latents"].float() - ref).abs().max()
+                                   / ref.abs().max()).item()
+        if out["latents_rel_diff"] > LOADER_BOUND:
+            raise AssertionError(f"loader: loaded and in-memory latents differ "
+                                 f"by {out['latents_rel_diff']}")
+        del model, vae
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        pipe = load_pipeline(root, fp8_weights=True)
+        torch.cuda.synchronize()
+        out["fp8_load_s"] = time.perf_counter() - t0
+        out["fp8_byte_share"] = fp8_byte_share(pipe.transformer)
+        out["fp8_transformer_bytes"] = sum(
+            p.numel() * p.element_size() for p in pipe.transformer.parameters())
+        fp8 = run("loader_fp8", pipe)  # checks finite, changing latents
+        out["fp8_latents_cosine_to_bf16"] = _cosine(fp8["latents"], ref)
+    out.update(bound=LOADER_BOUND, ok=True)
+    emit(out)
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+TEXT_ENCODES = 5
+
+
+def phase_text(seed):
+    """The full Qwen2-VL-7B text tower (27 of its 28 layers, bf16, random
+    weights built on meta and filled on the card) encodes a CFG pair of
+    TEXT_LEN right-padded token ids (positive ~40 valid tokens, negative
+    ~10); then it is freed, as the reference's offload frees it. Returns
+    the (positive, negative) embeddings."""
+    cfg = Qwen2Config()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tower = Qwen2TextEncoder(cfg, device="meta").to_empty(device=DEVICE)
+    init_random_(tower, torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    enc = QwenVLTextEncoder(tower, max_length=TEXT_LEN)
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (2, TEXT_LEN), generator=gen)
+    valid = torch.tensor([[40], [10]])
+    mask = (torch.arange(TEXT_LEN)[None] < valid).long()
+    ids = torch.where(mask.bool(), ids, 151643)  # Qwen2's pad id, right side
+    emb, _ = enc.encode_ids(ids, mask)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TEXT_ENCODES):
+        t0 = time.perf_counter()
+        emb, _ = enc.encode_ids(ids, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    n_params = sum(p.numel() for p in tower.parameters())
+    layer_params = sum(p.numel() for p in tower.layers.parameters())
+    linear_flops = 2 * layer_params * ids.numel()
+    finite = bool(torch.isfinite(emb).all())
+    out = {"phase": "text", "layers": len(tower.layers),
+           "config": dataclasses.asdict(cfg), "params": n_params,
+           "tower_bytes": sum(p.numel() * p.element_size()
+                              for p in tower.parameters()),
+           "batch": list(ids.shape), "valid_tokens": valid.flatten().tolist(),
+           "build_s": build_s, "text_encode_s": sum(times) / len(times),
+           "text_encode_s_each": times,
+           "linear_tflops": linear_flops / (sum(times) / len(times)) / 1e12,
+           "peak_gib_above_resident": (torch.cuda.max_memory_allocated()
+                                       - base) / 2 ** 30,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "embeds_shape": list(emb.shape), "embeds_finite": finite,
+           "embeds_std_valid": [emb[i, :v].float().std().item()
+                                for i, v in enumerate(valid.flatten())]}
+    del enc, tower
+    torch.cuda.empty_cache()
+    out["after_free_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    emit(out)
+    if not finite or tuple(emb.shape) != (2, TEXT_LEN, cfg.hidden_size):
+        raise AssertionError(f"text: embeddings {tuple(emb.shape)}, finite "
+                             f"{finite}")
+    return emb[:1], emb[1:]
 
 
 def inpaint_variant(model, seed):
@@ -998,7 +1202,6 @@ def main():
     phase_train_reference()
     torch.cuda.synchronize()
 
-    model, vae = build_12b(args.seed)
     totals = dict.fromkeys(COUNTERS, 0)
     # launches_sm90 of K1-K7 over the path runs
     totals_sm90 = dict.fromkeys(COUNTERS, 0)
@@ -1028,13 +1231,21 @@ def main():
         torch.cuda.synchronize()
         return result
 
+    # before the 12B, so nothing else is resident: three requests (loaded,
+    # in-memory, fp8-loaded)
+    phase_loader(args.seed + 20, path_run)
+    model, vae = build_12b(args.seed)
+    text_embeds = phase_text(args.seed + 21)
+
     pipe = EasyAnimatePipeline(model, vae)
     steps = args.steps
     serve = dict.fromkeys(COUNTERS, 0)
-    for r in range(2):
-        path_run("dense", lambda: request("dense", pipe, args.seed + 1 + r,
-                                          steps, COUNTERS),
-                 dict(serve, K1=48 * steps))
+    for r in range(2):  # the second on the text phase's embeddings
+        path_run("dense", lambda: request(
+            "dense", pipe, args.seed + 1 + r, steps, COUNTERS,
+            embeds=text_embeds if r else None),
+            dict(serve, K1=48 * steps))
+    del text_embeds
     swa_model = swa_variant(model)
     pipe = EasyAnimatePipeline(swa_model, vae)
     path_run("swa", lambda: request("swa", pipe, args.seed + 3, steps, COUNTERS),
@@ -1072,8 +1283,9 @@ def main():
                     "K3": 2 * 48 * n + 4 * n, "K4": 2 * 48 * n + 4 * n,
                     "K6": 47 * n + 3 * n, "K7": 47 * n + 3 * n}
     expect_serve = {"K1": 4 * 48 * steps, "K2": 47 * steps}
+    expect_loader = {k: 3 * n for k, n in LOADER_LAUNCHES.items()}
     want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)
-            + expect_fused[k] for k in COUNTERS}
+            + expect_loader.get(k, 0) + expect_fused[k] for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
 

@@ -1,1 +1,2 @@
-"""MMDiT transformer, embeddings, weight loading and the VAE."""
+"""MMDiT transformer, embeddings, weight loading, the VAE and the text
+tower."""

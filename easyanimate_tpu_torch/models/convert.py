@@ -9,14 +9,22 @@ utils/lora_utils.py reads and writes (and the JAX package's
 export_lora_state_dict / convert_lora_state_dict): per targeted Linear
 `lora_unet_<module path with dots as underscores>` with `.lora_down.weight`
 (r, in), `.lora_up.weight` (out, r) and `.alpha`.
+
+On disk the port reads and writes diffusers-layout folders (config.json +
+safetensors shards + the `.index.json` weight map) through its own
+safetensors reader and writer (utils/safetensors_io.py).
 """
-from typing import Dict, Tuple
+import json
+import os
+import warnings
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.safetensors_io import load_file, save_file
 
 
 def load_reference_state_dict(module: nn.Module,
@@ -29,6 +37,22 @@ def load_reference_state_dict(module: nn.Module,
         {k: torch.from_numpy(np.require(v, requirements=("C", "W")))
          for k, v in sd.items()},
         strict=True)
+
+
+def load_on_device(module: nn.Module, sd: Mapping[str, torch.Tensor],
+                   device=None) -> nn.Module:
+    """Strict load of `sd` into `module`, built on meta: load_state_dict
+    (strict=True) on meta checks every name and shape and copies nothing,
+    to_empty allocates the parameters on `device` (the card by default),
+    then each tensor is copied in, cast to its parameter's dtype. With `sd`
+    memory-mapped (safetensors_io.load_file) no host copy of the weights is
+    made."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*meta parameter.*no-op")
+        module.load_state_dict(sd, strict=True)
+    module.to_empty(device=resolve_device(device))
+    module.load_state_dict(sd, strict=True)
+    return module
 
 
 @torch.no_grad()
@@ -111,3 +135,91 @@ def load_reference_lora_state_dict(module: nn.Module,
         raise ValueError(f"mixed LoRA ranks {sorted(ranks)} or alphas "
                          f"{sorted(alphas)} unsupported")
     return lora, LoRAConfig(rank=ranks.pop(), alpha=alphas.pop())
+
+
+def save_lora_reference(path: str, lora, alpha: float) -> None:
+    """Write a kohya-format LoRA safetensors file (the reference's
+    `lora_diffusion_pytorch_model.safetensors`, scripts/train_lora.py:1552;
+    JAX models/convert.py:718)."""
+    save_file(export_lora_state_dict(lora, alpha), path)
+
+
+def load_lora_reference(module: nn.Module, path: str, device=None):
+    """A kohya-format LoRA safetensors file -> (LoRA, LoRAConfig), as
+    load_reference_lora_state_dict."""
+    return load_reference_lora_state_dict(
+        module, {k: v.numpy() for k, v in load_file(path).items()}, device)
+
+
+def mmdit_config_json(cfg) -> Dict:
+    """MMDiTConfig -> reference transformer config.json fields (the inverse
+    of loader.mmdit_config_from_json; JAX models/convert.py:726)."""
+    return {
+        "_class_name": "EasyAnimateTransformer3DModel",
+        "num_attention_heads": cfg.num_attention_heads,
+        "attention_head_dim": cfg.attention_head_dim,
+        "in_channels": cfg.in_channels,
+        "out_channels": cfg.out_channels,
+        "patch_size": cfg.patch_size,
+        "num_layers": cfg.num_layers,
+        "mmdit_layers": cfg.mmdit_layers,
+        "swa_layers": list(cfg.swa_layers) if cfg.swa_layers else None,
+        "time_embed_dim": cfg.time_embed_dim,
+        "text_embed_dim": cfg.text_embed_dim,
+        "text_embed_dim_t5": cfg.text_embed_dim_t5,
+        "add_norm_text_encoder": cfg.add_norm_text_encoder,
+        "after_norm": cfg.after_norm,
+        "norm_eps": cfg.norm_eps,
+        "time_position_encoding_type": cfg.time_position_encoding_type,
+        "ref_channels": cfg.ref_channels,
+        "clip_channels": cfg.clip_channels,
+        "add_ref_latent_in_control_model": cfg.add_ref_latent_in_control_model,
+        "resize_inpaint_mask_directly": cfg.resize_inpaint_mask_directly,
+        "add_noise_in_inpaint_model": cfg.add_noise_in_inpaint_model,
+    }
+
+
+def save_reference_checkpoint(directory: str, state_dict: Mapping[str, object],
+                              config_json: Dict = None,
+                              max_shard_bytes: int = 30 * 10 ** 9,
+                              weights_name: str =
+                              "diffusion_pytorch_model.safetensors"):
+    """Write a diffusers-layout folder: config.json + safetensors shard(s)
+    with the standard `.index.json` weight map when sharded (reference
+    save_pretrained(max_shard_size="30GB"), scripts/train.py:1126; JAX
+    models/convert.py:754). Values are torch tensors (any device) or numpy
+    arrays, written in their own dtype. Returns the shard file names."""
+    os.makedirs(directory, exist_ok=True)
+    if config_json is not None:
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(config_json, f, indent=2)
+
+    def nbytes(v):
+        return v.numel() * v.element_size() if torch.is_tensor(v) else v.nbytes
+
+    shards, cur, cur_bytes = [], {}, 0
+    for k in sorted(state_dict):
+        v = state_dict[k]
+        if cur and cur_bytes + nbytes(v) > max_shard_bytes:
+            shards.append(cur)
+            cur, cur_bytes = {}, 0
+        cur[k] = v
+        cur_bytes += nbytes(v)
+    shards.append(cur)
+
+    if len(shards) == 1:
+        save_file(shards[0], os.path.join(directory, weights_name))
+        return [weights_name]
+    stem, ext = weights_name.rsplit(".", 1)
+    names, weight_map, total = [], {}, 0
+    for i, shard in enumerate(shards):
+        name = f"{stem}-{i + 1:05d}-of-{len(shards):05d}.{ext}"
+        save_file(shard, os.path.join(directory, name))
+        names.append(name)
+        for k, v in shard.items():
+            weight_map[k] = name
+            total += nbytes(v)
+    with open(os.path.join(directory, f"{weights_name}.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+    return names

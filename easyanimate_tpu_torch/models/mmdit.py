@@ -9,7 +9,10 @@ loop; with `remat` (the JAX field, default on) and grad enabled each block
 runs under torch.utils.checkpoint, so the backward recomputes it from its
 inputs instead of keeping its activations. Of the conditioning branches
 only `inpaint_latents` is ported (the V5.1-InP models: a channel concat in
-front of the patchify); control, ref, clip and t5 are not.
+front of the patchify); control, ref, clip and t5 are not. A model built
+with ref or clip channels carries `ref_proj` / `clip_proj` under the
+reference keys, so a checkpoint that holds them loads strictly, but a call
+that passes ref or clip inputs raises (ROADMAP queue 1 item 7).
 """
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
@@ -38,9 +41,18 @@ class MMDiTConfig:
     swa_layers: Optional[Sequence[int]] = None
     time_embed_dim: int = 512
     text_embed_dim: int = 3584        # Qwen2-VL hidden size (V5.1)
+    # V5's second text stream and its pre-norm: not ported (ROADMAP queue 1
+    # item 11); only the defaults are accepted
+    text_embed_dim_t5: Optional[int] = None
+    add_norm_text_encoder: bool = False
     after_norm: bool = False
     norm_eps: float = 1e-5
+    time_position_encoding_type: str = "3d_rope"
     qk_norm: bool = True
+    # ref / clip conditioning (control models): parameters only, see above
+    ref_channels: Optional[int] = None
+    clip_channels: Optional[int] = None
+    add_ref_latent_in_control_model: bool = False
     # inpaint models: the mask goes in as one channel resized to the latent
     # grid (else as VAE-encoded latents), and the reference video may be
     # noise-augmented (read by pipeline/inpaint.py)
@@ -53,6 +65,17 @@ class MMDiTConfig:
     rope_base_height: int = 480
     rope_base_width: int = 720
     vae_scale_factor: int = 8
+
+    def __post_init__(self):
+        if self.text_embed_dim_t5 is not None or self.add_norm_text_encoder:
+            raise NotImplementedError(
+                "text_embed_dim_t5 / add_norm_text_encoder (V5's second text "
+                "stream) are not ported: ROADMAP queue 1 item 11")
+        if self.time_position_encoding_type != "3d_rope":
+            raise NotImplementedError(
+                f"time_position_encoding_type "
+                f"{self.time_position_encoding_type!r}: only '3d_rope' is "
+                "ported (the legacy editions: ROADMAP queue 1 item 11)")
 
     @property
     def inner_dim(self) -> int:
@@ -103,6 +126,12 @@ class EasyAnimateTransformer3D(nn.Module):
         self.time_embedding = TimestepEmbedding(dim, cfg.time_embed_dim, **fk)
         self.proj = PatchEmbed2D(cfg.in_channels, dim, cfg.patch_size, **fk)
         self.text_proj = nn.Linear(cfg.text_embed_dim, dim, **fk)
+        if cfg.ref_channels is not None or cfg.add_ref_latent_in_control_model:
+            # the channel count of JAX loader.py:_strict_check
+            self.ref_proj = PatchEmbed2D(cfg.ref_channels or cfg.out_channels,
+                                         dim, cfg.patch_size, **fk)
+        if cfg.clip_channels is not None:
+            self.clip_proj = nn.Linear(cfg.clip_channels, dim, **fk)
         swa = set(cfg.swa_layers or ())
         self.transformer_blocks = nn.ModuleList([
             MMDiTBlock(dim, cfg.time_embed_dim, cfg.num_attention_heads,
@@ -119,9 +148,15 @@ class EasyAnimateTransformer3D(nn.Module):
 
     def embed(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
               encoder_hidden_states: torch.Tensor,
-              inpaint_latents: Optional[torch.Tensor] = None):
+              inpaint_latents: Optional[torch.Tensor] = None,
+              ref_latents: Optional[torch.Tensor] = None,
+              clip_encoder_hidden_states: Optional[torch.Tensor] = None):
         """-> (vid_tokens, txt_tokens, temb). inpaint_latents (B, C_in - C,
         T, H, W) join the latents on the channel axis before the patchify."""
+        if ref_latents is not None or clip_encoder_hidden_states is not None:
+            raise NotImplementedError(
+                "ref_latents / clip_encoder_hidden_states (control and ref "
+                "conditioning) are not ported: ROADMAP queue 1 item 7")
         dt = self.cfg.torch_dtype
         temb = sinusoidal_timestep_embedding(timestep, self.cfg.inner_dim)
         temb = self.time_embedding(temb.to(dt))
@@ -157,14 +192,17 @@ class EasyAnimateTransformer3D(nn.Module):
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                inpaint_latents: Optional[torch.Tensor] = None
+                inpaint_latents: Optional[torch.Tensor] = None,
+                ref_latents: Optional[torch.Tensor] = None,
+                clip_encoder_hidden_states: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """latents (B, C, T, H, W), timestep (B,), text (B, S, D_text) ->
         prediction (B, C_out, T, H, W)."""
         _, _, t, hh, ww = hidden_states.shape
         p = self.cfg.patch_size
         vid, txt, temb = self.embed(hidden_states, timestep,
-                                    encoder_hidden_states, inpaint_latents)
+                                    encoder_hidden_states, inpaint_latents,
+                                    ref_latents, clip_encoder_hidden_states)
         vid = self.backbone(vid, txt, temb, rope,
                             grid_size=(t, hh // p, ww // p))
         return self.head(vid, t, hh, ww)

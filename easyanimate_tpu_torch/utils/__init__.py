@@ -1,1 +1,2 @@
-"""Host-side helpers (numpy; PIL only where an image must be resized)."""
+"""Host-side helpers: media (numpy; PIL only where an image must be
+resized), the safetensors format, fp8 weight storage, yaml model configs."""
