@@ -10,8 +10,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              and K7's dk/dv kernels)
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
-             PyTorch versions at the flagship shapes, with kernel / plain /
-             library (yardstick only) times and each kernel's bound
+             PyTorch versions at the flagship shapes (K1 also at the
+             serve phase's one-CFG-half and 45-frame-window shapes), with
+             kernel / plain / library (yardstick only) times and each
+             kernel's bound
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
              against their plain versions at the training step's shapes,
              with SDPA's backward at the dense and cross shapes (yardsticks)
@@ -37,6 +39,20 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   i2v        one image-to-video request to V5.1-12B-InP (the same weights,
              a random 33-channel proj): VAE encode of the start frame,
              denoise, decode
+  serve      requests in the JAX server's JSON protocol through
+             api.server.request_kwargs and EasyAnimateController.generate
+             on that 12B, the full Qwen2-VL tower (random weights, a
+             word-level stand-in tokenizer) encoding every prompt:
+             TeaCache 0.1 with the 4:2:0 fetch (K1 = 48 x computed steps),
+             TeaCache 1e9 (2 computed steps), cfg_skip_ratio 0.25,
+             cfg_split against batched CFG (latents within
+             CFG_SPLIT_BOUND), the overlapped chunk decode against the
+             untiled one (within 1 in uint8; the untiled one's host fetch
+             timed apart), and a 90-frame long video in two windows on
+             the inpaint variant (each window's host copy timed where it
+             starts and where it is waited for, against a synchronous
+             fetch); the mp4 encode is left to the CPU tests (no imageio
+             or cv2 here)
   swa_fused  swa_attention_streams at the 12B's per-layer shapes, forward
              and backward, with fuse_cross=True (K5) against False
   lora_dense 3 LoRA steps (rank 128) on the same 12B at 384x672x49f
@@ -57,10 +73,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from easyanimate_tpu_torch.api.server import request_kwargs, video_rgb
 from easyanimate_tpu_torch.loader import load_pipeline
 from easyanimate_tpu_torch.models.convert import (init_random_,
                                                   mmdit_config_json,
@@ -68,7 +87,8 @@ from easyanimate_tpu_torch.models.convert import (init_random_,
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.text import (Qwen2Config, Qwen2TextEncoder,
                                                QwenVLTextEncoder)
-from easyanimate_tpu_torch.models.vae import AutoencoderKLMagvit, MagvitVAEConfig
+from easyanimate_tpu_torch.models.vae import (AutoencoderKLMagvit,
+                                              MagvitVAEConfig, vae_decode)
 from easyanimate_tpu_torch.ops import _build
 from easyanimate_tpu_torch.ops.flash_attention import (
     LOG2E, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
@@ -82,8 +102,12 @@ from easyanimate_tpu_torch.pipeline import (EasyAnimateInpaintPipeline,
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.training import trainer as ttrainer
+from easyanimate_tpu_torch.ui import controller as controller_module
+from easyanimate_tpu_torch.ui.controller import EasyAnimateController
 from easyanimate_tpu_torch.utils.fp8 import fp8_byte_share
-from easyanimate_tpu_torch.utils.media import get_image_to_video_latent
+from easyanimate_tpu_torch.utils.media import (YUV420Video,
+                                               get_image_to_video_latent)
+from easyanimate_tpu_torch.utils.transfer import HostCopy
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
 O_BOUND = 2e-2    # bf16 o (8-bit mantissa) and the kernel's bf16 p before p @ v
@@ -329,7 +353,19 @@ def phase_kernels(gen):
     g4, h4 = (x.view(2, 48, S_GLOBAL, 64) for x in (kc, vc))
     stats["K1"]["cross_sdpa_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(q4, g4, h4), 5)
+    # the serve phase's other K1 shapes: one CFG half (cfg_split's halves,
+    # cfg_skip's cond-only steps) and the long video's second window (45
+    # frames: 12 latent frames of 24 x 42 tokens + the text)
+    errs.append(_compare("K1 dense one CFG half", flash_attention_fwd,
+                         flash_attention_plain,
+                         (q[:48], k[:48], v[:48], 13360)))
     del q, k, v, q4, k4, v4, kc, vc, g4, h4
+    s_win = 12 * (H // 16) * (W // 16) + TEXT_LEN
+    q, k, v = rand(96, s_win, 64, scale=qs), rand(96, s_win, 64), rand(96, s_win, 64)
+    errs.append(_compare(f"K1 dense long-video window {s_win}",
+                         flash_attention_fwd, flash_attention_plain,
+                         (q, k, v, s_win)))
+    del q, k, v
     qr, kr, vr = rand(16, 1001, 64, scale=qs), rand(16, 1100, 64), rand(16, 1100, 64)
     errs.append(_compare("K1 ragged kv_valid 1037", flash_attention_fwd,
                          flash_attention_plain, (qr, kr, vr, 1037)))
@@ -1035,6 +1071,294 @@ def phase_swa_fused(ins, cot, fused):
     return times
 
 
+# serve: requests in the server's protocol through the controller
+SERVE_PROMPT = ("A young woman with beautiful clear eyes and blonde hair "
+                "stands in a forest, wearing a white dress and a crown")
+SERVE_NEGATIVE = ("Blurring, mutation, deformation, distortion, dark and "
+                  "solid, comics")
+# max |split - batched| / max |batched| of the final (bf16) latents. It
+# read 0.0 (bit-identical) in both runs on an H100 80GB HBM3 at 700 W;
+# 1e-3 admits at most a last-bit difference in a latent under a quarter of
+# the largest, so a wrongly sliced cond entry or a changed guidance fails
+CFG_SPLIT_BOUND = 1e-3
+LONG_TOTAL, LONG_PARTIAL, LONG_OVERLAP = 90, 49, 4
+
+
+class WordTokenizer:
+    """A word-level stand-in for the Qwen2-VL tokenizer (its files are not
+    in the repository): the chat template, each whitespace-separated word
+    hashed to an id, right padding to max_length with Qwen2's pad id. It
+    has the two methods QwenVLTextEncoder.__call__ uses."""
+
+    pad_id = 151643
+
+    def apply_chat_template(self, messages, tokenize=False,
+                            add_generation_prompt=True):
+        text = " ".join(part["text"] for m in messages
+                        for part in m["content"])
+        return f"<|im_start|>user\n{text}<|im_end|>\n<|im_start|>assistant\n"
+
+    def __call__(self, texts, padding, max_length, truncation, padding_side,
+                 return_tensors):
+        ids = torch.full((len(texts), max_length), self.pad_id)
+        mask = torch.zeros((len(texts), max_length), dtype=torch.int64)
+        for i, text in enumerate(texts):
+            words = [zlib.crc32(w.encode()) % self.pad_id
+                     for w in text.split()][:max_length]
+            ids[i, :len(words)] = torch.tensor(words)
+            mask[i, :len(words)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def serve_request(name, ctl, payload, expect_k1, marks, per_step=None,
+                  **extra):
+    """One request: payload -> request_kwargs -> controller.generate (with
+    `extra` kwargs), a callback stamping each step after a sync with the
+    K1 launches since the previous stamp. step_s[0] runs from the end of
+    the prompt encode (marks["encoded"]). Checks the request's K1 and K2
+    launches (`expect_k1` may be a function of the pipeline, read after the
+    run) and, given `per_step`, each step's K1 launches. Returns (JSON
+    line, result, the last step's latents)."""
+    pipe, k1, k2 = ctl.pipeline, COUNTERS["K1"], COUNTERS["K2"]
+    stamps, last = [], []
+
+    def stamp(i, latents):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), k1.launches))
+        last[:] = [latents]
+
+    kwargs = request_kwargs(ctl, payload)
+    before = (k1.launches, k2.launches)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = ctl.generate(**kwargs, callback=stamp, **extra)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launched = {"K1": k1.launches - before[0], "K2": k2.launches - before[1]}
+    prev = [(marks["encoded"], before[0])] + stamps
+    step_s = [t - p for (t, _), (p, _) in zip(stamps, prev)]
+    step_k1 = [n - p for (_, n), (_, p) in zip(stamps, prev)]
+    if callable(expect_k1):
+        expect_k1 = expect_k1(pipe)
+    out = {"phase": "serve", "request": name,
+           "payload": {k: v for k, v in payload.items()
+                       if not k.endswith("textbox")},
+           "extra": extra, "fetch_yuv420": kwargs.get("fetch_yuv420", False),
+           "request_s": t_end - t0, "step_s": step_s, "step_k1": step_k1,
+           "decode_s": t_end - stamps[-1][0],
+           "teacache_skips": pipe.last_teacache_skips,
+           "launches": launched, "expect_k1": expect_k1,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30}
+    if launched != {"K1": expect_k1, "K2": 0} or (
+            per_step is not None and not set(step_k1) <= set(per_step)):
+        emit(out)
+        raise AssertionError(f"serve {name}: launches {launched} (per step "
+                             f"{step_k1}), K1 expected {expect_k1}")
+    return out, result, last[0]
+
+
+def phase_serve(model, vae, seed, steps):
+    """Requests in the JAX server's JSON protocol, each through
+    api.server.request_kwargs and EasyAnimateController.generate, on the
+    resident 12B with the full Qwen2-VL tower encoding every prompt:
+    TeaCache at 0.1 with the 4:2:0 fetch (the server's defaults), TeaCache
+    at 1e9, cfg_skip_ratio 0.25, cfg_split against batched CFG, the
+    overlapped decode against the untiled one, and a two-window long video
+    on the inpaint variant. Returns the phase's launches."""
+    tower = Qwen2TextEncoder(Qwen2Config(), device="meta").to_empty(
+        device=DEVICE)
+    init_random_(tower, torch.Generator(device=DEVICE).manual_seed(seed))
+    enc = QwenVLTextEncoder(tower, tokenizer=WordTokenizer(),
+                            max_length=TEXT_LEN)
+    encode_s, marks = [], {}
+
+    def encode_text(prompts):
+        t0 = time.perf_counter()
+        emb, _ = enc(prompts)
+        torch.cuda.synchronize()
+        marks["encoded"] = time.perf_counter()
+        encode_s.append(marks["encoded"] - t0)
+        return {"text": emb}
+
+    ctl = EasyAnimateController(EasyAnimatePipeline(model, vae),
+                                encode_text=encode_text)
+    pipe = ctl.pipeline
+    base = {"prompt_textbox": SERVE_PROMPT,
+            "negative_prompt_textbox": SERVE_NEGATIVE,
+            "sample_step_slider": steps, "width_slider": W,
+            "height_slider": H, "length_slider": FRAMES,
+            "cfg_scale_slider": 6.0, "seed_textbox": seed}
+    total_k1 = 0
+
+    def run(name, payload, expect_k1, **extra):
+        nonlocal total_k1
+        encode_s.clear()
+        out, result, lat = serve_request(name, ctl, payload, expect_k1,
+                                         marks, **extra)
+        out["text_encode_s"] = list(encode_s)
+        total_k1 += out["launches"]["K1"]
+        return out, result, lat
+
+    # 1. TeaCache at 0.1 and the 4:2:0 fetch: the server's defaults
+    out, planes, lat_tea = run(
+        "teacache_0.1", dict(base, enable_teacache=True,
+                             teacache_threshold=0.1),
+        lambda p: 48 * (steps - p.last_teacache_skips), per_step=(0, 48))
+    rgb = video_rgb(planes)
+    out.update(
+        plane_shapes=[list(p.shape) for p in planes],
+        fetched_bytes=sum(p.nbytes for p in planes),
+        rgb_uint8_bytes=3 * FRAMES * H * W,
+        rgb_rebuilt_shape=list(rgb.shape),
+        rgb_rebuilt_finite=bool(np.isfinite(rgb).all()))
+    emit(out)
+    if (not isinstance(planes, YUV420Video)
+            or planes.y.shape != (1, FRAMES, H, W)
+            or planes.u.shape != (1, FRAMES, H // 2, W // 2)
+            or rgb.shape != (1, 3, FRAMES, H, W)):
+        raise AssertionError(f"serve: 4:2:0 result {out['plane_shapes']}")
+
+    # 2. TeaCache at 1e9: every interior step skipped
+    out, _, _ = run("teacache_1e9", dict(base, enable_teacache=True,
+                                         teacache_threshold=1e9),
+                    48 * min(steps, 2), per_step=(0, 48))
+    skipped = [t for t, n in zip(out["step_s"], out["step_k1"]) if n == 0]
+    computed = [t for t, n in zip(out["step_s"][1:], out["step_k1"][1:])
+                if n == 48]
+    out.update(skipped_step_s=skipped, computed_step_s=computed)
+    emit(out)
+    if out["teacache_skips"] != max(steps - 2, 0):
+        raise AssertionError(f"serve: {out['teacache_skips']} skips at 1e9")
+
+    # 3. cfg_skip_ratio 0.25: the last round(0.25 * steps) steps cond-only
+    n_cond = min(steps, max(0, int(round(0.25 * steps))))
+    out, _, _ = run("cfg_skip_0.25", dict(base, cfg_skip_ratio=0.25),
+                    48 * steps)
+    out.update(cond_only_steps=n_cond,
+               cond_only_step_s=out["step_s"][steps - n_cond:],
+               cfg_step_s=out["step_s"][1:steps - n_cond])
+    emit(out)
+
+    # 4. cfg_split against batched CFG from the same seed
+    plain = dict(base, yuv420_fetch=False)
+    out_b, lat_b, _ = run("cfg_batched", plain, 48 * steps,
+                          output_type="latent")
+    emit(out_b)
+    out, lat_s, _ = run("cfg_split", plain, 96 * steps, output_type="latent",
+                        cfg_split=True)
+    rel = ((lat_s.float() - lat_b.float()).abs().max()
+           / lat_b.float().abs().max()).item()
+    out.update(rel_diff_vs_batched=rel, bound=CFG_SPLIT_BOUND,
+               batched_max_memory_allocated_gib=out_b[
+                   "max_memory_allocated_gib"])
+    emit(out)
+    if not rel <= CFG_SPLIT_BOUND:
+        raise AssertionError(f"serve: cfg_split latents off by {rel}")
+    del lat_b, lat_s
+
+    # 5. the overlapped decode of request 1's latents against the untiled
+    # vae_decode (uint8 on the card), timed in turns; the untiled one's
+    # device part and its host fetch also apart, the fetch being what the
+    # overlap can hide
+    fetch_s = []
+
+    def untiled_decode():
+        with torch.inference_mode():
+            video = vae_decode(vae, (lat_tea.float() / vae.cfg.scaling_factor
+                                     ).to(vae.cfg.torch_dtype))
+            video = torch.round((video.float() / 2 + 0.5).clamp(0.0, 1.0)
+                                * 255.0).to(torch.uint8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            video = video.cpu().numpy()
+            fetch_s.append(time.perf_counter() - t0)
+            return video
+
+    decodes = {"overlapped": lambda: pipe.decode_latents_overlapped(lat_tea),
+               "untiled": untiled_decode}
+    times, videos = {k: [] for k in decodes}, {}
+    for name in ("overlapped", "untiled", "untiled", "overlapped"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        videos[name] = decodes[name]()
+        times[name].append(time.perf_counter() - t0)
+    overlapped, untiled = videos["overlapped"], videos["untiled"]
+    diff = int(np.abs(overlapped.astype(np.int16) - untiled).max())
+    emit({"phase": "serve", "request": "decode_overlapped",
+          "overlapped_s": times["overlapped"], "untiled_s": times["untiled"],
+          "untiled_fetch_s": fetch_s,
+          "untiled_device_s": [t - f for t, f in zip(times["untiled"],
+                                                     fetch_s)],
+          "fetched_bytes": untiled.nbytes,
+          "order": "overlapped, untiled, untiled, overlapped",
+          "max_abs_diff_uint8": diff, "bound": 1,
+          "shape": list(overlapped.shape)})
+    if diff > 1 or overlapped.shape != (1, 3, FRAMES, H, W):
+        raise AssertionError(f"serve: overlapped decode off by {diff}")
+    del videos, untiled, overlapped, lat_tea
+
+    # 6. Long Video Generation on the inpaint variant: 90 frames in two
+    # windows of 49 and 45 with 4 blended; each window's HostCopy timed
+    # where it starts (the host's pinned allocation and enqueue) and where
+    # it is waited for (window 1's after window 2 ran)
+    ctl = EasyAnimateController(
+        EasyAnimateInpaintPipeline(inpaint_variant(model, seed + 1), vae),
+        encode_text=encode_text)
+    copy_s = {"start": [], "wait": []}
+
+    class TimedCopy(HostCopy):
+        def __init__(self, tensor):
+            t0 = time.perf_counter()
+            super().__init__(tensor)
+            copy_s["start"].append(time.perf_counter() - t0)
+
+        def result(self):
+            t0 = time.perf_counter()
+            out = super().result()
+            copy_s["wait"].append(time.perf_counter() - t0)
+            return out
+
+    controller_module.HostCopy = TimedCopy
+    out, video, _ = run("long_video", dict(
+        base, generation_method="Long Video Generation",
+        length_slider=LONG_TOTAL, partial_video_length=LONG_PARTIAL,
+        overlap_video_length=LONG_OVERLAP), 48 * steps * 2)
+    controller_module.HostCopy = HostCopy
+    # what a window's fetch costs where nothing runs beside it: a
+    # synchronous pageable copy of a window-sized float video, three times
+    window = torch.rand((1, 3, LONG_PARTIAL, H, W), device=DEVICE)
+    sync_fetch_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window.cpu().numpy()
+        sync_fetch_s.append(time.perf_counter() - t0)
+    del window
+    out.update(hostcopy_start_s=copy_s["start"],
+               hostcopy_wait_s=copy_s["wait"],
+               sync_window_fetch_s=sync_fetch_s)
+    # window_s: from the prompt encode, or the previous window's last step
+    # (its decode and this window's VAE encode between), to its last step
+    ends = [i for i in range(len(out["step_s"])) if (i + 1) % steps == 0]
+    out.update(windows=len(ends), video_shape=list(video.shape),
+               window_s=[sum(out["step_s"][a + 1:b + 1])
+                         for a, b in zip([-1] + ends, ends)],
+               video_finite=bool(np.isfinite(video).all()))
+    emit(out)
+    if (video.shape != (1, 3, LONG_TOTAL, H, W) or not out["video_finite"]
+            or len(ends) != 2):
+        raise AssertionError(f"serve: long video {video.shape}")
+    emit({"phase": "serve", "request": "mp4",
+          "note": "the base64 mp4 encode needs imageio or cv2, which this "
+                  "machine lacks; tests/test_torch_frontend.py::"
+                  "test_http_request_returns_an_mp4 covers it on the CPU"})
+    del ctl, enc, tower, video
+    torch.cuda.empty_cache()
+    return {"K1": total_k1}
+
+
 DEVICE = torch.device("cuda")
 # flash_attention_fwd.launches_sm90, sliding_window_fwd.launches_sm90 and
 # swa_local_global_fwd.launches_sm90 count the K1, K2 and K5 launches that
@@ -1254,7 +1578,13 @@ def main():
     path_run("i2v", lambda: request("i2v", pipe, args.seed + 8, steps, COUNTERS,
                                     **i2v_inputs(args.seed + 9)),
              dict(serve, K1=48 * steps))
-    del pipe, vae
+    del pipe
+    torch.cuda.empty_cache()
+    # requests through the controller; K1's count depends on TeaCache's
+    # decisions, so the phase checks each request's launches itself
+    expect_requests = path_run(
+        "serve", lambda: phase_serve(model, vae, args.seed + 30, steps))
+    del vae
     torch.cuda.empty_cache()
 
     # the fused SWA path: forward K5 + K1 (text queries); backward K2 + K1
@@ -1285,7 +1615,8 @@ def main():
     expect_serve = {"K1": 4 * 48 * steps, "K2": 47 * steps}
     expect_loader = {k: 3 * n for k, n in LOADER_LAUNCHES.items()}
     want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)
-            + expect_loader.get(k, 0) + expect_fused[k] for k in COUNTERS}
+            + expect_loader.get(k, 0) + expect_fused[k]
+            + expect_requests.get(k, 0) for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
 

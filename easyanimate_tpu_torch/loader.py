@@ -11,8 +11,8 @@ through the port's own safetensors reader: neither `safetensors` nor
 Not ported, each raising NotImplementedError with its ROADMAP queue 1 item:
 the control pipeline (7), int8 / int4 linears (5), DDIM and the other
 samplers (6), VAE chunk modes other than `cache_mag` (8), and the Bert / T5
-text stacks (11). The TeaCache coefficients JAX attaches to the pipeline
-(:349-355) are left unset (item 3).
+text stacks (11). The pipeline gets the TeaCache polynomial of its model
+path, as JAX's does (:349-355).
 """
 import json
 import os
@@ -24,6 +24,7 @@ from .models.mmdit import EasyAnimateTransformer3D, MMDiTConfig
 from .models.vae import AutoencoderKLMagvit, MagvitVAEConfig
 from .pipeline import (EasyAnimateInpaintPipeline, EasyAnimatePipeline,
                        FlowMatchEulerConfig)
+from .pipeline.t2v import get_teacache_coefficients
 from .utils.fp8 import quantize_module_fp8_
 from .utils.safetensors_io import load_dir, load_file
 
@@ -235,4 +236,8 @@ def load_pipeline(model_path: str, pipeline_type: str = "t2v",
             names = set(module.state_dict())
             sd = {k: v for k, v in sd.items() if k in names}
         load_on_device(module, sd, device)
-    return cls(transformer, vae, device, scheduler=sched)
+    pipe = cls(transformer, vae, device, scheduler=sched)
+    # matched on the full model path, as the reference does (ui.py:477); a
+    # model without a polynomial gets None, and TeaCache stays off for it
+    pipe.teacache_coefficients = get_teacache_coefficients(model_path)
+    return pipe

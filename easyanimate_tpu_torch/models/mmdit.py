@@ -189,6 +189,15 @@ class EasyAnimateTransformer3D(nn.Module):
         return unpatchify(self.proj_out(vid_tokens), t, h // p, w // p, p,
                           self.cfg.out_channels)
 
+    def modulated_input(self, vid, txt, temb):
+        """Block 0's norm1 AdaLN modulation of the video stream, the
+        TeaCache skip signal (reference transformer3d.py:1563-1590)."""
+        norm1 = self.transformer_blocks[0].norm1
+        shift, scale = norm1.linear(F.silu(temb)).chunk(6, dim=-1)[:2]
+        normed = fp32_layer_norm(vid, norm1.norm.weight, norm1.norm.bias,
+                                 norm1.eps)
+        return normed * (1 + scale[:, None]) + shift[:, None]
+
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

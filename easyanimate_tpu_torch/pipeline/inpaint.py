@@ -76,13 +76,18 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
                  noise_aug_strength: float = 0.0563,
                  generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None,
-                 output_type: str = "np", callback: Callback = None):
+                 output_type: str = "np", decode: bool = True,
+                 teacache_threshold: Optional[float] = None,
+                 cfg_split: bool = False,
+                 cfg_skip_ratio: Optional[float] = None,
+                 callback: Callback = None):
         """video (B, 3, T, H, W) in [0, 1] and mask_video (B, 1, T, H, W),
         1 = generate (numpy or tensors, e.g. from
         utils.media.get_image_to_video_latent) -> video as
         EasyAnimatePipeline returns it. `latents` replaces the initial noise
         (unit variance); `generator` draws it and the noise augmentation
-        otherwise."""
+        otherwise. The serving knobs are EasyAnimatePipeline's; the
+        CFG-doubled inpaint_latents are halved as the text is."""
         _check_output_type(output_type)
         cfg, vcfg = self.transformer.cfg, self.vae.cfg
         dev = self.device
@@ -159,5 +164,7 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
             self._cfg_text(prompt_embeds, negative_prompt_embeds,
                            guidance_scale),
             height, width, num_inference_steps, guidance_scale,
-            guidance_rescale, cond=cond, t_start=t_start, callback=callback)
-        return self._output(latents, output_type)
+            guidance_rescale, cond=cond, t_start=t_start, callback=callback,
+            teacache_threshold=teacache_threshold, cfg_split=cfg_split,
+            cfg_skip_ratio=cfg_skip_ratio)
+        return self._output(latents, output_type, decode)

@@ -3,7 +3,8 @@
 Parity: easyanimate_tpu/pipeline/schedulers.py (diffusers
 FlowMatchEulerDiscreteScheduler as pipeline_easyanimate.py:971-974 uses it,
 mu=1 dynamic shifting). The schedule is host-side numpy; the step is a
-tensor function. The DDIM / Euler / DPM / PNDM families are not ported.
+tensor function. The DDIM / Euler / DPM / PNDM families are not ported:
+`make_scheduler` knows their names and raises for them.
 """
 import dataclasses
 import math
@@ -72,3 +73,27 @@ def init_noise_sigma(sched, num_inference_steps: int) -> float:
     if not isinstance(sched, FlowMatchEulerConfig):
         raise NotImplementedError(f"sampler {type(sched).__name__} not ported")
     return 1.0
+
+
+# the reference UI's sampler names (ui.py:44-55); only "flow" is ported
+SAMPLER_NAMES = ("flow", "euler", "euler a", "dpm++", "pndm", "ddim")
+_SAMPLER_ALIASES = {"euler ancestral": "euler a", "dpm solver": "dpm++",
+                    "dpm": "dpm++", "flow match": "flow"}
+
+
+def make_scheduler(name: str, base=None, **overrides):
+    """Runtime sampler switch (JAX schedulers.py:447, reference ui.py:472):
+    the named sampler with the base scheduler's fields. "Flow" (and its
+    aliases) gives FlowMatchEulerConfig; the other known names raise
+    NotImplementedError, an unknown one ValueError."""
+    key = name.strip().lower().replace("_", " ").replace("-", " ")
+    key = _SAMPLER_ALIASES.get(key, key)
+    if key not in SAMPLER_NAMES:
+        raise ValueError(f"unknown sampler {name!r}; one of "
+                         f"{sorted(SAMPLER_NAMES)}")
+    if key != "flow":
+        raise NotImplementedError(f"sampler {name!r} is not ported (ROADMAP "
+                                  "queue 1 item 6)")
+    if isinstance(base, FlowMatchEulerConfig):
+        return dataclasses.replace(base, **overrides)
+    return FlowMatchEulerConfig(**overrides)

@@ -1,14 +1,101 @@
-"""Conditioning inputs for the inpaint pipeline, on the host.
+"""Media helpers on the host: the inpaint pipeline's conditioning inputs,
+the 4:2:0 result the server fetches, and the video writer.
 
-A copy of easyanimate_tpu/utils/media.py::get_image_to_video_latent and
-_load_and_resize (the port imports nothing of the JAX package). PIL is
-imported only to open a path or resize an image; an array that is already
-at the sample size needs no resize (PIL's same-size resize is a copy), so
-the pipeline runs where PIL is not installed.
+A copy of easyanimate_tpu/utils/media.py (:15-103 and
+get_image_to_video_latent / _load_and_resize; the port imports nothing of
+the JAX package). PIL, imageio and cv2 are imported inside the functions
+that need them (the card's machine has none of them): PIL only to open a
+path or resize an image, so an array already at the sample size needs no
+resize (PIL's same-size resize is a copy) and the pipeline runs where PIL
+is not installed.
 """
-from typing import Tuple
+import os
+from typing import NamedTuple, Tuple
 
 import numpy as np
+
+
+def _to_thwc_uint8(video: np.ndarray, rescale: bool = False) -> np.ndarray:
+    """(C, T, H, W) float -> (T, H, W, C) uint8."""
+    v = np.asarray(video)
+    if rescale:
+        v = v / 2 + 0.5
+    v = np.clip(v, 0, 1)
+    return (np.transpose(v, (1, 2, 3, 0)) * 255).astype(np.uint8)
+
+
+class YUV420Video(NamedTuple):
+    """A generation fetched as 4:2:0 planes (controller
+    `fetch_yuv420=True`): y (B, T, H, W) uint8, u and v (B, T, H/2, W/2)
+    uint8, full-range BT.601 -- 1.5 bytes a pixel off the card instead of
+    3. The server reconstructs RGB on the host (yuv420_to_rgb) only to feed
+    the mp4 encoder, whose output is 4:2:0 anyway."""
+    y: np.ndarray
+    u: np.ndarray
+    v: np.ndarray
+
+
+def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Inverse of EasyAnimatePipeline.decode_latents_yuv420: the planes ->
+    (B, 3, T, H, W) uint8 RGB, chroma nearest-upsampled (the only loss
+    against the RGB fetch is the 4:2:0 subsample itself)."""
+    yf = y.astype(np.float32) / 255.0
+    up = lambda p: np.repeat(np.repeat(p, 2, axis=-2), 2, axis=-1)
+    uf = up(u.astype(np.float32) / 255.0 - 0.5)
+    vf = up(v.astype(np.float32) / 255.0 - 0.5)
+    r = yf + 1.402 * vf
+    g = yf - 0.344136 * uf - 0.714136 * vf
+    b = yf + 1.772 * uf
+    rgb = np.stack([r, g, b], axis=1)
+    return np.clip(np.round(rgb * 255.0), 0, 255).astype(np.uint8)
+
+
+def color_transfer(src: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Match src's per-channel LAB mean and std to ref's (reference
+    utils.py:21-47); uint8 HWC RGB in and out. Pins later frames' color
+    statistics to frame 0 against drift in long sliding-window videos."""
+    import cv2
+
+    s = cv2.cvtColor(src, cv2.COLOR_RGB2LAB).astype(np.float64)
+    r = cv2.cvtColor(ref, cv2.COLOR_RGB2LAB).astype(np.float64)
+    s_mean, s_std = s.mean(axis=(0, 1)), s.std(axis=(0, 1))
+    r_mean, r_std = r.mean(axis=(0, 1)), r.std(axis=(0, 1))
+    out = (s - s_mean) * (r_std / np.maximum(s_std, 1e-6)) + r_mean
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return cv2.cvtColor(out, cv2.COLOR_LAB2RGB)
+
+
+def save_videos_grid(videos: np.ndarray, path: str, fps: int = 8,
+                     rescale: bool = False,
+                     color_transfer_post_process: bool = False):
+    """videos (B, C, T, H, W) in [0, 1] (or [-1, 1] with rescale) -> mp4 or
+    gif, the batch side by side. color_transfer_post_process pins every
+    frame's color statistics to frame 0 (reference utils.py:60-62)."""
+    import imageio
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    b = videos.shape[0]
+    frames = [np.concatenate([_to_thwc_uint8(videos[i], rescale)[t]
+                              for i in range(b)], axis=1)
+              for t in range(videos.shape[2])]
+    if color_transfer_post_process and len(frames) > 1:
+        frames = [frames[0]] + [color_transfer(f, frames[0])
+                                for f in frames[1:]]
+    if path.endswith(".gif"):
+        imageio.mimsave(path, frames, duration=1000 / fps, loop=0)
+        return
+    try:
+        imageio.mimsave(path, frames, fps=fps)
+    except Exception:
+        # no ffmpeg backend for imageio: cv2 ships its own codecs
+        import cv2
+
+        h, w = frames[0].shape[:2]
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (w, h))
+        for f in frames:
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
 
 
 def _load_and_resize(image, size: Tuple[int, int]) -> np.ndarray:
