@@ -39,6 +39,22 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   i2v        one image-to-video request to V5.1-12B-InP (the same weights,
              a random 33-channel proj): VAE encode of the start frame,
              denoise, decode
+  control    (NEW_PHASE_STEPS steps) V5.1-12B-Control on the same
+             tensors (a random 48-channel proj and ref_proj): a random
+             control clip + reference image request (each VAE encode timed
+             apart); the identity check (the
+             12B's proj on the first 16 channels, zeros on the 32 control
+             + reference channels, 2 latent-only steps against the T2V
+             pipeline within CONTROL_IDENTITY_BOUND); Control-Camera on
+             the swa_layers = 1..47 variant (38-channel proj, no reference
+             image) on a 49-pose trajectory written here and read back
+             through plucker_from_file (its host seconds)
+  samplers   Flow, DDIM, Euler, Euler A, DPM++ (NEW_PHASE_STEPS steps)
+             and PNDM (4 steps, 5 evaluations: every PLMS order) through
+             make_scheduler on the dense 12B, latent output from the same
+             noise: s/step each, K1 48 per transformer evaluation, finite
+             latents, Euler against DDIM within EULER_DDIM_BOUND or twice
+             the bf16 floor (DDIM against DDIM from the noise x (1 + 2^-8))
   serve      requests in the JAX server's JSON protocol through
              api.server.request_kwargs and EasyAnimateController.generate
              on that 12B, the full Qwen2-VL tower (random weights, a
@@ -46,13 +62,16 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              TeaCache 0.1 with the 4:2:0 fetch (K1 = 48 x computed steps),
              TeaCache 1e9 (2 computed steps), cfg_skip_ratio 0.25,
              cfg_split against batched CFG (latents within
-             CFG_SPLIT_BOUND), the overlapped chunk decode against the
+             CFG_SPLIT_BOUND), sampler_dropdown Euler and then a request
+             without it (FlowMatch again: the batched request's latents),
+             the overlapped chunk decode against the
              untiled one (within 1 in uint8; the untiled one's host fetch
              timed apart), and a 90-frame long video in two windows on
              the inpaint variant (each window's host copy timed where it
              starts and where it is waited for, against a synchronous
-             fetch); the mp4 encode is left to the CPU tests (no imageio
-             or cv2 here)
+             fetch), a V2V request with Euler at strength 0.7 (the
+             sigma-space init); the mp4 encode is left to the CPU tests (no
+             imageio or cv2 here)
   swa_fused  swa_attention_streams at the 12B's per-layer shapes, forward
              and backward, with fuse_cross=True (K5) against False
   lora_dense 3 LoRA steps (rank 128) on the same 12B at 384x672x49f
@@ -80,6 +99,7 @@ import torch
 import torch.nn.functional as F
 
 from easyanimate_tpu_torch.api.server import request_kwargs, video_rgb
+from easyanimate_tpu_torch.data.camera import plucker_from_file
 from easyanimate_tpu_torch.loader import load_pipeline
 from easyanimate_tpu_torch.models.convert import (init_random_,
                                                   mmdit_config_json,
@@ -88,7 +108,8 @@ from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.text import (Qwen2Config, Qwen2TextEncoder,
                                                QwenVLTextEncoder)
 from easyanimate_tpu_torch.models.vae import (AutoencoderKLMagvit,
-                                              MagvitVAEConfig, vae_decode)
+                                              MagvitVAEConfig, vae_decode,
+                                              vae_encode)
 from easyanimate_tpu_torch.ops import _build
 from easyanimate_tpu_torch.ops.flash_attention import (
     LOG2E, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
@@ -97,8 +118,11 @@ from easyanimate_tpu_torch.ops.swa import (
     sliding_window_bwd, sliding_window_bwd_plain, sliding_window_fwd,
     sliding_window_plain, swa_attention_streams, swa_local_global_fwd,
     swa_local_global_plain)
-from easyanimate_tpu_torch.pipeline import (EasyAnimateInpaintPipeline,
-                                            EasyAnimatePipeline)
+from easyanimate_tpu_torch.pipeline import (EasyAnimateControlPipeline,
+                                            EasyAnimateInpaintPipeline,
+                                            EasyAnimatePipeline,
+                                            make_scheduler)
+from easyanimate_tpu_torch.pipeline import control as control_module
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.training import trainer as ttrainer
@@ -106,7 +130,8 @@ from easyanimate_tpu_torch.ui import controller as controller_module
 from easyanimate_tpu_torch.ui.controller import EasyAnimateController
 from easyanimate_tpu_torch.utils.fp8 import fp8_byte_share
 from easyanimate_tpu_torch.utils.media import (YUV420Video,
-                                               get_image_to_video_latent)
+                                               get_image_to_video_latent,
+                                               get_video_to_video_latent)
 from easyanimate_tpu_torch.utils.transfer import HostCopy
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
@@ -1019,6 +1044,252 @@ def i2v_inputs(seed):
     return {"video": video, "mask_video": mask}
 
 
+# the control and samplers phases' steps (PNDM's: min(--steps, 4)); with
+# 4 the whole run took 357 s on an H100 against a ~330 s budget
+NEW_PHASE_STEPS = 2
+# control: the V5.1 Control models on the 12B's tensors
+CONTROL_IDENTITY_STEPS = 2
+# max |control - t2v| / max |t2v| of the identity check's final bf16
+# latents: the 48-channel proj with zeros on the control channels computes
+# the T2V patchify with another reduction length, so the two runs may
+# differ in the last bits; a wrong concat order or channel count puts the
+# 12B's weights on control channels and moves the latents by O(1)
+CONTROL_IDENTITY_BOUND = 1e-2
+# max |Euler - DDIM| / max |DDIM| of the samplers phase's final latents:
+# in float32 the two agree to 5e-5 (tests/test_samplers.py
+# test_euler_equals_ddim_exactly); in bf16 Euler's sigma-space latents and
+# its scaled model input round differently, and 4 CFG-6 steps of random
+# weights amplify that. The phase measures the floor of that rounding: DDIM
+# again from the noise scaled by 1 + 2^-8 (about one bf16 rounding of the
+# first latents). The check holds Euler within the larger of this bound
+# and twice that floor; a missing scale_model_input or a wrong sigma
+# schedule gives O(1)
+EULER_DDIM_BOUND = 5e-2
+# the floor's perturbation of the initial noise
+ULP_NOISE_SCALE = 1.0 + 2.0 ** -8
+SAMPLERS = ("DDIM", "Euler", "Euler A", "DPM++", "PNDM")
+
+
+def control_variant(model, seed, in_channels, proj_weight=None,
+                    swa_layers=None):
+    """A V5.1 Control model on the dense 12B's tensors (assign=True shares
+    them): proj.weight with `in_channels` inputs (16 latents + 16 control
+    video or 6 camera + 16 reference), random unless given, and a random
+    ref_proj (add_ref_latent_in_control_model, the published Control
+    configs' setting)."""
+    cfg = dataclasses.replace(model.cfg, in_channels=in_channels,
+                              add_ref_latent_in_control_model=True,
+                              swa_layers=swa_layers)
+    control = EasyAnimateTransformer3D(cfg, device="meta")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sd = dict(model.state_dict())
+    for name in ("proj.weight", "ref_proj.weight"):
+        shape = control.state_dict()[name].shape
+        sd[name] = (torch.randn(shape, generator=gen, device=DEVICE)
+                    * shape[1:].numel() ** -0.5).to(model.proj.weight.dtype)
+    sd["ref_proj.bias"] = torch.zeros_like(model.proj.bias)
+    if proj_weight is not None:
+        sd["proj.weight"] = proj_weight
+    control.load_state_dict(sd, assign=True)
+    return control
+
+
+def control_inputs(seed):
+    """A random uint8 control clip and reference image at the sample size
+    through get_video_to_video_latent (no resize, so no PIL): control_video
+    (1, 3, 49, H, W) and ref_image (1, 3, 1, H, W) in [0, 1]."""
+    gen = torch.Generator().manual_seed(seed)
+    clip = torch.randint(0, 256, (FRAMES, H, W, 3), generator=gen,
+                         dtype=torch.uint8).numpy()
+    video, _ = get_video_to_video_latent(clip, FRAMES, (H, W))
+    ref, _ = get_video_to_video_latent(clip[FRAMES // 2:FRAMES // 2 + 1], 1,
+                                       (H, W))
+    return {"control_video": video, "ref_image": ref}
+
+
+def write_pose_file(path, n):
+    """A RealEstate10K-format trajectory of n frames: a forward dolly with
+    a slow yaw (0.01 rad a frame), the published Control-Camera
+    intrinsics' form (normalized fx, fy, cx, cy)."""
+    with open(path, "w") as f:
+        f.write("chip_smoke: forward dolly with a slow yaw\n")
+        for i in range(n):
+            yaw = 0.01 * i
+            rot = np.array([[np.cos(yaw), 0.0, np.sin(yaw)], [0.0, 1.0, 0.0],
+                            [-np.sin(yaw), 0.0, np.cos(yaw)]])
+            w2c = np.concatenate([rot, [[0.0], [0.0], [-0.04 * i]]], axis=1)
+            row = [i, 0.474812461, 0.844111024, 0.5, 0.5, 0, 0,
+                   *w2c.reshape(-1)]
+            f.write(" ".join(f"{float(x):.9f}" for x in row) + "\n")
+
+
+def latent_request(phase, name, pipe, seed, steps, expect_k1,
+                   noise_scale=1.0, **kw):
+    """One latent-only request to `pipe` from seeded noise (times
+    `noise_scale`) and prompt embeddings: each step stamped after a sync,
+    the latents checked finite, K1's launches held to `expect_k1`. Returns
+    (JSON line, latents)."""
+    dev, k1 = pipe.device, COUNTERS["K1"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = 0.02 * torch.randn(1, TEXT_LEN, pipe.transformer.cfg.text_embed_dim,
+                             generator=gen, device=dev)
+    lat0 = torch.randn(pipe.latent_shape(1, FRAMES, H, W), generator=gen,
+                       device=dev) * noise_scale
+    stamps = []
+
+    def stamp(i, lat):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    before = k1.launches
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = pipe(pos, torch.zeros_like(pos), height=H, width=W,
+               video_length=FRAMES, num_inference_steps=steps,
+               guidance_scale=6.0, latents=lat0, generator=gen,
+               output_type="latent", callback=stamp, **kw)
+    torch.cuda.synchronize()
+    step_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    out = {"phase": phase, "request": name, "steps": steps,
+           "evaluations": len(stamps), "step_s": step_s,
+           "s_per_step_after_first": (sum(step_s[1:]) / (len(step_s) - 1)
+                                      if len(step_s) > 1 else None),
+           "request_s": time.perf_counter() - t0,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "K1": k1.launches - before, "expect_k1": expect_k1,
+           "latents_finite": bool(torch.isfinite(lat).all()),
+           "latents_max_abs": lat.float().abs().max().item()}
+    if out["K1"] != expect_k1 or not out["latents_finite"]:
+        emit(out)
+        raise AssertionError(f"{phase} {name}: K1 {out['K1']} != "
+                             f"{expect_k1} or non-finite latents")
+    return out, lat
+
+
+def phase_control(model, vae, seed, steps):
+    """V5.1-12B-Control on the 12B's tensors: a control clip + reference
+    image request (both VAE encodes timed apart) and the identity check;
+    then the Control-Camera SWA variant on a 49-pose trajectory read back
+    through plucker_from_file (no reference: the zeros branch)."""
+    encode_s = []
+
+    def timed_encode(vae_, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vae_encode(vae_, x)
+        torch.cuda.synchronize()
+        encode_s.append({"frames": x.shape[2], "s": time.perf_counter() - t0})
+        return out
+
+    ins = control_inputs(seed)
+    pipe = EasyAnimateControlPipeline(control_variant(model, seed + 1, 48),
+                                      vae)
+    control_module.vae_encode = timed_encode
+    try:
+        res = request("control", pipe, seed + 2, steps, COUNTERS, **ins)
+    finally:
+        control_module.vae_encode = vae_encode
+    if res["launched"]["K1"] != 48 * steps or res["launched"]["K2"]:
+        raise AssertionError(f"control: launches {res['launched']}")
+    emit({"phase": "control", "request": "video+ref encodes",
+          "control_clip_encode_s": encode_s[0]["s"],
+          "reference_encode_s": encode_s[1]["s"],
+          "encodes": encode_s})
+    del res
+
+    # identity: the 12B's proj on the first 16 input channels, zeros on
+    # the 32 control + reference channels, against the T2V pipeline
+    n = CONTROL_IDENTITY_STEPS
+    w = model.proj.weight
+    ident = torch.cat([w, torch.zeros(w.shape[0], 32, *w.shape[2:],
+                                      dtype=w.dtype, device=w.device)], dim=1)
+    pipe = EasyAnimateControlPipeline(
+        control_variant(model, seed + 1, 48, proj_weight=ident), vae)
+    out_c, lat_c = latent_request("control", "identity_control", pipe,
+                                  seed + 3, n, 48 * n, **ins)
+    out_t, lat_t = latent_request("control", "identity_t2v",
+                                  EasyAnimatePipeline(model, vae), seed + 3,
+                                  n, 48 * n)
+    rel = ((lat_c.float() - lat_t.float()).abs().max()
+           / lat_t.float().abs().max()).item()
+    emit({"phase": "control", "request": "identity", "steps": n,
+          "rel_diff_vs_t2v": rel, "bound": CONTROL_IDENTITY_BOUND,
+          "control_step_s": out_c["step_s"], "t2v_step_s": out_t["step_s"]})
+    if not rel <= CONTROL_IDENTITY_BOUND:
+        raise AssertionError(f"control: identity off by {rel}")
+    del pipe, lat_c, lat_t, ident, ins
+
+    # Control-Camera on the SWA variant: 16 latents + 6 Plücker + 16
+    # reference channels, no reference image
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poses.txt")
+        write_pose_file(path, FRAMES)
+        t0 = time.perf_counter()
+        rays = plucker_from_file(path, H, W)
+        plucker_s = time.perf_counter() - t0
+    camera = np.ascontiguousarray(rays.transpose(3, 0, 1, 2)[None])
+    if camera.shape != (1, 6, FRAMES, H, W) or not np.isfinite(camera).all():
+        raise AssertionError(f"control: Plücker video {camera.shape}")
+    pipe = EasyAnimateControlPipeline(control_variant(
+        model, seed + 4, 38, swa_layers=tuple(range(1, 48))), vae)
+    res = request("control_camera", pipe, seed + 5, steps, COUNTERS,
+                  control_camera_video=camera)
+    emit({"phase": "control_camera", "plucker_host_s": plucker_s,
+          "plucker_bytes": rays.nbytes, "camera_shape": list(camera.shape)})
+    if res["launched"]["K1"] != 48 * steps or \
+            res["launched"]["K2"] != 47 * steps:
+        raise AssertionError(f"control_camera: launches {res['launched']}")
+    del pipe, res, camera, rays
+    torch.cuda.empty_cache()
+
+
+def phase_samplers(model, vae, seed, steps, pndm_steps):
+    """Flow and the five other samplers through make_scheduler with the
+    12B's FlowMatch config as base, each from the same noise and prompt,
+    latent output: s/step beside Flow's, K1 48 per transformer evaluation,
+    finite latents, and Euler held against DDIM. PNDM runs `pndm_steps`
+    (4 reach every PLMS order) and evaluates once more."""
+    pipe = EasyAnimatePipeline(model, vae)
+    base = pipe.scheduler
+    lats, flow_step = {}, None
+    for name in ("Flow",) + SAMPLERS:
+        pipe.scheduler = make_scheduler(name, base=base)
+        n = pndm_steps if name == "PNDM" else steps
+        out, lats[name] = latent_request("samplers", name, pipe, seed, n,
+                                         48 * (n + (name == "PNDM")))
+        if name == "Flow":
+            flow_step = out["s_per_step_after_first"]
+        out.update(scheduler=type(pipe.scheduler).__name__,
+                   flow_s_per_step_after_first=flow_step)
+        emit(out)
+    pipe.scheduler = make_scheduler("DDIM", base=base)
+    out, lats["floor"] = latent_request("samplers", "DDIM, noise x (1 + "
+                                        "2^-8)", pipe, seed, steps, 48 * steps,
+                                        noise_scale=ULP_NOISE_SCALE)
+    emit(out)
+    pipe.scheduler = base
+    ddim = lats["DDIM"].float()
+
+    def rel(name):
+        diff = lats[name].float() - ddim
+        return ((diff.abs().max() / ddim.abs().max()).item(),
+                (diff.norm() / ddim.norm()).item())
+
+    (euler, euler_l2), (floor, floor_l2) = rel("Euler"), rel("floor")
+    limit = max(EULER_DDIM_BOUND, 2 * floor)
+    emit({"phase": "samplers", "request": "euler_vs_ddim",
+          "rel_diff": euler, "rel_l2": euler_l2, "floor_rel_diff": floor,
+          "floor_rel_l2": floor_l2, "bound": EULER_DDIM_BOUND,
+          "limit": limit})
+    if not euler <= limit:
+        raise AssertionError(f"samplers: Euler off DDIM by {euler} (the "
+                             f"bf16 floor {floor})")
+    del lats, ddim, pipe
+    torch.cuda.empty_cache()
+
+
 def swa_fused_inputs(seed):
     """The 12B's per-layer SWA streams: b 2 (CFG), 48 heads x 64, 256 text
     tokens, (f, h, w) = (13, 24, 42) video tokens; bf16 leaves that take
@@ -1144,7 +1415,9 @@ def serve_request(name, ctl, payload, expect_k1, marks, per_step=None,
     out = {"phase": "serve", "request": name,
            "payload": {k: v for k, v in payload.items()
                        if not k.endswith("textbox")},
-           "extra": extra, "fetch_yuv420": kwargs.get("fetch_yuv420", False),
+           "extra": {k: list(v.shape) if hasattr(v, "shape") else v
+                     for k, v in extra.items()},
+           "fetch_yuv420": kwargs.get("fetch_yuv420", False),
            "request_s": t_end - t0, "step_s": step_s, "step_k1": step_k1,
            "decode_s": t_end - stamps[-1][0],
            "teacache_skips": pipe.last_teacache_skips,
@@ -1165,8 +1438,10 @@ def phase_serve(model, vae, seed, steps):
     resident 12B with the full Qwen2-VL tower encoding every prompt:
     TeaCache at 0.1 with the 4:2:0 fetch (the server's defaults), TeaCache
     at 1e9, cfg_skip_ratio 0.25, cfg_split against batched CFG, the
-    overlapped decode against the untiled one, and a two-window long video
-    on the inpaint variant. Returns the phase's launches."""
+    sampler dropdown (Euler, then the model's FlowMatch again), the
+    overlapped decode against the untiled one, a two-window long video
+    and a V2V request with Euler on the inpaint variant. Returns the
+    phase's launches."""
     tower = Qwen2TextEncoder(Qwen2Config(), device="meta").to_empty(
         device=DEVICE)
     init_random_(tower, torch.Generator(device=DEVICE).manual_seed(seed))
@@ -1256,7 +1531,34 @@ def phase_serve(model, vae, seed, steps):
     emit(out)
     if not rel <= CFG_SPLIT_BOUND:
         raise AssertionError(f"serve: cfg_split latents off by {rel}")
-    del lat_b, lat_s
+    del lat_s
+
+    # the sampler dropdown: Euler for one request, then the model's own
+    # FlowMatch again for the next request without the field (the same
+    # payload as cfg_batched, so the same latents)
+    flow = pipe.scheduler
+    out, lat_e, _ = run("sampler_euler", dict(plain, sampler_dropdown="Euler"),
+                        48 * steps, output_type="latent")
+    out.update(scheduler=type(pipe.scheduler).__name__,
+               latents_finite=bool(torch.isfinite(lat_e).all()))
+    emit(out)
+    if out["scheduler"] != "EulerConfig" or not out["latents_finite"]:
+        raise AssertionError(f"serve: sampler_dropdown Euler ran "
+                             f"{out['scheduler']}")
+    out, lat_f, _ = run("sampler_default", plain, 48 * steps,
+                        output_type="latent")
+    rel = ((lat_f.float() - lat_b.float()).abs().max()
+           / lat_b.float().abs().max()).item()
+    out.update(scheduler=type(pipe.scheduler).__name__,
+               rel_diff_vs_cfg_batched=rel,
+               euler_rel_diff_vs_flow=((lat_e.float() - lat_f.float()).abs()
+                                       .max() / lat_f.float().abs().max()
+                                       ).item())
+    emit(out)
+    if pipe.scheduler is not flow or not rel <= CFG_SPLIT_BOUND:
+        raise AssertionError(f"serve: the request after Euler ran "
+                             f"{out['scheduler']}, {rel} off cfg_batched")
+    del lat_b, lat_e, lat_f
 
     # 5. the overlapped decode of request 1's latents against the untiled
     # vae_decode (uint8 on the card), timed in turns; the untiled one's
@@ -1350,6 +1652,21 @@ def phase_serve(model, vae, seed, steps):
     if (video.shape != (1, 3, LONG_TOTAL, H, W) or not out["video_finite"]
             or len(ends) != 2):
         raise AssertionError(f"serve: long video {video.shape}")
+    # V2V with Euler on the inpaint variant: strength 0.7 starts at step
+    # steps - int(0.7 * steps) from the sigma-space noised clip
+    v2v_steps = int(steps * 0.7)
+    out, lat_v, _ = run(
+        "v2v_euler", dict(plain, sampler_dropdown="Euler",
+                          denoise_strength=0.7), 48 * v2v_steps,
+        output_type="latent",
+        source_video=control_inputs(seed + 2)["control_video"])
+    out.update(denoise_steps=v2v_steps, scheduler=type(
+        ctl.pipeline.scheduler).__name__,
+        latents_finite=bool(torch.isfinite(lat_v).all()))
+    emit(out)
+    if out["scheduler"] != "EulerConfig" or not out["latents_finite"]:
+        raise AssertionError(f"serve: V2V Euler {out}")
+    del lat_v
     emit({"phase": "serve", "request": "mp4",
           "note": "the base64 mp4 encode needs imageio or cv2, which this "
                   "machine lacks; tests/test_torch_frontend.py::"
@@ -1580,6 +1897,21 @@ def main():
              dict(serve, K1=48 * steps))
     del pipe
     torch.cuda.empty_cache()
+    # the control and samplers phases run NEW_PHASE_STEPS (PNDM 4, its
+    # every PLMS order) to keep the run near its time budget
+    new_steps, pndm_steps = min(steps, NEW_PHASE_STEPS), min(steps, 4)
+    # control: video + reference (dense), the identity check (a control
+    # and a T2V request), camera on the SWA variant
+    expect_control = dict(
+        serve, K1=48 * (2 * new_steps + 2 * CONTROL_IDENTITY_STEPS),
+        K2=47 * new_steps)
+    path_run("control", lambda: phase_control(model, vae, args.seed + 40,
+                                              new_steps), expect_control)
+    # Flow and the five other samplers, and DDIM again from the perturbed
+    # noise; PNDM evaluates pndm_steps + 1 times
+    expect_samplers = dict(serve, K1=48 * (6 * new_steps + pndm_steps + 1))
+    path_run("samplers", lambda: phase_samplers(
+        model, vae, args.seed + 50, new_steps, pndm_steps), expect_samplers)
     # requests through the controller; K1's count depends on TeaCache's
     # decisions, so the phase checks each request's launches itself
     expect_requests = path_run(
@@ -1616,7 +1948,8 @@ def main():
     expect_loader = {k: 3 * n for k, n in LOADER_LAUNCHES.items()}
     want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)
             + expect_loader.get(k, 0) + expect_fused[k]
-            + expect_requests.get(k, 0) for k in COUNTERS}
+            + expect_requests.get(k, 0) + expect_control[k]
+            + expect_samplers[k] for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
 

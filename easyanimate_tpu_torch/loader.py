@@ -8,11 +8,12 @@ parameter names are the reference keys, so the files load as they are,
 through the port's own safetensors reader: neither `safetensors` nor
 `transformers` nor `yaml` is imported on this path.
 
-Not ported, each raising NotImplementedError with its ROADMAP queue 1 item:
-the control pipeline (7), int8 / int4 linears (5), DDIM and the other
-samplers (6), VAE chunk modes other than `cache_mag` (8), and the Bert / T5
-text stacks (11). The pipeline gets the TeaCache polynomial of its model
-path, as JAX's does (:349-355).
+Pipelines: "t2v", "inpaint" and "control"; the scheduler comes from the
+directory's scheduler_config.json or the `scheduler` argument, as JAX's
+(:322-342). Not ported, each raising NotImplementedError with its ROADMAP
+queue 1 item: int8 / int4 linears (5), VAE chunk modes other than
+`cache_mag` (8), and the Bert / T5 text stacks (11). The pipeline gets the
+TeaCache polynomial of its model path, as JAX's does (:349-355).
 """
 import json
 import os
@@ -22,14 +23,16 @@ from .device import resolve_device
 from .models.convert import load_on_device
 from .models.mmdit import EasyAnimateTransformer3D, MMDiTConfig
 from .models.vae import AutoencoderKLMagvit, MagvitVAEConfig
-from .pipeline import (EasyAnimateInpaintPipeline, EasyAnimatePipeline,
+from .pipeline import (DDIMConfig, EasyAnimateControlPipeline,
+                       EasyAnimateInpaintPipeline, EasyAnimatePipeline,
                        FlowMatchEulerConfig)
 from .pipeline.t2v import get_teacache_coefficients
 from .utils.fp8 import quantize_module_fp8_
 from .utils.safetensors_io import load_dir, load_file
 
 _PIPELINES = {"t2v": EasyAnimatePipeline,
-              "inpaint": EasyAnimateInpaintPipeline}
+              "inpaint": EasyAnimateInpaintPipeline,
+              "control": EasyAnimateControlPipeline}
 
 
 def _read_json(path):
@@ -174,6 +177,10 @@ def load_text_encoders(model_path: Optional[str] = None,
 
 
 def _scheduler(model_path: str, scheduler: Optional[str]):
+    """JAX's rule: "flow", or None with a FlowMatch config, gives FlowMatch;
+    "ddim", or None without one, DDIM from the config's betas and
+    prediction type; any other string FlowMatch's defaults (JAX's quirk,
+    kept: a sampler name belongs in make_scheduler)."""
     path = os.path.join(model_path, "scheduler", "scheduler_config.json")
     scfg = _read_json(path) if os.path.exists(path) else {}
     flow = "FlowMatch" in scfg.get("_class_name", "")
@@ -182,10 +189,14 @@ def _scheduler(model_path: str, scheduler: Optional[str]):
             num_train_timesteps=scfg.get("num_train_timesteps", 1000),
             shift=scfg.get("shift", 3.0),
             use_dynamic_shifting=scfg.get("use_dynamic_shifting", True))
-    raise NotImplementedError(
-        f"scheduler {scheduler or scfg.get('_class_name') or 'DDIM'!r}: only "
-        "FlowMatch Euler is ported (DDIM and the other samplers: ROADMAP "
-        "queue 1 item 6)")
+    if scheduler in ("ddim", None):
+        return DDIMConfig(
+            num_train_timesteps=scfg.get("num_train_timesteps", 1000),
+            beta_start=scfg.get("beta_start", 0.0001),
+            beta_end=scfg.get("beta_end", 0.02),
+            beta_schedule=scfg.get("beta_schedule", "scaled_linear"),
+            prediction_type=scfg.get("prediction_type", "epsilon"))
+    return FlowMatchEulerConfig()
 
 
 def load_pipeline(model_path: str, pipeline_type: str = "t2v",
@@ -194,8 +205,12 @@ def load_pipeline(model_path: str, pipeline_type: str = "t2v",
                   scheduler: Optional[str] = None, strict: bool = True,
                   transformer_path: Optional[str] = None,
                   vae_path: Optional[str] = None, device=None):
-    """Build a ready pipeline from a reference-format model directory, on
-    `device` (the card by default).
+    """Build a ready pipeline ("t2v", "inpaint" or "control") from a
+    reference-format model directory, on `device` (the card by default).
+    A control model's config.json carries its proj input channels (16
+    latents + 16 control video or 6 camera + 16 reference) and
+    add_ref_latent_in_control_model (its ref_proj), so its files load
+    strictly like any other.
 
     The modules are built on meta, checked against the files with
     load_state_dict(strict=True) (every name and shape), allocated with
@@ -212,9 +227,6 @@ def load_pipeline(model_path: str, pipeline_type: str = "t2v",
     if int8_linears or int4_weights:
         raise NotImplementedError("int8_linears / int4_weights are not "
                                   "ported (ROADMAP queue 1 item 5)")
-    if pipeline_type == "control":
-        raise NotImplementedError("the control pipeline is not ported "
-                                  "(ROADMAP queue 1 item 7)")
     cls = _PIPELINES[pipeline_type]
     device = resolve_device(device)
     sched = _scheduler(model_path, scheduler)

@@ -7,16 +7,18 @@ the video tokens; final LayerNorm; AdaLayerNorm (shift, scale from temb);
 proj_out; unpatchify. The layer stack is an nn.ModuleList run in a Python
 loop; with `remat` (the JAX field, default on) and grad enabled each block
 runs under torch.utils.checkpoint, so the backward recomputes it from its
-inputs instead of keeping its activations. Of the conditioning branches
-only `inpaint_latents` is ported (the V5.1-InP models: a channel concat in
-front of the patchify); control, ref, clip and t5 are not. A model built
-with ref or clip channels carries `ref_proj` / `clip_proj` under the
-reference keys, so a checkpoint that holds them loads strictly, but a call
-that passes ref or clip inputs raises (ROADMAP queue 1 item 7).
+inputs instead of keeping its activations. The conditioning branches
+of the V5.1 models (JAX :231-269): `inpaint_latents` then `control_latents`
+join the latents on the channel axis in front of the patchify (InP and
+Control models); `ref_latents` go through `ref_proj` plus a 2-D sin-cos
+table and replace the text tokens; `clip_encoder_hidden_states` go through
+`clip_proj` and are prepended to them. V5's second (T5) text stream is not
+ported (ROADMAP queue 1 item 11).
 """
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -49,7 +51,7 @@ class MMDiTConfig:
     norm_eps: float = 1e-5
     time_position_encoding_type: str = "3d_rope"
     qk_norm: bool = True
-    # ref / clip conditioning (control models): parameters only, see above
+    # ref / clip conditioning (control models)
     ref_channels: Optional[int] = None
     clip_channels: Optional[int] = None
     add_ref_latent_in_control_model: bool = False
@@ -150,21 +152,29 @@ class EasyAnimateTransformer3D(nn.Module):
               encoder_hidden_states: torch.Tensor,
               inpaint_latents: Optional[torch.Tensor] = None,
               ref_latents: Optional[torch.Tensor] = None,
-              clip_encoder_hidden_states: Optional[torch.Tensor] = None):
-        """-> (vid_tokens, txt_tokens, temb). inpaint_latents (B, C_in - C,
-        T, H, W) join the latents on the channel axis before the patchify."""
-        if ref_latents is not None or clip_encoder_hidden_states is not None:
-            raise NotImplementedError(
-                "ref_latents / clip_encoder_hidden_states (control and ref "
-                "conditioning) are not ported: ROADMAP queue 1 item 7")
-        dt = self.cfg.torch_dtype
-        temb = sinusoidal_timestep_embedding(timestep, self.cfg.inner_dim)
+              clip_encoder_hidden_states: Optional[torch.Tensor] = None,
+              control_latents: Optional[torch.Tensor] = None):
+        """-> (vid_tokens, txt_tokens, temb). inpaint_latents, then
+        control_latents, (B, *, T, H, W) join the latents on the channel
+        axis before the patchify; ref_latents (B, C_ref, 1, H, W) replace
+        the text tokens; clip_encoder_hidden_states (B, S, C_clip) are
+        prepended to them."""
+        cfg, dt = self.cfg, self.cfg.torch_dtype
+        temb = sinusoidal_timestep_embedding(timestep, cfg.inner_dim)
         temb = self.time_embedding(temb.to(dt))
-        if inpaint_latents is not None:
-            hidden_states = torch.cat([hidden_states.to(dt),
-                                       inpaint_latents.to(dt)], dim=1)
+        extra = [x.to(dt) for x in (inpaint_latents, control_latents)
+                 if x is not None]
+        if extra:
+            hidden_states = torch.cat([hidden_states.to(dt), *extra], dim=1)
         vid = self.proj(hidden_states.to(dt))
         txt = self.text_proj(encoder_hidden_states.to(dt))
+        if ref_latents is not None:
+            rh, rw = (s // cfg.patch_size for s in ref_latents.shape[-2:])
+            pos = torch.from_numpy(sincos_2d(cfg.inner_dim, rh, rw))
+            txt = self.ref_proj(ref_latents.to(dt)) + pos.to(vid.device, dt)
+        if clip_encoder_hidden_states is not None:
+            clip = self.clip_proj(clip_encoder_hidden_states.to(dt))
+            txt = torch.cat([clip, txt], dim=1)
         return vid, txt, temb
 
     def backbone(self, vid, txt, temb, rope=None,
@@ -203,15 +213,37 @@ class EasyAnimateTransformer3D(nn.Module):
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 inpaint_latents: Optional[torch.Tensor] = None,
                 ref_latents: Optional[torch.Tensor] = None,
-                clip_encoder_hidden_states: Optional[torch.Tensor] = None
+                clip_encoder_hidden_states: Optional[torch.Tensor] = None,
+                control_latents: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """latents (B, C, T, H, W), timestep (B,), text (B, S, D_text) ->
-        prediction (B, C_out, T, H, W)."""
+        prediction (B, C_out, T, H, W); the conditioning inputs are
+        embed's."""
         _, _, t, hh, ww = hidden_states.shape
         p = self.cfg.patch_size
         vid, txt, temb = self.embed(hidden_states, timestep,
                                     encoder_hidden_states, inpaint_latents,
-                                    ref_latents, clip_encoder_hidden_states)
+                                    ref_latents, clip_encoder_hidden_states,
+                                    control_latents)
         vid = self.backbone(vid, txt, temb, rope,
                             grid_size=(t, hh // p, ww // p))
         return self.head(vid, t, hh, ww)
+
+
+def sincos_2d(dim: int, h: int, w: int) -> np.ndarray:
+    """(h * w, dim) float32 2-D sin-cos position table (diffusers
+    get_2d_sincos_pos_embed; JAX mmdit.py:_sincos_2d): the first half of the
+    channels encodes the row, the second the column."""
+
+    def one_axis(d, pos):
+        omega = 1.0 / (10000.0 ** (np.arange(d // 2, dtype=np.float64)
+                                   / (d / 2.0)))
+        out = np.einsum("m,d->md", pos, omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid = np.meshgrid(np.arange(w, dtype=np.float32),
+                       np.arange(h, dtype=np.float32))  # w goes first
+    grid = np.stack(grid, axis=0).reshape(2, -1)
+    return np.concatenate([one_axis(dim // 2, grid[1]),
+                           one_axis(dim // 2, grid[0])],
+                          axis=1).astype(np.float32)

@@ -1,8 +1,13 @@
-"""Text-to-video and inpaint (image/video-to-video) pipelines and their
-sampler."""
+"""Text-to-video, inpaint (image/video-to-video) and control pipelines and
+their samplers."""
+from .control import EasyAnimateControlPipeline
 from .inpaint import EasyAnimateInpaintPipeline
-from .schedulers import FlowMatchEulerConfig
+from .schedulers import (DDIMConfig, DPMSolverConfig, EulerAncestralConfig,
+                         EulerConfig, FlowMatchEulerConfig, PNDMConfig,
+                         make_scheduler)
 from .t2v import EasyAnimatePipeline, build_rope
 
-__all__ = ["EasyAnimateInpaintPipeline", "EasyAnimatePipeline",
-           "FlowMatchEulerConfig", "build_rope"]
+__all__ = ["DDIMConfig", "DPMSolverConfig", "EasyAnimateControlPipeline",
+           "EasyAnimateInpaintPipeline", "EasyAnimatePipeline",
+           "EulerAncestralConfig", "EulerConfig", "FlowMatchEulerConfig",
+           "PNDMConfig", "build_rope", "make_scheduler"]

@@ -11,10 +11,13 @@ pipeline_easyanimate_inpaint.py):
     VAE-encoded;
   - the transformer takes [mask, masked-video latents] as inpaint_latents,
     concatenated to the latents on the channel axis;
-  - strength < 1 starts from the flow-match blend (1 - sigma0) video +
-    sigma0 noise at step t_start = N - int(N * strength);
+  - strength < 1 starts at step t_start = N - int(N * strength) from the
+    video latents noised for the sampler (JAX :175-192): flow matching
+    (1 - sigma0) video + sigma0 noise, Euler video + sigma0 noise, the
+    alpha-space samplers ddim_add_noise at the integer t0;
   - without a video an inpaint model runs T2V on zero mask and latents.
-The V4 CLIP-image branch is not ported.
+The V4 CLIP-image branch (clip_apply_ratio) is not ported: it waits with
+V4 (ROADMAP queue 1 item 11).
 """
 from typing import Optional, Sequence
 
@@ -22,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.vae.magvit import gaussian_mode, vae_encode
-from .schedulers import flow_match_per_step, init_noise_sigma
+from .schedulers import (EulerConfig, FlowMatchEulerConfig, ddim_add_noise,
+                         init_noise_sigma, schedule_arrays)
 from .t2v import Callback, EasyAnimatePipeline, _check_output_type
 
 
@@ -61,6 +65,20 @@ def add_noise_to_reference_video(video: torch.Tensor,
     noise = torch.randn(video.shape, generator=generator, device=video.device,
                         dtype=video.dtype) * sigma
     return video + torch.where(video == -1.0, 0.0, noise)
+
+
+def v2v_init(sched, num_inference_steps: int, t_start: int,
+             video_latents: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The first latents of a partial denoise from step t_start: the video
+    latents noised as `sched`'s family does it (JAX inpaint.py:175-192)."""
+    per_step, extras = schedule_arrays(sched, num_inference_steps, t_start)
+    if isinstance(sched, FlowMatchEulerConfig):
+        sigma0 = float(per_step[0, 1])
+        return (1.0 - sigma0) * video_latents + sigma0 * noise
+    if isinstance(sched, EulerConfig):  # EulerDiscreteScheduler.add_noise
+        return video_latents + float(per_step[0, 1]) * noise
+    return ddim_add_noise(video_latents, noise, int(per_step[0, 0]),
+                          extras[0])
 
 
 class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
@@ -155,10 +173,8 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
             latents = noise * init_noise_sigma(self.scheduler,
                                                num_inference_steps)
         else:
-            _, sigmas = flow_match_per_step(self.scheduler,
-                                            num_inference_steps, t_start)
-            sigma0 = float(sigmas[0])
-            latents = (1.0 - sigma0) * video_latents + sigma0 * noise
+            latents = v2v_init(self.scheduler, num_inference_steps, t_start,
+                               video_latents, noise)
         latents = self._denoise(
             latents.to(cfg.torch_dtype),
             self._cfg_text(prompt_embeds, negative_prompt_embeds,
@@ -166,5 +182,5 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
             height, width, num_inference_steps, guidance_scale,
             guidance_rescale, cond=cond, t_start=t_start, callback=callback,
             teacache_threshold=teacache_threshold, cfg_split=cfg_split,
-            cfg_skip_ratio=cfg_skip_ratio)
+            cfg_skip_ratio=cfg_skip_ratio, generator=generator)
         return self._output(latents, output_type, decode)

@@ -16,8 +16,11 @@ JAX's `_denoise_fn_for` (:279-497):
 JAX's `scan_chunk` (a program-size knob with a bit-identical result) has
 no counterpart. The decode variants: the 4:2:0 planes
 (`decode_latents_yuv420`) and the chunked decode whose host copies run
-beside the next chunk (`decode_latents_overlapped`). The other samplers
-and `smooth_output` are not ported.
+beside the next chunk (`decode_latents_overlapped`). The loop steps with
+the pipeline's `scheduler`, any of the six samplers (schedulers.py, JAX
+:365-440): Euler's model input is scaled first, PNDM and DPM++ carry their
+state across steps, Euler-A draws its step noise from the request's
+generator. `smooth_output` is not ported (ROADMAP queue 1 item 8).
 """
 from typing import Callable, Dict, Optional, Tuple
 
@@ -30,8 +33,8 @@ from ..models.vae.magvit import (AutoencoderKLMagvit, latent_frame_count,
                                  vae_decode, vae_decode_tiled)
 from ..ops.rope import get_3d_rotary_pos_embed, get_resize_crop_region_for_grid
 from ..utils.transfer import HostCopy
-from .schedulers import (FlowMatchEulerConfig, flow_match_per_step,
-                         flow_match_step, init_noise_sigma, rescale_noise_cfg)
+from .schedulers import (FlowMatchEulerConfig, SamplerLoop, init_noise_sigma,
+                         rescale_noise_cfg)
 
 Callback = Optional[Callable[[int, torch.Tensor], None]]
 OUTPUT_TYPES = ("np", "uint8", "latent", "device")
@@ -124,11 +127,12 @@ class EasyAnimatePipeline:
 
     def __init__(self, transformer: EasyAnimateTransformer3D,
                  vae: AutoencoderKLMagvit, device=None,
-                 scheduler: FlowMatchEulerConfig = FlowMatchEulerConfig()):
+                 scheduler=FlowMatchEulerConfig()):
         self.transformer = transformer
         self.vae = vae
         self.device = (next(transformer.parameters()).device if device is None
                        else torch.device(device))
+        # any sampler config of schedulers.py (make_scheduler switches it)
         self.scheduler = scheduler
         # the loader sets this from the checkpoint's path
         # (get_teacache_coefficients); None turns TeaCache off
@@ -162,7 +166,8 @@ class EasyAnimatePipeline:
         the device ('device'); or the final latents ('latent', or
         decode=False). `latents` replaces the initial noise; `generator`
         draws it otherwise. `callback(step, latents)` runs after every
-        step. The serving knobs are the module docstring's."""
+        step (PNDM: after each of its N + 1 evaluations). The serving knobs
+        are the module docstring's."""
         _check_output_type(output_type)
         shape = self.latent_shape(prompt_embeds.shape[0], video_length,
                                   height, width)
@@ -181,7 +186,7 @@ class EasyAnimatePipeline:
             height, width, num_inference_steps, guidance_scale,
             guidance_rescale, cond={}, t_start=0, callback=callback,
             teacache_threshold=teacache_threshold, cfg_split=cfg_split,
-            cfg_skip_ratio=cfg_skip_ratio)
+            cfg_skip_ratio=cfg_skip_ratio, generator=generator)
         return self._output(latents, output_type, decode)
 
     def _cfg_text(self, prompt_embeds, negative_prompt_embeds,
@@ -211,20 +216,22 @@ class EasyAnimatePipeline:
                  t_start: int = 0, callback: Callback = None,
                  teacache_threshold: Optional[float] = None,
                  cfg_split: bool = False,
-                 cfg_skip_ratio: Optional[float] = None) -> torch.Tensor:
-        """The flow-match Euler loop from step t_start on (JAX _denoise_fn):
-        each step runs the transformer on the CFG batch with `cond` (keyword
+                 cfg_skip_ratio: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The sampler's loop from step t_start on (JAX _denoise_fn): each
+        step runs the transformer on the CFG batch with `cond` (keyword
         arguments of the transformer, already CFG-batched), combines the
-        halves and steps the latents. callback(i, latents) after each."""
+        halves and steps the latents with self.scheduler. `generator` draws
+        Euler-A's step noise. callback(i, latents) after each."""
         do_cfg = guidance_scale > 1.0
         latent_channels = self.vae.cfg.latent_channels
         rope = build_rope(self.transformer.cfg, height, width,
                           latents.shape[2],
                           vae_scale=self.vae.cfg.spatial_compression,
                           device=self.device)
-        timesteps, sigmas = flow_match_per_step(self.scheduler,
-                                                num_inference_steps, t_start)
-        n, b = len(timesteps), latents.shape[0]
+        sampler = SamplerLoop(self.scheduler, num_inference_steps, t_start,
+                              generator)
+        n, b = len(sampler), latents.shape[0]
         threshold = self._teacache_on(teacache_threshold)
         tea = None
         if threshold is not None:
@@ -239,7 +246,8 @@ class EasyAnimatePipeline:
         m = n
         if do_cfg and cfg_skip_ratio:
             m = n - min(n, max(0, int(round(cfg_skip_ratio * n))))
-        for i, t in enumerate(timesteps):
+        for i in range(n):
+            t, lat_model = sampler.timestep(i), sampler.model_input(i, latents)
             use_cfg = do_cfg and i < m
             if do_cfg and i == m:  # the positive halves from here on
                 txt = _cfg_half(txt, 1, b)
@@ -247,21 +255,21 @@ class EasyAnimatePipeline:
                 if tea is not None:
                     tea.keep_cond_half(b)
             if tea is not None:
-                pred = self._teacache_forward(latents, float(t), txt, rope,
-                                              cond, use_cfg, tea, i, n,
-                                              threshold)
+                pred = self._teacache_forward(lat_model, t, txt, rope, cond,
+                                              use_cfg, tea, i, n, threshold)
             elif use_cfg and cfg_split:
                 # uncond and cond halves one after the other: the same
                 # math at about half the activation peak
-                t_vec = torch.full((b,), float(t), dtype=torch.float32,
+                t_vec = torch.full((b,), t, dtype=torch.float32,
                                    device=self.device)
                 pred = torch.cat([self.transformer(
-                    latents, t_vec, _cfg_half(txt, h, b), rope,
+                    lat_model, t_vec, _cfg_half(txt, h, b), rope,
                     **{k: _cfg_half(v, h, b) for k, v in cond.items()})
                     for h in (0, 1)])
             else:
-                lat_in = torch.cat([latents, latents]) if use_cfg else latents
-                t_vec = torch.full((lat_in.shape[0],), float(t),
+                lat_in = (torch.cat([lat_model, lat_model]) if use_cfg
+                          else lat_model)
+                t_vec = torch.full((lat_in.shape[0],), t,
                                    dtype=torch.float32, device=self.device)
                 pred = self.transformer(lat_in, t_vec, txt, rope, **cond)
             pred = pred[:, :latent_channels]  # drop a learned-sigma half
@@ -270,8 +278,7 @@ class EasyAnimatePipeline:
                 pred = uncond + guidance_scale * (text - uncond)
                 if guidance_rescale > 0:
                     pred = rescale_noise_cfg(pred, text, guidance_rescale)
-            latents = flow_match_step(latents, pred, float(sigmas[i]),
-                                      float(sigmas[i + 1]))
+            latents = sampler.step(i, latents, pred)
             if callback is not None:
                 callback(i, latents)
         self.last_teacache_skips = None if tea is None else tea.skips

@@ -3,7 +3,10 @@
 Parity: easyanimate_tpu/ui/controller.py (reference easyanimate/ui/ui.py
 EasyAnimateController):
   - generate() over T2V / I2V / V2V / image / long video (:368-680), one
-    request at a time, the sampler reset to the model's own per request;
+    request at a time, the sampler reset to the model's own per request
+    (`sampler` names any of the six, schedulers.make_scheduler); a control
+    pipeline takes control_video / control_camera_video / ref_image
+    through the keyword arguments, as JAX's generate does;
   - model, edition and LoRA swaps (:106-366);
   - sliding-window long video: `partial_video_length` frames a window,
     `overlap_video_length` frames blended linearly, the tail frames
@@ -25,7 +28,8 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from ..pipeline import EasyAnimateInpaintPipeline, EasyAnimatePipeline
+from ..pipeline import (EasyAnimateControlPipeline,
+                        EasyAnimateInpaintPipeline, EasyAnimatePipeline)
 from ..pipeline.schedulers import make_scheduler
 from ..training.lora import LoRAConfig, load_lora, merge_lora, unmerge_lora
 from ..utils.fp8 import FP8
@@ -72,10 +76,13 @@ class EasyAnimateController:
         with self._gen_lock:
             fp8 = any(p.dtype == FP8
                       for p in self.pipeline.transformer.parameters())
+            kind = ("inpaint" if isinstance(self.pipeline,
+                                            EasyAnimateInpaintPipeline)
+                    else "control" if isinstance(self.pipeline,
+                                                 EasyAnimateControlPipeline)
+                    else "t2v")
             self.pipeline = load_pipeline(
-                path, pipeline_type="inpaint"
-                if isinstance(self.pipeline, EasyAnimateInpaintPipeline)
-                else "t2v",
+                path, pipeline_type=kind,
                 dtype=self.pipeline.transformer.cfg.dtype, fp8_weights=fp8,
                 device=self.pipeline.device)
             self._default_scheduler = None  # new pipeline, new default

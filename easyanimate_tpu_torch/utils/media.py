@@ -1,16 +1,16 @@
-"""Media helpers on the host: the inpaint pipeline's conditioning inputs,
-the 4:2:0 result the server fetches, and the video writer.
+"""Media helpers on the host: the inpaint and control pipelines'
+conditioning inputs, the 4:2:0 result the server fetches, and the video
+writer.
 
-A copy of easyanimate_tpu/utils/media.py (:15-103 and
-get_image_to_video_latent / _load_and_resize; the port imports nothing of
-the JAX package). PIL, imageio and cv2 are imported inside the functions
-that need them (the card's machine has none of them): PIL only to open a
-path or resize an image, so an array already at the sample size needs no
-resize (PIL's same-size resize is a copy) and the pipeline runs where PIL
-is not installed.
+A copy of easyanimate_tpu/utils/media.py (:15-200 but the image saver;
+the port imports nothing of the JAX package). PIL, imageio and cv2 are
+imported inside the functions that need them (the card's machine has none
+of them): PIL only to open a path or resize an image or frame, so an array
+already at the sample size needs no resize (PIL's same-size resize is a
+copy) and the pipelines run where PIL is not installed.
 """
 import os
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 
@@ -139,3 +139,64 @@ def get_image_to_video_latent(validation_image_start, validation_image_end,
         video[0, :, -1] = np.transpose(end, (2, 0, 1))
         mask[0, :, -1] = 0.0
     return video, mask
+
+
+def get_video_to_video_latent(input_video: Union[str, np.ndarray],
+                              video_length: int, sample_size: Tuple[int, int],
+                              validation_video_mask: Optional[np.ndarray] = None
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """A source clip (a path, or (T, H, W, 3) frames, cast to uint8 as JAX
+    does) -> (video (1, 3, T, H, W) in [0, 1], first video_length frames,
+    zero-padded; mask (1, 1, T, H, W), all ones unless
+    validation_video_mask (H, W) is given). The V2V and control clips."""
+    if isinstance(input_video, str):
+        arr = _read_frames(input_video, video_length)
+    else:
+        arr = np.asarray(input_video)[:video_length]
+    arr = _resize_frames(arr, sample_size)
+    video = np.zeros((1, 3, video_length, *sample_size), np.float32)
+    video[0, :, :arr.shape[0]] = np.transpose(arr, (3, 0, 1, 2))
+    if validation_video_mask is not None:
+        mask = np.asarray(validation_video_mask, np.float32)[None, None]
+        mask = np.repeat(mask[:, :, None], video_length, axis=2)
+    else:
+        mask = np.ones((1, 1, video_length, *sample_size), np.float32)
+    return video, mask
+
+
+def _read_frames(path: str, video_length: int) -> np.ndarray:
+    """The first video_length RGB frames of a video file."""
+    try:
+        import imageio
+
+        reader = imageio.get_reader(path)
+        frames = [f for _, f in zip(range(video_length), reader)]
+        reader.close()
+    except Exception:  # no ffmpeg backend: cv2 decodes its own codecs
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while len(frames) < video_length:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
+        cap.release()
+    return np.stack(frames)
+
+
+def _resize_frames(frames: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """(T, H', W', 3) frames -> (T, H, W, 3) float32 in [0, 1] (LANCZOS
+    through PIL, which only frames of another size need)."""
+    frames = np.asarray(frames, np.uint8)
+    if frames.shape[1:3] == tuple(size) and frames.shape[-1] == 3:
+        return frames.astype(np.float32) / 255
+    from PIL import Image
+
+    h, w = size
+    out = np.empty((frames.shape[0], h, w, 3), np.float32)
+    for i, f in enumerate(frames):
+        img = Image.fromarray(f).convert("RGB")
+        out[i] = np.asarray(img.resize((w, h), Image.LANCZOS), np.float32) / 255
+    return out

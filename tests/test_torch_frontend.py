@@ -253,7 +253,8 @@ def test_index_page_lora_route_and_errors(serve):
 
 def test_sampler_switch_is_per_request(ctl):
     """A request's sampler does not outlive it: the next request without
-    one runs the model's own scheduler. The unported samplers raise."""
+    one runs the model's own scheduler. Every sampler name runs; an
+    unknown one raises."""
     default = ctl.pipeline.scheduler
     assert isinstance(default, FlowMatchEulerConfig)
     kw = dict(prompt="a cat", sample_steps=1, width=32, height=32,
@@ -263,8 +264,11 @@ def test_sampler_switch_is_per_request(ctl):
     assert ctl.pipeline.scheduler is not default
     ctl.generate(**kw)
     assert ctl.pipeline.scheduler is default
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ctl.generate(**kw, sampler="Euler A")
+    for name, cls in (("Euler A", "EulerAncestralConfig"),
+                      ("DPM++", "DPMSolverConfig"), ("PNDM", "PNDMConfig")):
+        out = ctl.generate(**kw, sampler=name)
+        assert type(ctl.pipeline.scheduler).__name__ == cls
+        assert np.isfinite(out).all()
     with pytest.raises(ValueError, match="unknown sampler"):
         ctl.generate(**kw, sampler="nope")
     ctl.generate(**kw)

@@ -5,7 +5,10 @@ I2V, V2V with strength 0.5, and T2V through an inpaint model -- from the
 same numpy video, mask, noise and prompt embeddings.
 
 Weights cross through the reference-layout dicts (the tiny MMDiT with
-4 + 1 + 4 input channels, the tiny MagViT with its encoder). Both sides run
+4 + 1 + 4 input channels, the tiny MagViT with its encoder): the port's
+random weights, converted for JAX by its own convert_*_state_dict (much
+faster than a JAX init; the JAX exporters' dicts are held against the port
+in tests/test_torch_mmdit.py and tests/test_torch_vae.py). Both sides run
 in float32; JAX's noise augmentation is off (noise_aug_strength=0), since
 its draws are JAX's. Final latents agree to 5e-4 (the full-model bound of
 tests/test_mmdit_full_golden.py), the uint8 video to 1 (a value within the
@@ -19,16 +22,19 @@ import numpy as np
 import pytest
 import torch
 
+from easyanimate_tpu.models import convert as jconvert
 from easyanimate_tpu.models.mmdit import PRESETS as JAX_PRESETS
+from easyanimate_tpu.models.mmdit import EasyAnimateTransformer3D as JaxModel
+from easyanimate_tpu.models.vae import magvit as jmagvit
 from easyanimate_tpu.pipeline import inpaint as jinpaint
 from easyanimate_tpu.utils import media as jmedia
-from easyanimate_tpu_torch.models.convert import load_reference_state_dict
 from easyanimate_tpu_torch.models.mmdit import EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.vae import AutoencoderKLMagvit
 from easyanimate_tpu_torch.pipeline import inpaint as tinpaint
 from easyanimate_tpu_torch.utils import media as tmedia
-from tests.test_torch_mmdit import export_jax_mmdit, port_mmdit_cfg
-from tests.test_torch_vae import JAX_TINY_VAE, export_jax_vae, port_vae_cfg
+from tests.test_torch_mmdit import port_mmdit_cfg
+from tests.test_torch_serving import _random_weights
+from tests.test_torch_vae import JAX_TINY_VAE, port_vae_cfg
 
 LATENT_TOL = 5e-4
 H = W = 64
@@ -88,16 +94,16 @@ def pipelines():
     """The JAX inpaint pipeline and the port's on the same tiny weights."""
     jcfg = dataclasses.replace(JAX_PRESETS["tiny"], num_attention_heads=6,
                                in_channels=4 + 1 + 4, out_channels=4)
-    jmodel, jparams, mmdit_sd = export_jax_mmdit(jcfg, lat_shape=(1, 9, 2, 8, 8))
-    jvae, vparams, vae_sd = export_jax_vae(JAX_TINY_VAE)
-    jpipe = jinpaint.EasyAnimateInpaintPipeline(
-        transformer=jmodel, vae=jvae, transformer_params=jparams,
-        vae_params=vparams)
     transformer = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg), device="cpu")
-    load_reference_state_dict(transformer, mmdit_sd)
     assert transformer.proj.weight.shape[1] == 9  # proj.weight: 33 at 12B
+    jparams = jconvert.convert_mmdit_state_dict(
+        _random_weights(transformer, 0), jcfg)
     vae = AutoencoderKLMagvit(port_vae_cfg(JAX_TINY_VAE), device="cpu")
-    load_reference_state_dict(vae, vae_sd)
+    vparams = jconvert.convert_vae_state_dict(_random_weights(vae, 1),
+                                              JAX_TINY_VAE)
+    jpipe = jinpaint.EasyAnimateInpaintPipeline(
+        transformer=JaxModel(jcfg), vae=jmagvit.AutoencoderKLMagvit(
+            JAX_TINY_VAE), transformer_params=jparams, vae_params=vparams)
     return jpipe, tinpaint.EasyAnimateInpaintPipeline(transformer, vae)
 
 

@@ -191,7 +191,9 @@ def test_config_mappers_and_yaml_builders_match_jax(model_dir):
 
 def test_ref_and_clip_parameters_load_strictly_and_their_inputs_raise():
     """A V5.1 checkpoint that carries ref_proj / clip_proj loads with
-    strict=True (JAX convert.py:118-119 keys); passing their inputs raises."""
+    strict=True (JAX convert.py:118-119 keys); their inputs, which raised
+    before the control path was ported, now change the forward
+    (tests/test_torch_control.py holds them against JAX)."""
     cfg = dataclasses.replace(PRESETS["tiny"], ref_channels=4, clip_channels=8)
     jcfg = dataclasses.replace(JAX_PRESETS["tiny"], ref_channels=4,
                                clip_channels=8)
@@ -205,11 +207,13 @@ def test_ref_and_clip_parameters_load_strictly_and_their_inputs_raise():
     tconvert.load_reference_state_dict(model, sd)
     lat = torch.zeros(1, 4, 2, 8, 8)
     args = (lat, torch.ones(1), torch.zeros(1, 3, cfg.text_embed_dim))
-    model(*args)  # no ref / clip inputs: the plain T2V forward
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model(*args, ref_latents=lat)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model(*args, clip_encoder_hidden_states=torch.zeros(1, 3, 8))
+    with torch.no_grad():
+        plain = model(*args)  # no ref / clip inputs: the plain T2V forward
+        for kw in ({"ref_latents": torch.ones(1, 4, 1, 8, 8)},
+                   {"clip_encoder_hidden_states": torch.ones(1, 3, 8)}):
+            out = model(*args, **kw)
+            assert out.shape == plain.shape and torch.isfinite(out).all()
+            assert (out - plain).abs().max() > 1e-4
 
 
 def test_everything_not_ported_raises(model_dir, tmp_path):
@@ -223,14 +227,14 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
     for kw in ({"int8_linears": True}, {"int4_weights": True}):
         with pytest.raises(NotImplementedError, match="item 5"):
             load(**kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        load(pipeline_type="control")
-    for name in ("ddim", "euler"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            load(scheduler=name)
+    # the control pipeline and the samplers are ported: they load
+    assert isinstance(load(pipeline_type="control"),
+                      loader.EasyAnimateControlPipeline)
+    assert isinstance(load(scheduler="ddim").scheduler, loader.DDIMConfig)
+    # any other scheduler string gives FlowMatch's defaults, as in JAX
+    assert load(scheduler="euler").scheduler == loader.FlowMatchEulerConfig()
     # no FlowMatch scheduler config: JAX falls back to DDIM
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loader.load_pipeline(str(tmp_path), device="cpu")
+    assert loader._scheduler(str(tmp_path), None) == loader.DDIMConfig()
     assert isinstance(load(pipeline_type="inpaint"),
                       loader.EasyAnimateInpaintPipeline)
     for vae_json in ({}, {"slice_mag_vae": True}):  # JAX: "none", "slice_mag"

@@ -4,7 +4,11 @@ whole -- CFG-batched denoise with guidance rescale, then the MagViT decode
 to uint8 -- from the same numpy latents and prompt embeddings.
 
 Both sides run in float32 with weights crossed through the reference-layout
-dicts. Final latents agree to 5e-4 (the full-model bound of
+dicts: the port's random weights, converted for JAX by its own
+convert_*_state_dict (much faster than a JAX init; the JAX exporters'
+dicts are held against the port in tests/test_torch_mmdit.py and
+tests/test_torch_vae.py), the VAE and its JAX decode shared by the
+parametrised cases. Final latents agree to 5e-4 (the full-model bound of
 tests/test_mmdit_full_golden.py). The uint8 video may differ by 1: a pixel
 whose value lands within the float32 difference of a rounding boundary
 (k + 0.5) / 255 rounds to k on one side and k + 1 on the other.
@@ -16,18 +20,20 @@ import numpy as np
 import pytest
 import torch
 
+from easyanimate_tpu.models import convert as jconvert
 from easyanimate_tpu.models.mmdit import PRESETS as JAX_PRESETS
+from easyanimate_tpu.models.mmdit import EasyAnimateTransformer3D as JaxModel
+from easyanimate_tpu.models.vae import magvit as jmagvit
 from easyanimate_tpu.pipeline import schedulers as jsched
 from easyanimate_tpu.pipeline.t2v import EasyAnimatePipeline as JaxPipeline
 from easyanimate_tpu.pipeline.t2v import build_rope as jax_build_rope
-from easyanimate_tpu_torch.models.convert import load_reference_state_dict
 from easyanimate_tpu_torch.models.mmdit import EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.vae import (AutoencoderKLMagvit,
                                               latent_frame_count)
 from easyanimate_tpu_torch.pipeline import schedulers as tsched
 from easyanimate_tpu_torch.pipeline.t2v import EasyAnimatePipeline, build_rope
-from tests.test_torch_mmdit import export_jax_mmdit, port_mmdit_cfg
-from tests.test_torch_vae import JAX_TINY_VAE, export_jax_vae, port_vae_cfg
+from tests.test_torch_mmdit import port_mmdit_cfg
+from tests.test_torch_vae import JAX_TINY_VAE, port_vae_cfg
 
 LATENT_TOL = 5e-4
 
@@ -74,20 +80,34 @@ def test_build_rope_and_latent_shape_match_jax():
     assert pipe.latent_shape(1, 49, 384, 672) == (1, 16, 13, 48, 84)
 
 
+@pytest.fixture(scope="module")
+def vae_pair():
+    """The tiny MagViT (random weights) in both packages, and a JAX
+    pipeline whose compiled decode every case shares."""
+    from tests.test_torch_serving import _random_weights
+
+    vae = AutoencoderKLMagvit(port_vae_cfg(JAX_TINY_VAE), device="cpu")
+    vparams = jconvert.convert_vae_state_dict(_random_weights(vae, 0),
+                                              JAX_TINY_VAE)
+    jvae = jmagvit.AutoencoderKLMagvit(JAX_TINY_VAE)
+    decoder = JaxPipeline(transformer=None, vae=jvae, vae_params=vparams,
+                          transformer_params=None)
+    return jvae, vparams, vae, decoder
+
+
 @pytest.mark.parametrize("swa_layers", [None, (1,)])
-def test_t2v_slice_matches_jax(rng, swa_layers):
+def test_t2v_slice_matches_jax(rng, swa_layers, vae_pair):
     """Tiny MMDiT + tiny MagViT, 64x64x5f, 3 steps, CFG 6 with rescale."""
+    from tests.test_torch_serving import _random_weights
+
     jcfg = dataclasses.replace(JAX_PRESETS["tiny"], num_attention_heads=6,
                                swa_layers=swa_layers)
-    jmodel, jparams, mmdit_sd = export_jax_mmdit(jcfg)
-    jvae, vparams, vae_sd = export_jax_vae(JAX_TINY_VAE)
-    jpipe = JaxPipeline(transformer=jmodel, vae=jvae,
-                        transformer_params=jparams, vae_params=vparams)
-
     transformer = EasyAnimateTransformer3D(port_mmdit_cfg(jcfg), device="cpu")
-    load_reference_state_dict(transformer, mmdit_sd)
-    vae = AutoencoderKLMagvit(port_vae_cfg(JAX_TINY_VAE), device="cpu")
-    load_reference_state_dict(vae, vae_sd)
+    jparams = jconvert.convert_mmdit_state_dict(
+        _random_weights(transformer, 2), jcfg)
+    jvae, vparams, vae, decoder = vae_pair
+    jpipe = JaxPipeline(transformer=JaxModel(jcfg), vae=jvae,
+                        transformer_params=jparams, vae_params=vparams)
     pipe = EasyAnimatePipeline(transformer, vae, "cpu")
 
     h = w = 64
@@ -103,7 +123,7 @@ def test_t2v_slice_matches_jax(rng, swa_layers):
 
     lat_j = jpipe(jnp.asarray(pos), jnp.asarray(neg), latents=jnp.asarray(lat0),
                   output_type="latent", **kw)
-    video_j = jpipe.decode_latents(lat_j, to_uint8=True)
+    video_j = decoder.decode_latents(lat_j, to_uint8=True)
 
     seen = []
     video_t = pipe(torch.from_numpy(pos), torch.from_numpy(neg),

@@ -103,10 +103,11 @@ def test_tiny_decode_matches_jax(rng, tiny_vae, chunk):
     _close(got, want)
 
 
-def test_variant_decode_matches_jax(rng):
-    """The decoder's other paths: a temporal up block (first-frame rule +
-    trilinear 2x), whole-clip group norm with the trilinear
-    spatial-temporal upsampler, and temporal mid-block attention."""
+@pytest.fixture(scope="module")
+def variant_vae():
+    """The variant geometry's JAX VAE and the port's on its exported
+    weights, shared by the variant encode and decode cases (the decode
+    runs 2 latent frames a pass)."""
     jcfg = jmagvit.MagvitVAEConfig(
         latent_channels=4, block_out_channels=(16, 16, 16),
         down_block_types=("SpatialDownBlock3D", "TemporalDownBlock3D",
@@ -118,6 +119,14 @@ def test_variant_decode_matches_jax(rng):
     vae_j, params, sd = export_jax_vae(jcfg, seed=1)
     port = AutoencoderKLMagvit(port_vae_cfg(jcfg), device="cpu")
     load_reference_state_dict(port, sd)
+    return vae_j, params, port
+
+
+def test_variant_decode_matches_jax(rng, variant_vae):
+    """The decoder's other paths: a temporal up block (first-frame rule +
+    trilinear 2x), whole-clip group norm with the trilinear
+    spatial-temporal upsampler, and temporal mid-block attention."""
+    vae_j, params, port = variant_vae
     z = rng.standard_normal((1, 4, 3, 4, 4)).astype(np.float32)
     want = jmagvit.vae_decode(vae_j, params, jnp.asarray(z))
     with torch.no_grad():
@@ -210,21 +219,11 @@ def test_tiny_encode_matches_jax(rng, tiny_vae):
            VAE_TOL)
 
 
-def test_variant_encode_matches_jax(rng):
+def test_variant_encode_matches_jax(rng, variant_vae):
     """The encoder's other paths: a temporal down block (stride (2, 1, 1),
     symmetric spatial padding), whole-clip group norm, temporal mid-block
     attention."""
-    jcfg = jmagvit.MagvitVAEConfig(
-        latent_channels=4, block_out_channels=(16, 16, 16),
-        down_block_types=("SpatialDownBlock3D", "TemporalDownBlock3D",
-                          "SpatialTemporalDownBlock3D"),
-        up_block_types=("SpatialTemporalUpBlock3D", "TemporalUpBlock3D",
-                        "SpatialUpBlock3D"),
-        norm_num_groups=4, spatial_group_norm=False,
-        mid_block_attention_type="temporal")
-    vae_j, params, sd = export_jax_vae(jcfg, seed=1)
-    port = AutoencoderKLMagvit(port_vae_cfg(jcfg), device="cpu")
-    load_reference_state_dict(port, sd)
+    vae_j, params, port = variant_vae
     x = rng.uniform(-1, 1, (1, 3, 9, 16, 16)).astype(np.float32)
     want = jmagvit.vae_encode(vae_j, params, jnp.asarray(x))
     with torch.no_grad():
