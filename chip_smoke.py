@@ -76,8 +76,17 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              and backward, with fuse_cross=True (K5) against False
   lora_dense 3 LoRA steps (rank 128) on the same 12B at 384x672x49f
   lora_swa   3 LoRA steps on its swa_layers = 1..47 variant
-  sft        3 SFT steps (AdamW, float32 masters) at the 12B widths,
-             4 layers: layer 0 dense, 1-3 SWA
+  train_driver  the training driver's loop (easyanimate_tpu_torch.train)
+             on the dense 12B and the full MagViT: a manifest of 2 videos
+             and 2 images (file reads patched: seeded frames at the size),
+             prompts through the full Qwen2-VL tower (stand-in tokenizer),
+             LoRA rank 128, batch 1; 2 steps with a checkpoint at step 2,
+             then a resume that must restore the saved state and sampler
+             cursor bit for bit, and step 3; the kohya export read back;
+             VAE-encode, step, checkpoint save / load seconds, peak
+  sft        SFT at the 12B widths, 4 layers (0 dense, 1-3 SWA), float32
+             masters: 3 steps each of AdamW, CAME and 8-bit AdamW, then
+             1 'ddpm' step; s/step, peak and optimizer-state bytes each
 Each main-path phase sets the kernels' launch counts to 0 just before it
 and checks them just after, and that every launch of K1-K7 (d 64) ran its
 TMA + wgmma kernel. Then the per-kernel JSON line and, last, the
@@ -124,8 +133,13 @@ from easyanimate_tpu_torch.pipeline import (EasyAnimateControlPipeline,
                                             make_scheduler)
 from easyanimate_tpu_torch.pipeline import control as control_module
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
+from easyanimate_tpu_torch import train as train_module
+from easyanimate_tpu_torch.data import dataset as dataset_module
+from easyanimate_tpu_torch.models.convert import load_lora_reference
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.training import trainer as ttrainer
+from easyanimate_tpu_torch.training.checkpoints import (CheckpointManager,
+                                                        flatten_state)
 from easyanimate_tpu_torch.ui import controller as controller_module
 from easyanimate_tpu_torch.ui.controller import EasyAnimateController
 from easyanimate_tpu_torch.utils.fp8 import fp8_byte_share
@@ -1792,35 +1806,252 @@ def phase_lora(phase, model, seed, expect):
     return out
 
 
+SFT_LAUNCHES = {"K1": 8, "K2": 6, "K3": 4, "K4": 4, "K5": 0, "K6": 3, "K7": 3}
+# the sft phase's runs: (name, TrainConfig fields, steps)
+SFT_VARIANTS = (("sft", {}, TRAIN_STEPS),
+                ("sft_came", {"optimizer": "came"}, TRAIN_STEPS),
+                ("sft_adamw8bit", {"optimizer": "adamw8bit"}, TRAIN_STEPS),
+                ("sft_ddpm", {"loss_type": "ddpm"}, 1))
+
+
+def state_bytes(tree):
+    """Bytes of the tensors in a (nested) training state."""
+    tensors = []
+    flatten_state(tree, tensors)
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_sft(seed):
     """make_train_step at the 12B widths, 4 layers (0 dense, 1-3 SWA),
-    random weights, AdamW with float32 masters, 384x672x49f."""
+    random weights, float32 masters, 384x672x49f: 3 steps each of AdamW,
+    CAME and 8-bit AdamW, then 1 'ddpm' step (AdamW), each from fresh
+    masters and optimizer state; s/step, peak memory and the optimizer
+    state's bytes of each."""
     dev = DEVICE
     cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=4,
                               swa_layers=(1, 2, 3))
     model = EasyAnimateTransformer3D(cfg, device="meta")
     model = init_random_(model.to_empty(device=dev),
                          torch.Generator(device=dev).manual_seed(seed))
-    tcfg = ttrainer.TrainConfig()
-    state = ttrainer.create_train_state(model, tcfg)
     watch = ["transformer_blocks.0.attn1.to_q.weight",
              "transformer_blocks.2.ff.net.2.weight", "proj_out.weight"]
-    start = {n: state.params[n].clone() for n in watch}
     batch, gen = train_batch(cfg, seed)
-    state, out = train_phase(
-        "sft", ttrainer.make_train_step(model, tcfg), state, batch, gen,
-        {"K1": 8, "K2": 6, "K3": 4, "K4": 4, "K5": 0, "K6": 3, "K7": 3})
-    moved = {n: (state.params[n] - start[n]).abs().max().item() for n in watch}
-    synced = all(torch.equal(p, state.params[n].to(p.dtype))
-                 for n, p in model.named_parameters())
-    out.update(params=sum(p.numel() for p in model.parameters()),
-               layers=cfg.num_layers, swa_layers=list(cfg.swa_layers),
-               master_max_abs_change=moved, model_matches_masters=synced)
+    outs = []
+    for name, fields, steps in SFT_VARIANTS:
+        tcfg = ttrainer.TrainConfig(**fields)
+        torch.cuda.empty_cache()
+        state = ttrainer.create_train_state(model, tcfg)
+        start = {n: state.params[n].clone() for n in watch}
+        state, out = train_phase(
+            name, ttrainer.make_train_step(model, tcfg), state, batch, gen,
+            SFT_LAUNCHES, steps=steps)
+        moved = {n: (state.params[n] - start[n]).abs().max().item()
+                 for n in watch}
+        synced = all(torch.equal(p, state.params[n].to(p.dtype))
+                     for n, p in model.named_parameters())
+        out.update(params=sum(p.numel() for p in model.parameters()),
+                   layers=cfg.num_layers, swa_layers=list(cfg.swa_layers),
+                   train_config=fields,
+                   optimizer_state_bytes=state_bytes(state.opt_state),
+                   master_bytes=state_bytes(state.params),
+                   master_max_abs_change=moved, model_matches_masters=synced)
+        emit(out)
+        if not (all(v > 0 for v in moved.values()) and synced):
+            raise AssertionError(f"{name}: the parameters did not move or the "
+                                 "model does not hold its masters")
+        outs.append(out)
+        del state, start
+    return outs
+
+
+DRIVER_STEPS, DRIVER_CHECKPOINT = 3, 2
+
+
+class _Recorded:
+    """Wraps a callable: CUDA events around each call (device seconds of
+    the work it queues, read after the run without adding a sync)."""
+
+    def __init__(self, fn):
+        self.fn, self.events = fn, []
+
+    def __call__(self, *a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*a, **k)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def seconds(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) / 1e3 for s, e in self.events]
+
+
+def _media_reads(height, width):
+    """Stand-ins for the dataset's file reads (the card machine has no
+    PIL, imageio or cv2): seeded uint8 frames at the target size, by path,
+    so the sampler, buckets, loader, collate and crop run as they are."""
+    def frames(path, n):
+        rng = np.random.default_rng(zlib.crc32(path.encode()))
+        return rng.integers(0, 256, (n, height, width, 3), dtype=np.uint8)
+
+    return {"_read_video": lambda path, idx: frames(path, len(idx)),
+            "_read_image": lambda path: frames(path, 1)[0],
+            "_probe_frame_count": lambda path: 0}
+
+
+def phase_train_driver(model, vae, seed, root):
+    """The training driver's loop (train.train, what `python -m
+    easyanimate_tpu_torch.train` runs after loading) on the resident 12B
+    and the full MagViT: LoRA rank 128 at HxWxFRAMES, batch 1, a manifest
+    of 2 videos and 2 images (their file reads patched into the dataset
+    module), prompts through the full Qwen2-VL tower (random weights, the
+    stand-in tokenizer). DRIVER_CHECKPOINT steps with checkpointing at
+    DRIVER_CHECKPOINT; then a resume from that checkpoint, which must
+    restore the saved state and sampler cursor bit for bit, finishes step
+    DRIVER_STEPS. Checks: finite losses, each step's launches those of
+    phase_lora (K1 96, K3 48, K4 48), the kohya export read back by
+    load_lora_reference equal to the final factors, the frozen base weights
+    unchanged. Returns the phase's launches."""
+    t_tower = time.perf_counter()
+    tower = Qwen2TextEncoder(Qwen2Config(), device="meta").to_empty(
+        device=DEVICE)
+    init_random_(tower, torch.Generator(device=DEVICE).manual_seed(seed))
+    enc = QwenVLTextEncoder(tower, tokenizer=WordTokenizer(),
+                            max_length=TEXT_LEN)
+    torch.cuda.synchronize()
+    tower_s = time.perf_counter() - t_tower
+
+    def encode_text(prompts):
+        return {"text": enc(list(prompts))[0]}
+
+    entries = [{"file_path": f"clip{i}.mp4", "type": "video",
+                "num_frames": 120, "text": f"{SERVE_PROMPT} take {i}"}
+               for i in range(2)]
+    entries += [{"file_path": f"still{i}.png", "type": "image",
+                 "text": f"a still of the forest, number {i}"}
+                for i in range(2)]
+    meta = os.path.join(root, "train.json")
+    with open(meta, "w") as f:
+        json.dump(entries, f)
+    out_dir = os.path.join(root, "run")
+    argv = ["--train_data_meta", meta, "--train_data_dir", root,
+            "--output_dir", out_dir, "--lora_rank", "128",
+            "--sample_height", str(H), "--sample_width", str(W),
+            "--video_sample_n_frames", str(FRAMES),
+            "--checkpointing_steps", str(DRIVER_CHECKPOINT),
+            "--dataloader_num_workers", "2", "--no-sanity_check",
+            "--seed", str(seed)]
+    expect = {"K1": 96, "K2": 0, "K3": 48, "K4": 48, "K5": 0, "K6": 0,
+              "K7": 0}
+    step_launches, checks = [], {}
+    make_step = train_module.make_lora_train_step
+
+    def checked_lora_step(*a, **k):
+        init, step = make_step(*a, **k)
+
+        def counted(state, batch, **kw):
+            before = read_counts()
+            out = step(state, batch, **kw)
+            got = {n: c - before[n] for n, c in read_counts().items()}
+            step_launches.append(got)
+            if got != expect:
+                raise AssertionError(f"train_driver: step launches {got} "
+                                     f"!= {expect}")
+            return out
+
+        return init, counted
+
+    saved = {}
+
+    class RecordingManager(CheckpointManager):
+        """Holds the restored state against the saved one, bit for bit,
+        before the resumed run trains on it."""
+
+        def restore_latest(self, template=None, device=None):
+            t0 = time.perf_counter()
+            state, cursor, step = super().restore_latest(template, device)
+            torch.cuda.synchronize()
+            checks["restore_s"] = time.perf_counter() - t0
+            got = []
+            spec = flatten_state(state, got)
+            checks["restored_step"] = step
+            checks["restored_equal"] = spec == saved["spec"] and all(
+                torch.equal(g.detach(), w)
+                for g, w in zip(got, saved["tensors"]))
+            checks["cursor_equal"] = cursor == saved["cursor"]
+            return state, cursor, step
+
+    encode = _Recorded(train_module.vae_encode)
+    patches = [(train_module, "vae_encode", encode),
+               (train_module, "make_lora_train_step", checked_lora_step),
+               (train_module, "CheckpointManager", RecordingManager)]
+    patches += [(dataset_module, k, v) for k, v in _media_reads(H, W).items()]
+    originals = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    before = checksum(model)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for m, k, v in patches:
+            setattr(m, k, v)
+        first = train_module.train(train_module.parse_args(
+            argv + ["--max_train_steps", str(DRIVER_CHECKPOINT)]),
+            model, vae, encode_text, DEVICE)
+        peak_first = torch.cuda.max_memory_allocated() / 2**30
+        # the saved state stays on the card (8 GB) for the comparison
+        tensors = []
+        saved["spec"] = flatten_state(first.state, tensors)
+        saved["tensors"] = [t.detach() for t in tensors]
+        saved["cursor"] = first.sampler_state
+        state_b = state_bytes(first.state)
+        first.state = None
+        del tensors
+        second = train_module.train(train_module.parse_args(
+            argv + ["--max_train_steps", str(DRIVER_STEPS),
+                    "--resume_from_checkpoint"]),
+            model, vae, encode_text, DEVICE)
+    finally:
+        for m, k, v in originals:
+            setattr(m, k, v)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    saved.clear()
+    lora, lcfg = load_lora_reference(model, second.lora_path, device=DEVICE)
+    exported = lcfg.rank == 128 and set(lora) == set(second.state.params) and \
+        all(torch.equal(lora[p][k], t.detach())
+            for p, fac in second.state.params.items() for k, t in fac.items())
+    frozen = checksum(model) == before
+    losses = first.losses + second.losses
+    out = {"phase": "train_driver", "lora_rank": 128, "batch": 1,
+           "frames": FRAMES, "height": H, "width": W,
+           "manifest": {"videos": 2, "images": 2},
+           "steps": len(losses), "resumed_from": checks.get("restored_step"),
+           "losses": losses, "s_per_step": first.step_s + second.step_s,
+           "vae_encode_s": encode.seconds(),
+           "checkpoint_save_s": first.save_s + second.save_s,
+           "checkpoint_load_s": checks.get("restore_s"),
+           "driver_load_s": second.load_s,
+           "state_bytes": state_b, "tower_build_s": tower_s,
+           "restored_state_bit_equal": checks.get("restored_equal"),
+           "restored_cursor_equal": checks.get("cursor_equal"),
+           "cursor_saved": first.sampler_state,
+           "kohya_export_loads_equal": exported,
+           "base_weights_unchanged": frozen,
+           "step_launches": step_launches,
+           "max_memory_allocated_gib_first_run": peak_first,
+           "max_memory_allocated_gib": peak,
+           "peak_note": "the first run's peak is the driver's own; the "
+                        "overall one adds the saved state held on the card "
+                        "for the bit-equality check",
+           "text_tower": "resident beside the 12B, the VAE and the LoRA step"}
     emit(out)
-    if not (all(v > 0 for v in moved.values()) and synced):
-        raise AssertionError("sft: the parameters did not move or the model "
-                             "does not hold its masters")
-    return out
+    del lora, second, enc, tower
+    torch.cuda.empty_cache()
+    if not (all(map(math.isfinite, losses)) and len(losses) == DRIVER_STEPS
+            and checks.get("restored_step") == DRIVER_CHECKPOINT
+            and checks.get("restored_equal") and checks.get("cursor_equal")
+            and exported and frozen and len(step_launches) == DRIVER_STEPS):
+        raise AssertionError(f"train_driver: a check failed: {out}")
+    return {k: v * DRIVER_STEPS for k, v in expect.items()}
 
 
 def main():
@@ -1916,7 +2147,6 @@ def main():
     # decisions, so the phase checks each request's launches itself
     expect_requests = path_run(
         "serve", lambda: phase_serve(model, vae, args.seed + 30, steps))
-    del vae
     torch.cuda.empty_cache()
 
     # the fused SWA path: forward K5 + K1 (text queries); backward K2 + K1
@@ -1932,18 +2162,28 @@ def main():
 
     # training: K1 runs twice per layer per step (forward + remat recompute)
     n = TRAIN_STEPS
+    lora_dense = {"K1": 96, "K2": 0, "K3": 48, "K4": 48, "K5": 0, "K6": 0,
+                  "K7": 0}
+    lora_swa = {"K1": 96, "K2": 94, "K3": 48, "K4": 48, "K5": 0, "K6": 47,
+                "K7": 47}
     path_run("lora_dense", lambda: phase_lora(
-        "lora_dense", model, args.seed + 4,
-        {"K1": 96, "K2": 0, "K3": 48, "K4": 48, "K5": 0, "K6": 0, "K7": 0}))
+        "lora_dense", model, args.seed + 4, lora_dense))
     path_run("lora_swa", lambda: phase_lora(
-        "lora_swa", swa_model, args.seed + 5,
-        {"K1": 96, "K2": 94, "K3": 48, "K4": 48, "K5": 0, "K6": 47, "K7": 47}))
-    del model, swa_model
+        "lora_swa", swa_model, args.seed + 5, lora_swa))
+    del swa_model
+    torch.cuda.empty_cache()
+    # the driver's loop on the dense 12B: LoRA steps from a manifest, a
+    # checkpoint, a resume; its temporary directory is removed after it
+    with tempfile.TemporaryDirectory() as root:
+        expect_driver = path_run("train_driver", lambda: phase_train_driver(
+            model, vae, args.seed + 60, root))
+    del model, vae
     torch.cuda.empty_cache()
     path_run("sft", lambda: phase_sft(args.seed + 6))
-    expect_train = {"K1": 2 * 96 * n + 8 * n, "K2": 94 * n + 6 * n,
-                    "K3": 2 * 48 * n + 4 * n, "K4": 2 * 48 * n + 4 * n,
-                    "K6": 47 * n + 3 * n, "K7": 47 * n + 3 * n}
+    n_sft = sum(steps for _, _, steps in SFT_VARIANTS)
+    expect_train = {k: n * (lora_dense[k] + lora_swa[k])
+                    + n_sft * SFT_LAUNCHES[k] + expect_driver[k]
+                    for k in COUNTERS}
     expect_serve = {"K1": 4 * 48 * steps, "K2": 47 * steps}
     expect_loader = {k: 3 * n for k, n in LOADER_LAUNCHES.items()}
     want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)

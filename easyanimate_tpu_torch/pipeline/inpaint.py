@@ -19,7 +19,7 @@ pipeline_easyanimate_inpaint.py):
 The V4 CLIP-image branch (clip_apply_ratio) is not ported: it waits with
 V4 (ROADMAP queue 1 item 11).
 """
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,19 +51,25 @@ def resize_mask_to_latent(mask: torch.Tensor, latent_shape: Sequence[int],
 
 def add_noise_to_reference_video(video: torch.Tensor,
                                  generator: Optional[torch.Generator] = None,
-                                 ratio: Optional[float] = None
+                                 ratio: Optional[float] = None,
+                                 draws: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]] = None
                                  ) -> torch.Tensor:
     """video + sigma * N(0, 1) per sample, sigma = ratio or exp(N(-3, 0.5));
-    masked pixels (exactly -1) stay clean."""
+    masked pixels (exactly -1) stay clean. `draws` (the N(0, 1) draws: [B]
+    for sigma, video's shape for the noise) are drawn from `generator`
+    when not handed in."""
     b = video.shape[0]
     if ratio is None:
-        sigma = torch.exp(torch.randn(b, generator=generator,
-                                      device=video.device) * 0.5 - 3.0)
+        draw = (torch.randn(b, generator=generator, device=video.device)
+                if draws is None else draws[0])
+        sigma = torch.exp(draw * 0.5 - 3.0)
     else:
         sigma = torch.full((b,), float(ratio), device=video.device)
     sigma = sigma.view(b, 1, 1, 1, 1).to(video.dtype)
-    noise = torch.randn(video.shape, generator=generator, device=video.device,
-                        dtype=video.dtype) * sigma
+    noise = (torch.randn(video.shape, generator=generator,
+                         device=video.device, dtype=video.dtype)
+             if draws is None else draws[1].to(video.dtype)) * sigma
     return video + torch.where(video == -1.0, 0.0, noise)
 
 

@@ -1,8 +1,9 @@
 """Gradient transformations over {name: tensor} dicts, the optax pieces the
 JAX trainer chains (easyanimate_tpu/training/trainer.py::make_optimizer):
 clip_by_global_norm, scale_by_adam, add_decayed_weights,
-scale_by_learning_rate, a per-name scale, chain and MultiSteps, with the
-same formulas and counters as optax 0.2.
+scale_by_learning_rate, scale_by_schedule, a per-name scale, chain and
+MultiSteps, with the same formulas and counters as optax 0.2 (CAME and
+8-bit Adam are came.py and adam8bit.py).
 
 Each transformation is an (init, update) pair: init(params) -> state;
 update(updates, state, params) -> (updates, state). Updates are new
@@ -106,6 +107,15 @@ def add_decayed_weights(weight_decay: float,
                 for k, g in updates.items()}, state
 
     return GradientTransformation(lambda params: (), update)
+
+
+def scale_by_schedule(schedule: Schedule) -> GradientTransformation:
+    """optax.scale_by_schedule: u * schedule(count), count from 0."""
+    def update(updates, count, params=None):
+        step = schedule(count)
+        return {k: g * step for k, g in updates.items()}, count + 1
+
+    return GradientTransformation(lambda params: 0, update)
 
 
 def scale_by_learning_rate(schedule: Schedule) -> GradientTransformation:

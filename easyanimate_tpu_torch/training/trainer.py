@@ -10,8 +10,11 @@ DeepSpeed loop, train.py:1649-2207). Carried over:
     (train.py:1090-1094, 1207-1251); the port's names are the reference's
     own state-dict keys
   - frozen gradients zeroed before the clip, fixed or adaptive global-norm
-    clip (train.py:2116-2137), AdamW with a weight-decay mask, gradient
-    accumulation as optax.MultiSteps (train.py:881-886), EMA.
+    clip (train.py:2116-2137), AdamW with a weight-decay mask, CAME and
+    8-bit AdamW (train.py:1186-1203), gradient accumulation as
+    optax.MultiSteps (train.py:881-886), EMA
+  - the flow-matching loss and the DDPM-family 'ddpm' / 'sigma' losses
+    (train.py:938-942, 2022-2076) through utils/diffusion.py.
 
 Precision: the JAX parameters are float32 and are cast to the compute
 dtype at use. The port's modules hold the compute dtype (bf16 at 12B), so
@@ -21,10 +24,10 @@ gradient of a bf16 parameter, cast to float32, is the gradient JAX takes
 with respect to its float32 parameter.
 
 The step takes latents + text embeddings (VAE and text encoding happen
-before it). Random draws come from a torch.Generator, or are handed in
-(`draws`) so that a test can give both packages the same numbers.
-Still to port (ROADMAP queue 1 item 10): the 'came' and 'adamw8bit'
-optimizers, and the 'ddpm' / 'sigma' losses with utils/diffusion.py.
+before it), and the inpaint / control latents of the -InP and -Control
+models. Random draws come from a torch.Generator, or are handed in
+(`draws`) so that a test can give both packages the same numbers. V5's
+second text stream (`text_t5`) is not ported (ROADMAP queue 1 item 11).
 """
 import dataclasses
 import math
@@ -33,11 +36,15 @@ from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from ..pipeline.schedulers import DDIMConfig
+from ..utils.diffusion import GaussianDiffusion
 from . import optim
-from .losses import (FlowMatchLossConfig, flow_noise_and_target,
-                     masked_mse_loss, sample_flow_sigmas, with_motion_sub_loss)
+from .adam8bit import scale_by_adam8bit
+from .came import came
+from .losses import (FlowMatchLossConfig, ddpm_sample_timesteps,
+                     flow_noise_and_target, masked_mse_loss,
+                     sample_flow_sigmas, with_motion_sub_loss)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 10)"
 
 
 @dataclasses.dataclass
@@ -58,10 +65,10 @@ class TrainConfig:
     max_grad_norm: float = 0.05
     ema_decay: float = 0.9999
     use_ema: bool = False
-    # 'flow' (V5.1); 'ddpm' and 'sigma' are not ported yet
+    # 'flow' (V5.1), 'ddpm' (plain eps MSE), 'sigma' (IDDPM learned-range VB)
     loss_type: str = "flow"
     loss: FlowMatchLossConfig = dataclasses.field(default_factory=FlowMatchLossConfig)
-    # 'adamw'; 'came' and 'adamw8bit' are not ported yet
+    # optimizer family: 'adamw' | 'came' | 'adamw8bit' (train.py:1186-1203)
     optimizer: str = "adamw"
     # LR schedule (train.py:1504-1510): 'constant' | 'linear' | 'cosine'
     lr_scheduler: str = "constant"
@@ -84,6 +91,12 @@ class FlowDraws(NamedTuple):
     """The random inputs of one flow-matching step."""
     sigmas: torch.Tensor     # [B] float32
     timesteps: torch.Tensor  # [B] float32
+    noise: torch.Tensor      # latents' shape, float32
+
+
+class DDPMDraws(NamedTuple):
+    """The random inputs of one 'ddpm' / 'sigma' step."""
+    timesteps: torch.Tensor  # [B] integer
     noise: torch.Tensor      # latents' shape, float32
 
 
@@ -179,11 +192,10 @@ def make_optimizer(cfg: TrainConfig, names: Optional[Iterable[str]] = None
         if names is None:
             raise ValueError("trainable-module filtering needs parameter names")
         mult = lr_multiplier_tree(names, cfg)
-    if cfg.optimizer in ("came", "adamw8bit"):
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is {_NOT_PORTED}")
-    if cfg.optimizer != "adamw":
+    if cfg.optimizer not in ("adamw", "came", "adamw8bit"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
+    schedule = make_lr_schedule(cfg)
     parts = []
     if mult is not None:
         # zero frozen grads BEFORE the clip, so the global norm is over the
@@ -196,7 +208,20 @@ def make_optimizer(cfg: TrainConfig, names: Optional[Iterable[str]] = None
             cfg.abnormal_norm_clip_start))
     else:
         parts.append(optim.clip_by_global_norm(cfg.max_grad_norm))
-    parts.append(optim.scale_by_adam(cfg.adam_b1, cfg.adam_b2, cfg.adam_eps))
+    if cfg.optimizer == "came":
+        # came(1.0) emits already-negated unit-lr updates (the reference
+        # passes CAME no weight decay, train.py:1195-1203): multiply by +lr
+        parts.append(came(1.0))
+        if mult is not None:
+            parts.append(optim.scale_by_name(mult))
+        parts.append(optim.scale_by_schedule(schedule))
+        return _accumulate(optim.chain(*parts), cfg)
+    if cfg.optimizer == "adamw8bit":
+        parts.append(scale_by_adam8bit(cfg.adam_b1, cfg.adam_b2,
+                                       max(cfg.adam_eps, 1e-8)))
+    else:
+        parts.append(optim.scale_by_adam(cfg.adam_b1, cfg.adam_b2,
+                                         cfg.adam_eps))
     if cfg.weight_decay:
         parts.append(optim.add_decayed_weights(
             cfg.weight_decay,
@@ -205,8 +230,12 @@ def make_optimizer(cfg: TrainConfig, names: Optional[Iterable[str]] = None
         # dual LR: low-lr modules step at lr/2, frozen ones at 0 (again:
         # weight decay must not move them either)
         parts.append(optim.scale_by_name(mult))
-    parts.append(optim.scale_by_learning_rate(make_lr_schedule(cfg)))
-    tx = optim.chain(*parts)
+    parts.append(optim.scale_by_learning_rate(schedule))
+    return _accumulate(optim.chain(*parts), cfg)
+
+
+def _accumulate(tx: optim.GradientTransformation, cfg: TrainConfig
+                ) -> optim.GradientTransformation:
     if cfg.gradient_accumulation_steps > 1:
         tx = optim.multi_steps(tx, cfg.gradient_accumulation_steps)
     return tx
@@ -235,22 +264,57 @@ def draw_flow_inputs(generator: Optional[torch.Generator],
     return FlowDraws(sigmas, timesteps, noise)
 
 
+def draw_inputs(generator: Optional[torch.Generator], latents: torch.Tensor,
+                cfg: TrainConfig):
+    """The draws of one step of cfg.loss_type: FlowDraws, or DDPMDraws
+    (ddpm_sample_timesteps, then N(0, 1) noise)."""
+    if cfg.loss_type == "flow":
+        return draw_flow_inputs(generator, latents, cfg.loss)
+    t = ddpm_sample_timesteps(generator, latents.shape[0],
+                              cfg.loss.num_train_timesteps,
+                              cfg.loss.uniform_bands, latents.device)
+    return DDPMDraws(t, torch.randn(latents.shape, generator=generator,
+                                    device=latents.device))
+
+
+def apply_model(model: nn.Module, noisy: torch.Tensor,
+                timesteps: torch.Tensor, batch: Dict[str, Any]):
+    """The model on the noised latents with the batch's text, RoPE and
+    conditioning (inpaint / control latents), as the JAX loss applies it
+    (easyanimate_tpu/training/trainer.py:281-288)."""
+    if batch.get("text_t5") is not None:
+        raise NotImplementedError("text_t5, V5's second text stream, is not "
+                                  "ported (ROADMAP queue 1 item 11)")
+    return model(noisy, timesteps, batch["text"], batch.get("rope"),
+                 inpaint_latents=batch.get("inpaint_latents"),
+                 control_latents=batch.get("control_latents"))
+
+
 def flow_prediction(model: nn.Module, batch: Dict[str, Any], draws: FlowDraws):
     """(pred, target): the model on the noised latents, and eps - x0."""
     noisy, target = flow_noise_and_target(batch["latents"], draws.noise,
                                           draws.sigmas)
-    pred = model(noisy, draws.timesteps, batch["text"], batch.get("rope"))
-    return pred, target
+    return apply_model(model, noisy, draws.timesteps, batch), target
 
 
 def make_loss_fn(model: nn.Module, cfg: TrainConfig) -> Callable:
     """loss_fn(batch, draws) -> (loss, metrics) for cfg.loss_type, with the
     model's current parameters. batch: latents (B, C, T, H, W), text
-    (B, S, D), optional rope (cos, sin)."""
-    if cfg.loss_type in ("ddpm", "sigma"):
-        raise NotImplementedError(f"loss_type {cfg.loss_type!r} is {_NOT_PORTED}")
-    if cfg.loss_type != "flow":
+    (B, S, D), optional rope (cos, sin), inpaint_latents and
+    control_latents; draws: FlowDraws ('flow') or DDPMDraws."""
+    if cfg.loss_type not in ("flow", "ddpm", "sigma"):
         raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
+    if cfg.loss_type != "flow":
+        gd = GaussianDiffusion.from_config(DDIMConfig(
+            num_train_timesteps=cfg.loss.num_train_timesteps))
+
+        def ddpm_loss(batch, draws: DDPMDraws):
+            return gd.training_losses(
+                lambda xt, t: apply_model(model, xt, t.float(), batch),
+                batch["latents"], draws.timesteps, draws.noise,
+                learn_sigma=cfg.loss_type == "sigma")
+
+        return ddpm_loss
 
     def loss_fn(batch, draws: FlowDraws):
         pred, target = flow_prediction(model, batch, draws)
@@ -279,7 +343,7 @@ def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
 
     def step(state: TrainState, batch, generator=None, draws=None):
         if draws is None:
-            draws = draw_flow_inputs(generator, batch["latents"], cfg.loss)
+            draws = draw_inputs(generator, batch["latents"], cfg)
         model.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, draws)
         loss.backward()
@@ -311,7 +375,7 @@ def make_param_grad_norms(model: nn.Module, cfg: TrainConfig) -> Callable:
     loss_fn = make_loss_fn(model, cfg)
     named = dict(model.named_parameters())
 
-    def norms(batch, draws: FlowDraws):
+    def norms(batch, draws):
         model.zero_grad(set_to_none=True)
         loss_fn(batch, draws)[0].backward()
         out = {n: g.norm() for n, g in _grads(named).items()}

@@ -275,7 +275,11 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "need = {'easyanimate_tpu_torch.' + m for m in "
         "('training.losses', 'training.optim', 'training.trainer', "
-        "'training.lora', 'pipeline.inpaint', 'utils.media')}\n"
+        "'training.lora', 'pipeline.inpaint', 'utils.media', "
+        "'training.came', 'training.adam8bit', 'training.checkpoints', "
+        "'utils.diffusion', 'utils.observability', 'data.masks', "
+        "'data.buckets', 'data.dataset', 'data.prefetch', 'train', "
+        "'train_lora')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -184,10 +184,18 @@ def test_optimizer_matches_optax(rng, case):
 
 
 def test_unported_options_raise():
+    # V5's second text stream is the step's one unported input (item 11);
+    # came / adamw8bit and ddpm / sigma are ported and build
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.make_optimizer(ttrainer.TrainConfig(optimizer="came"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.make_loss_fn(None, ttrainer.TrainConfig(loss_type="ddpm"))
+        ttrainer.apply_model(None, None, None, {"text": None, "text_t5": 0})
+    for opt in ("came", "adamw8bit"):
+        ttrainer.make_optimizer(ttrainer.TrainConfig(optimizer=opt))
+    for loss in ("ddpm", "sigma"):
+        ttrainer.make_loss_fn(None, ttrainer.TrainConfig(loss_type=loss))
+    with pytest.raises(ValueError, match="optimizer"):
+        ttrainer.make_optimizer(ttrainer.TrainConfig(optimizer="lion"))
+    with pytest.raises(ValueError, match="loss_type"):
+        ttrainer.make_loss_fn(None, ttrainer.TrainConfig(loss_type="v"))
     with pytest.raises(ValueError, match="names"):
         ttrainer.make_optimizer(ttrainer.TrainConfig(trainable_modules=["ff"]))
     mult = ttrainer.lr_multiplier_tree(
