@@ -17,6 +17,14 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
              against their plain versions at the training step's shapes,
              with SDPA's backward at the dense and cross shapes (yardsticks)
+  quant_kernels  Q1 (activation quantize), Q2 (int32 dequantize) and Q3
+             (int4 unpack / W4A8 regrid) of csrc/quant.cu against their
+             plain versions at the 12B's shapes (26,208 tokens; widths
+             3,072 and 12,288): Q1's and Q3's int8 outputs bit for bit,
+             the bf16 outputs within 1 ulp; kernel / plain times and bounds;
+             the whole quantized linear in each mode (int8, w4a8, int4) at
+             the three block-linear widths held to JAX's cosine guards and
+             timed beside F.linear in bf16 (a yardstick only)
   reference  a tiny T2V and a tiny I2V run on the card (bf16, kernels)
              against the same weights on the CPU (float32, plain versions)
   train_reference  a tiny LoRA step and a tiny SFT step, the same way
@@ -26,8 +34,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              shards; the full MagViT; a FlowMatch scheduler), loaded with
              load_pipeline on the card: every tensor equal to the written
              one; a 2-step request on the loaded and on the in-memory
-             modules (equal), then an fp8_weights load and its request;
-             directory bytes, write and load seconds
+             modules (equal), then an fp8_weights load and its request,
+             then an int8_linears and an int4_weights load, each with a
+             2-step latent request (Q1-Q3 counted); directory bytes, write
+             and load seconds, each quantized load's peak
   build_12b  V5.1-12B (random bf16 weights, full depth and width) + the
              full MagViT VAE, built on meta and filled on the card
   text       the full Qwen2-VL-7B text tower (27 of 28 layers, bf16,
@@ -55,6 +65,13 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              noise: s/step each, K1 48 per transformer evaluation, finite
              latents, Euler against DDIM within EULER_DDIM_BOUND or twice
              the bf16 floor (DDIM against DDIM from the noise x (1 + 2^-8))
+  quant      (NEW_PHASE_STEPS steps, latent output) a bf16 request on the
+             dense 12B, then the same request as int8 (W8A8), w4a8 and int4
+             (W4A16), each quantized from the resident bf16 weights and
+             freed after: s/step, peak memory, the transformer's resident
+             bytes, Q1-Q3 and K1 launches, the latents' cosine to bf16;
+             then a rank-128 LoRA file merged into the int8 model and
+             unmerged through the controller (back within one int8 step)
   serve      requests in the JAX server's JSON protocol through
              api.server.request_kwargs and EasyAnimateController.generate
              on that 12B, the full Qwen2-VL tower (random weights, a
@@ -89,7 +106,7 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              1 'ddpm' step; s/step, peak and optimizer-state bytes each
 Each main-path phase sets the kernels' launch counts to 0 just before it
 and checks them just after, and that every launch of K1-K7 (d 64) ran its
-TMA + wgmma kernel. Then the per-kernel JSON line and, last, the
+TMA + wgmma kernel; Q1-Q3 launch on the quantized paths only. Then the per-kernel JSON line and, last, the
 device line.
 """
 import argparse
@@ -120,6 +137,7 @@ from easyanimate_tpu_torch.models.vae import (AutoencoderKLMagvit,
                                               MagvitVAEConfig, vae_decode,
                                               vae_encode)
 from easyanimate_tpu_torch.ops import _build
+from easyanimate_tpu_torch.ops import quant as tquant
 from easyanimate_tpu_torch.ops.flash_attention import (
     LOG2E, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain, row_dot)
@@ -135,7 +153,8 @@ from easyanimate_tpu_torch.pipeline import control as control_module
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
 from easyanimate_tpu_torch import train as train_module
 from easyanimate_tpu_torch.data import dataset as dataset_module
-from easyanimate_tpu_torch.models.convert import load_lora_reference
+from easyanimate_tpu_torch.models.convert import (load_lora_reference,
+                                                  save_lora_reference)
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.training import trainer as ttrainer
 from easyanimate_tpu_torch.training.checkpoints import (CheckpointManager,
@@ -965,6 +984,34 @@ def phase_loader(seed, path_run):
             p.numel() * p.element_size() for p in pipe.transformer.parameters())
         fp8 = run("loader_fp8", pipe)  # checks finite, changing latents
         out["fp8_latents_cosine_to_bf16"] = _cosine(fp8["latents"], ref)
+        # the quantized block linears, each filled from the file on the
+        # card: W8A8, and packed int4 computing as W4A8 (the default)
+        for mode, kw in (("int8", {"int8_linears": True}),
+                         ("w4a8", {"int4_weights": True})):
+            del pipe
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = load_pipeline(root, **kw)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            load_peak = torch.cuda.max_memory_allocated() / 2**30
+            line, lat = path_run(f"loader_{mode}", lambda: latent_request(
+                "loader", mode, pipe, seed + 1, LOADER_STEPS,
+                LOADER_LAUNCHES["K1"]),
+                dict(dict.fromkeys(COUNTERS, 0), **LOADER_LAUNCHES),
+                quant_launches(cfg, mode, LOADER_STEPS))
+            line.update(load_s=load_s, load_peak_gib=load_peak,
+                        linear_quant=pipe.transformer.cfg.linear_quant,
+                        transformer_bytes=module_bytes(pipe.transformer),
+                        latents_cosine_to_bf16=_cosine(lat, ref))
+            emit(line)
+            if not line["latents_changed_every_step"] or \
+                    line["linear_quant"] != mode:
+                raise AssertionError(f"loader {mode}: {line}")
+            out[f"{mode}_load"] = {k: line[k] for k in (
+                "load_s", "load_peak_gib", "transformer_bytes",
+                "latents_cosine_to_bf16")}
     out.update(bound=LOADER_BOUND, ok=True)
     emit(out)
     del pipe
@@ -1149,11 +1196,13 @@ def latent_request(phase, name, pipe, seed, steps, expect_k1,
                              generator=gen, device=dev)
     lat0 = torch.randn(pipe.latent_shape(1, FRAMES, H, W), generator=gen,
                        device=dev) * noise_scale
-    stamps = []
+    stamps, prev, changed = [], [lat0], []
 
     def stamp(i, lat):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        changed.append(not torch.equal(lat, prev[0]))
+        prev[0] = lat.clone()
 
     before = k1.launches
     torch.cuda.reset_peak_memory_stats()
@@ -1174,6 +1223,7 @@ def latent_request(phase, name, pipe, seed, steps, expect_k1,
                torch.cuda.max_memory_allocated() / 2**30,
            "K1": k1.launches - before, "expect_k1": expect_k1,
            "latents_finite": bool(torch.isfinite(lat).all()),
+           "latents_changed_every_step": all(changed),
            "latents_max_abs": lat.float().abs().max().item()}
     if out["K1"] != expect_k1 or not out["latents_finite"]:
         emit(out)
@@ -1302,6 +1352,326 @@ def phase_samplers(model, vae, seed, steps, pndm_steps):
                              f"bf16 floor {floor})")
     del lats, ddim, pipe
     torch.cuda.empty_cache()
+
+
+# --- the quantized block linears (easyanimate_tpu_torch/ops/quant.py) ------
+
+QCOUNTERS = {"Q1": tquant.quantize_rows, "Q2": tquant.dequantize_rows,
+             "Q3": tquant.unpack_int4_weight}
+# the 12B's shapes: a CFG pair of 13,104 video tokens through its block
+# linears' (in, out) widths: q/k/v/out, ff.wi, ff.wo
+Q_TOKENS = 2 * 13104
+Q_WIDTHS = ((3072, 3072), (3072, 12288), (12288, 3072))
+# float32 operations outside the tensor cores (the H100 data sheet)
+PEAK_F32_FLOPS = 67e12
+# JAX's guards at these shapes (tests/test_quant.py:203-236, 411-432),
+# 256 tokens with 4 outlier rows at 8x
+QUANT_GUARD_TOKENS = 256
+INT8_COS, INT8_TOKEN_COS = 0.999, 0.995
+W4A8_W4A16_COS, W4A8_FLOAT_COS = 0.999, 0.99
+QUANT_MODES = ("int8", "w4a8", "int4")
+QUANT_LORA_RANK = 128
+
+
+def bound_f32(ops, n_bytes):
+    """(least ms, what bounds it) for a pass of float32 operations outside
+    the tensor cores against its bytes."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def module_bytes(module):
+    """Resident bytes of a module: parameters and buffers (the quantized
+    linears' int8 weights and scales are buffers)."""
+    return nbytes(*module.parameters(), *module.buffers())
+
+
+def bf16_ulps(a, b):
+    """Largest distance between two bf16 tensors in units in the last
+    place (0: equal bits)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs().max().item()
+
+
+def quant_launches(cfg, mode, evaluations):
+    """Q1-Q3 launches of `evaluations` transformer calls: 12 block linears
+    a layer (both streams), whose q, k and v share one Q1 per stream; Q1
+    and Q2 on the int8 products, Q3 on each packed int4 weight."""
+    assert cfg.mmdit_layers >= cfg.num_layers  # both streams in every layer
+    n = evaluations * cfg.num_layers
+    int8_product, int4_weight = mode in ("int8", "w4a8"), mode != "int8"
+    return {"Q1": 8 * n * int8_product, "Q2": 12 * n * int8_product,
+            "Q3": 12 * n * int4_weight}
+
+
+def quantized_copy(model, mode):
+    """`model` with its block linears quantized to `mode` on its device:
+    the other tensors are shared, each block linear is quantized as it is
+    assigned (QuantLinear._load_from_state_dict)."""
+    cfg = dataclasses.replace(model.cfg, linear_quant=mode)
+    qmodel = EasyAnimateTransformer3D(cfg, device="meta")
+    qmodel.load_state_dict(model.state_dict(), assign=True)
+    return qmodel
+
+
+def _quant_case(stats, key, case, ok, err, ms, plain_ms, bound, **extra):
+    line = {"phase": "quant_kernels", "kernel": key, "case": case,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "ok": ok, **extra}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{key} {case} disagrees with its plain version")
+    stats.setdefault(key, {"cases": []})["cases"].append(line)
+    if "ms" not in stats[key]:  # the first case is the kernel's row
+        stats[key].update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                          bound_by=bound[1], shape=extra["shape"])
+    stats[key]["max_abs_err"] = max(stats[key].get("max_abs_err", 0.0), err)
+
+
+@torch.no_grad()
+def phase_quant_kernels(gen):
+    """Q1, Q2 and Q3 against their plain versions at the 12B's shapes (Q1
+    and Q3's int8 outputs bit for bit, the bf16 outputs within 1 ulp), with
+    kernel / plain times and bounds; then the whole quantized linear in
+    each mode at the 12B's widths, held to JAX's cosine guards and timed
+    beside F.linear in bf16 (a yardstick the port never calls)."""
+    dev = DEVICE
+    stats = {}
+    m = Q_TOKENS
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    xs = {}
+    for k in (3072, 12288):  # Q1: the activations of each fan-in
+        x = rand(m, k).to(torch.bfloat16)
+        x[:4] *= 8.0  # outlier tokens
+        xq, ax = tquant.quantize_rows(x)
+        torch.cuda.synchronize()
+        xq_p, ax_p = tquant.quantize_rows_plain(x)
+        ok = torch.equal(xq, xq_p) and torch.equal(ax, ax_p)
+        err = (xq.int() - xq_p.int()).abs().max().item()
+        _quant_case(stats, "Q1", f"[{m}, {k}]", ok, err,
+                    cuda_ms(lambda: tquant.quantize_rows(x), 10),
+                    cuda_ms(lambda: tquant.quantize_rows_plain(x), 3),
+                    bound_f32(4 * m * k, nbytes(x, xq, ax)), shape=[m, k],
+                    bit_exact=ok)
+        xs[k] = (x, xq, ax)
+    # Q2 on the accumulators of the products the 12B makes: ff.wo (K
+    # 12,288 -> N 3,072, |acc| past 2^24) and ff.wi (K 3,072 -> N 12,288)
+    for k, n in ((12288, 3072), (3072, 12288)):
+        x, xq, ax = xs[k]
+        wq, ws = tquant.quantize_weight_int8(rand(n, k, scale=k ** -0.5))
+        bias = rand(n, scale=0.02)
+        acc = tquant.int_mm(xq, wq)
+        y = tquant.dequantize_rows(acc, ax, ws, bias)
+        torch.cuda.synchronize()
+        y_p = tquant.dequantize_rows_plain(acc, ax, ws, bias)
+        ulps = bf16_ulps(y, y_p)
+        _quant_case(stats, "Q2", f"[{m}, {n}] from K {k}", ulps <= 1,
+                    (y.float() - y_p.float()).abs().max().item(),
+                    cuda_ms(lambda: tquant.dequantize_rows(acc, ax, ws, bias),
+                            10),
+                    cuda_ms(lambda: tquant.dequantize_rows_plain(
+                        acc, ax, ws, bias), 3),
+                    bound_f32(4 * m * n, nbytes(acc, ax, ws, bias, y)),
+                    shape=[m, n], max_ulps=ulps,
+                    acc_max_abs=acc.abs().max().item())
+        del acc, y, y_p
+    del xs
+    # Q3 on ff.wi [12288, 3072] and ff.wo [3072, 12288]: the W4A8 regrid
+    # (int4_compute "int8", the default) first, then W4A16
+    for n, k in ((12288, 3072), (3072, 12288)):
+        w = rand(n, k, scale=k ** -0.5)
+        w[:, 5] *= 10.0  # an outlier in-feature
+        packed, scale = tquant.quantize_weight_int4(w)
+        q8, s8 = tquant.unpack_int4_weight(packed, scale, "int8")
+        torch.cuda.synchronize()
+        q8_p, s8_p = tquant.unpack_int4_weight_plain(packed, scale, "int8")
+        ok = torch.equal(q8, q8_p) and torch.equal(s8, s8_p)
+        _quant_case(stats, "Q3", f"int8 regrid [{n}, {k}]", ok,
+                    (q8.int() - q8_p.int()).abs().max().item(),
+                    cuda_ms(lambda: tquant.unpack_int4_weight(packed, scale,
+                                                              "int8"), 10),
+                    cuda_ms(lambda: tquant.unpack_int4_weight_plain(
+                        packed, scale, "int8"), 3),
+                    bound_f32(3 * n * k, nbytes(packed, scale, q8, s8)),
+                    shape=[n, k], bit_exact=ok)
+        wb = tquant.unpack_int4_weight(packed, scale, torch.bfloat16)
+        torch.cuda.synchronize()
+        wb_p = tquant.unpack_int4_weight_plain(packed, scale, torch.bfloat16)
+        ulps = bf16_ulps(wb, wb_p)
+        _quant_case(stats, "Q3", f"bf16 [{n}, {k}]", ulps <= 1,
+                    (wb.float() - wb_p.float()).abs().max().item(),
+                    cuda_ms(lambda: tquant.unpack_int4_weight(
+                        packed, scale, torch.bfloat16), 10),
+                    cuda_ms(lambda: tquant.unpack_int4_weight_plain(
+                        packed, scale, torch.bfloat16), 3),
+                    bound_f32(n * k, nbytes(packed, scale, wb)),
+                    shape=[n, k], max_ulps=ulps)
+        del w, packed, scale, q8, s8, q8_p, s8_p, wb, wb_p
+
+    # the whole linear in each mode at the 12B's widths
+    linears = {}
+    for fan_in, fan_out in Q_WIDTHS:
+        x = rand(1, QUANT_GUARD_TOKENS, fan_in)
+        x[:, :4] = rand(1, 4, fan_in, scale=8.0)
+        x = x.to(torch.bfloat16)
+        w = rand(fan_out, fan_in, scale=fan_in ** -0.5)
+        b = rand(fan_out, scale=0.02)
+        want = F.linear(x.float(), w, b)  # float32 from the same bf16 x
+        got, ms = {}, {}
+        xt = rand(m, fan_in).to(torch.bfloat16)
+        for mode in QUANT_MODES:
+            lin = tquant.QuantLinear(fan_in, fan_out, mode, device=dev,
+                                     dtype=torch.bfloat16)
+            lin.set_weight_(w)
+            with torch.no_grad():
+                lin.bias.copy_(b)
+                got[mode] = lin(x).float()
+                ms[mode] = cuda_ms(lambda: lin(xt), 5)
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        ms["bf16_linear"] = cuda_ms(lambda: F.linear(xt, wb, bb), 5)
+        g, t = got["int8"].reshape(-1, fan_out), want.reshape(-1, fan_out)
+        tok = F.cosine_similarity(g, t, dim=-1).min().item()
+        cos = {"int8_vs_float": _cosine(got["int8"], want),
+               "int8_token_min": tok,
+               "w4a8_vs_w4a16": _cosine(got["w4a8"], got["int4"]),
+               "w4a8_vs_float": _cosine(got["w4a8"], want),
+               "w4a16_vs_float": _cosine(got["int4"], want)}
+        ok = (cos["int8_vs_float"] > INT8_COS and tok > INT8_TOKEN_COS
+              and cos["w4a8_vs_w4a16"] > W4A8_W4A16_COS
+              and cos["w4a8_vs_float"] > W4A8_FLOAT_COS)
+        line = {"phase": "quant_kernels", "case": f"linear {fan_in} -> "
+                f"{fan_out}", "guard_tokens": QUANT_GUARD_TOKENS,
+                "cosines": cos, "timed_tokens": m, "ms": ms,
+                "bounds": {"int8_cos": INT8_COS,
+                           "int8_token_cos": INT8_TOKEN_COS,
+                           "w4a8_w4a16_cos": W4A8_W4A16_COS,
+                           "w4a8_float_cos": W4A8_FLOAT_COS}, "ok": ok}
+        emit(line)
+        if not ok:
+            raise AssertionError(f"quantized linear {fan_in} -> {fan_out} "
+                                 f"below JAX's guards: {cos}")
+        linears[f"{fan_in}x{fan_out}"] = ms
+    stats["linears"] = linears
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_quant(model, vae, seed, steps):
+    """The resident 12B at full width and depth, 384x672x49f, CFG 6.0,
+    latent output: a bf16 request, then the same request (the same noise
+    and prompt) as int8, w4a8 and int4, each quantized from the resident
+    bf16 weights and freed after: s/step, peak memory, the transformer's
+    resident bytes, the launches of Q1-Q3 and K1, and the final latents'
+    cosine to the bf16 request's. Then a rank-128 LoRA with random
+    factors merged into the int8 model and unmerged through the
+    controller: every weight back within one int8 step."""
+    pipe = EasyAnimatePipeline(model, vae)
+    expect_k1 = 48 * steps
+    allocated = torch.cuda.memory_allocated() / 2**30
+    out, ref = latent_request("quant", "bf16", pipe, seed, steps, expect_k1)
+    out.update(transformer_bytes=module_bytes(model),
+               allocated_before_gib=allocated)
+    emit(out)
+    results = {"bf16": out}
+    for mode in QUANT_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qmodel = quantized_copy(model, mode)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        allocated = torch.cuda.memory_allocated() / 2**30
+        before = {k: f.launches for k, f in QCOUNTERS.items()}
+        out, lat = latent_request("quant", mode, EasyAnimatePipeline(qmodel,
+                                                                     vae),
+                                  seed, steps, expect_k1)
+        launched = {k: f.launches - before[k] for k, f in QCOUNTERS.items()}
+        expect = quant_launches(model.cfg, mode, steps)
+        block = torch.nn.ModuleList(m for m in qmodel.modules()
+                                    if isinstance(m, tquant.QuantLinear))
+        out.update(quantize_s=quantize_s, allocated_before_gib=allocated,
+                   launches=launched,
+                   expect_launches=expect,
+                   transformer_bytes=module_bytes(qmodel),
+                   block_linear_bytes=module_bytes(block),
+                   block_linears=len(block),
+                   latents_cosine_to_bf16=_cosine(lat, ref))
+        emit(out)
+        if launched != expect or not out["latents_changed_every_step"]:
+            raise AssertionError(f"quant {mode}: launches {launched} != "
+                                 f"{expect}, or latents unchanged at a step")
+        results[mode] = out
+        if mode == "int8":
+            results["lora"] = quant_lora_roundtrip(qmodel, vae, seed)
+        del qmodel, block, lat  # the copy is freed before the next one
+        torch.cuda.empty_cache()
+    return results
+
+
+@torch.no_grad()
+def quant_lora_roundtrip(qmodel, vae, seed):
+    """A rank-128 kohya LoRA file with random factors, merged into the int8
+    model's 576 block linears and unmerged through the controller's
+    update_lora: each weight moved by the merge and back within one int8
+    step (the larger of the merged and the final scale; two roundings of
+    half a step each), plus the float32 rounding of the dequantized values
+    (1e-4 of a step), after it."""
+    ctl = EasyAnimateController(pipeline=EasyAnimatePipeline(qmodel, vae))
+    cfg = tlora.LoRAConfig(rank=QUANT_LORA_RANK)
+    targets = tlora.target_modules(qmodel, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lora = {p: {"down": 0.02 * torch.randn(m.in_features, cfg.rank,
+                                           generator=gen, device=DEVICE),
+                "up": 0.02 * torch.randn(cfg.rank, m.out_features,
+                                         generator=gen, device=DEVICE)}
+            for p, m in targets.items()}
+    before = {p: (m.weight.clone(), m.scale.clone())
+              for p, m in targets.items()}
+    out = {"phase": "quant", "request": "lora_merge_unmerge",
+           "rank": cfg.rank, "modules": len(lora)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quant_") as root:
+        path = os.path.join(root, "lora.safetensors")
+        t0 = time.perf_counter()
+        save_lora_reference(path, lora, cfg.alpha)
+        out["write_s"] = time.perf_counter() - t0
+        del lora
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl.update_lora(path)
+        torch.cuda.synchronize()
+        out["merge_s"] = time.perf_counter() - t0
+    merged_scale = {p: m.scale.clone() for p, m in targets.items()}
+    moved = sum(not torch.equal(m.weight, before[p][0])
+                for p, m in targets.items())
+    t0 = time.perf_counter()
+    ctl.update_lora(None)
+    torch.cuda.synchronize()
+    out["unmerge_s"] = time.perf_counter() - t0
+    worst = 0.0
+    for p, m in targets.items():
+        w0 = before[p][0].float() * before[p][1][:, None]
+        step = torch.maximum(merged_scale[p], m.scale)[:, None]
+        worst = max(worst, ((m.dequantized_weight() - w0).abs() / step)
+                    .max().item())
+    out.update(modules_moved_by_merge=moved, worst_error_in_steps=worst,
+               scales_changed=sum(not torch.equal(m.scale, before[p][1])
+                                  for p, m in targets.items()),
+               bound_steps=1.0)
+    out["ok"] = moved == len(targets) and worst <= 1.0 + 1e-4
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"quant LoRA round trip: {moved} of "
+                             f"{len(targets)} moved, worst {worst} steps")
+    return out
 
 
 def swa_fused_inputs(seed):
@@ -1705,7 +2075,7 @@ COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
 def reset_counts():
     """The main path's run starts here. K3 and K4 share one counter (each
     flash_attention_bwd call launches both), as do K6 and K7."""
-    for fn in COUNTERS.values():
+    for fn in (*COUNTERS.values(), *QCOUNTERS.values()):
         fn.launches = 0
     flash_attention_fwd.launches_sm90 = 0
     sliding_window_fwd.launches_sm90 = 0
@@ -2068,6 +2438,9 @@ def main():
     stats.update(phase_kernels_bwd(
         torch.Generator(device="cuda").manual_seed(args.seed + 100)))
     torch.cuda.synchronize()
+    qstats = phase_quant_kernels(
+        torch.Generator(device="cuda").manual_seed(args.seed + 200))
+    torch.cuda.synchronize()
     phase_reference("t2v")
     phase_reference("i2v")
     torch.cuda.synchronize()
@@ -2085,14 +2458,22 @@ def main():
                      "K6": (sliding_window_bwd, K6_SM90),
                      "K7": (sliding_window_bwd, K7_SM90)}
 
-    def path_run(phase, fn, expect=None):
+    totals_q = dict.fromkeys(QCOUNTERS, 0)
+
+    def path_run(phase, fn, expect=None, expect_q=None):
         """One main-path run: counts set to 0 just before, read just after;
-        every launch of K1-K7 (d 64) ran its TMA + wgmma kernel."""
+        every launch of K1-K7 (d 64) ran its TMA + wgmma kernel; Q1-Q3
+        launched `expect_q` times (none on a float model's path)."""
         reset_counts()
         result = fn()
         got = read_counts()
         if expect is not None and got != expect:
             raise AssertionError(f"{phase} launches {got} != {expect}")
+        got_q = {k: f.launches for k, f in QCOUNTERS.items()}
+        if got_q != (expect_q or dict.fromkeys(QCOUNTERS, 0)):
+            raise AssertionError(f"{phase} Q launches {got_q} != {expect_q}")
+        for k, n in got_q.items():
+            totals_q[k] += n
         for key, (counter, kernel) in sm90_counters.items():
             if counter.launches_sm90 != got[key]:
                 raise AssertionError(f"{phase}: {counter.launches_sm90} of "
@@ -2143,6 +2524,14 @@ def main():
     expect_samplers = dict(serve, K1=48 * (6 * new_steps + pndm_steps + 1))
     path_run("samplers", lambda: phase_samplers(
         model, vae, args.seed + 50, new_steps, pndm_steps), expect_samplers)
+    # the quantized block linears: a bf16 request, then int8, w4a8 and
+    # int4 from the same weights (each quantized copy freed after it)
+    expect_quant = dict(serve, K1=48 * new_steps * (1 + len(QUANT_MODES)))
+    expect_quant_q = {k: sum(quant_launches(model.cfg, mode, new_steps)[k]
+                             for mode in QUANT_MODES) for k in QCOUNTERS}
+    quant = path_run("quant", lambda: phase_quant(
+        model, vae, args.seed + 70, new_steps), expect_quant, expect_quant_q)
+    torch.cuda.empty_cache()
     # requests through the controller; K1's count depends on TeaCache's
     # decisions, so the phase checks each request's launches itself
     expect_requests = path_run(
@@ -2185,13 +2574,20 @@ def main():
                     + n_sft * SFT_LAUNCHES[k] + expect_driver[k]
                     for k in COUNTERS}
     expect_serve = {"K1": 4 * 48 * steps, "K2": 47 * steps}
-    expect_loader = {k: 3 * n for k, n in LOADER_LAUNCHES.items()}
+    # three requests and two latent-only ones (int8, w4a8)
+    expect_loader = {k: 5 * n for k, n in LOADER_LAUNCHES.items()}
     want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)
             + expect_loader.get(k, 0) + expect_fused[k]
             + expect_requests.get(k, 0) + expect_control[k]
-            + expect_samplers[k] for k in COUNTERS}
+            + expect_samplers[k] + expect_quant[k] for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
+    loader_cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=2)
+    want_q = {k: expect_quant_q[k] + sum(
+        quant_launches(loader_cfg, mode, LOADER_STEPS)[k]
+        for mode in ("int8", "w4a8")) for k in QCOUNTERS}
+    if totals_q != want_q or not all(totals_q.values()):
+        raise AssertionError(f"path Q launches {totals_q} != {want_q}")
 
     bounds = kernel_bounds()
     library = {"K1": stats["K1"]["sdpa_ms"], "K2": stats["K2"]["library_ms"],
@@ -2236,6 +2632,25 @@ def main():
                 cross_share_of_bound=bounds[key + " cross"][0] / st["cross_ms"])
         return out
 
+    def q_row(key, name, replaces):
+        """A quantized linear's pass: it replaces no TPU kernel (`replaces`
+        names the XLA ops of the JAX package it stands for); no single
+        PyTorch call computes it (library_ms null); the bf16 F.linear at
+        the 12B's widths is its yardstick."""
+        st = qstats[key]
+        return {"name": f"{key} {name}", "route": "cuda",
+                "source": "easyanimate_tpu_torch/csrc/quant.cu",
+                "replaces": replaces, "replaces_kind": "XLA ops, no pallas_call",
+                "launches": totals_q[key], "max_abs_err": st["max_abs_err"],
+                "ms": st["ms"], "plain_ms": st["plain_ms"],
+                "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+                "library_ms": None, "shape": st["shape"],
+                "share_of_bound": st["bound_ms"] / st["ms"],
+                "cases": [{k: c[k] for k in ("case", "ms", "plain_ms",
+                                             "bound_ms", "max_abs_err")}
+                          for c in st["cases"]],
+                "linear_ms_at_12b_widths": qstats["linears"]}
+
     dense = 2 * BH * S_DENSE ** 2 * HEAD_DIM     # one dense product
     band = 2 * BH * band_columns(S_VID, WINDOW) * HEAD_DIM
     glob = 2 * BH * S_VID * S_GLOBAL * HEAD_DIM  # one global-pass product
@@ -2267,6 +2682,9 @@ def main():
         sm90_row(row("K7", "sliding_window_bwd (dk, dv)", "swa_bwd.cu",
                      "easyanimate_tpu/ops/swa.py:429"),
                  "K7", ("swa_bwd.cu", "bwd_sm90.cuh"), 4 * band),
+        q_row("Q1", "quantize_rows", "easyanimate_tpu/ops/quant.py:35"),
+        q_row("Q2", "dequantize_rows", "easyanimate_tpu/ops/quant.py:42"),
+        q_row("Q3", "unpack_int4_weight", "easyanimate_tpu/ops/quant.py:102"),
     ], "note": "max_abs_err: max |kernel - plain| over the cases (o for "
                "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
                "over max |plain|, the bound's measure. K1, K3, K4: ms at "
@@ -2280,7 +2698,11 @@ def main():
                "kernels' gradients. K2 library_ms: SDPA with the band mask. "
                "K5: no single PyTorch call computes it (library_ms null); "
                "unfused_pair_ms, K2 + the K1 cross pass on the same "
-               "inputs, is its yardstick"})
+               "inputs, is its yardstick. Q1-Q3 (csrc/quant.cu) replace no "
+               "TPU kernel: the passes around the quantized linears' "
+               "library products; ms at the first case's shape, bound by "
+               "bytes; linear_ms_at_12b_widths: each mode's whole linear "
+               "and F.linear in bf16 (yardstick) over 26,208 tokens"})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,11 +10,14 @@ through the port's own safetensors reader: neither `safetensors` nor
 
 Pipelines: "t2v", "inpaint" and "control"; the scheduler comes from the
 directory's scheduler_config.json or the `scheduler` argument, as JAX's
-(:322-342). Not ported, each raising NotImplementedError with its ROADMAP
-queue 1 item: int8 / int4 linears (5), VAE chunk modes other than
-`cache_mag` (8), and the Bert / T5 text stacks (11). The pipeline gets the
-TeaCache polynomial of its model path, as JAX's does (:349-355).
+(:322-342). The block linears may be held quantized (W8A8 int8, or packed
+int4 computing as W4A8 or W4A16; ops/quant.py), as JAX's :268-301. Not
+ported, each raising NotImplementedError with its ROADMAP queue 1 item:
+VAE chunk modes other than `cache_mag` (8), and the Bert / T5 text stacks
+(11). The pipeline gets the TeaCache polynomial of its model path, as
+JAX's does (:349-355).
 """
+import dataclasses
 import json
 import os
 from typing import Optional
@@ -202,6 +205,7 @@ def _scheduler(model_path: str, scheduler: Optional[str]):
 def load_pipeline(model_path: str, pipeline_type: str = "t2v",
                   dtype: str = "bfloat16", fp8_weights: bool = False,
                   int8_linears: bool = False, int4_weights: bool = False,
+                  int4_compute: str = "int8",
                   scheduler: Optional[str] = None, strict: bool = True,
                   transformer_path: Optional[str] = None,
                   vae_path: Optional[str] = None, device=None):
@@ -221,18 +225,27 @@ def load_pipeline(model_path: str, pipeline_type: str = "t2v",
     transformer's >= 2-D weights as float8_e4m3fn, cast once from the
     files' dtype. transformer_path / vae_path overlay a component
     safetensors checkpoint on the base directory (the reference predict
-    scripts' knobs of the same names)."""
+    scripts' knobs of the same names).
+
+    int8_linears=True holds the block linears as W8A8 int8 (per-out-channel
+    weights, per-token activations); int4_weights=True as group-128 packed
+    int4 (a quarter of the bf16 bytes), exclusive with it, multiplying as
+    int4_compute "int8" (W4A8, the default) or "bf16" (W4A16). Each block
+    linear is quantized on the device as it is filled from the file, so
+    the float transformer is never whole on the card; fp8_weights composes
+    with either (the rest of the transformer in fp8, the scales float32)."""
     if int8_linears and int4_weights:
         raise ValueError("int8_linears and int4_weights are exclusive")
-    if int8_linears or int4_weights:
-        raise NotImplementedError("int8_linears / int4_weights are not "
-                                  "ported (ROADMAP queue 1 item 5)")
+    if int4_compute not in ("int8", "bf16"):
+        raise ValueError(f"int4_compute must be int8|bf16, got {int4_compute}")
+    int4_mode = "w4a8" if int4_compute == "int8" else "int4"
+    quant = "int8" if int8_linears else (int4_mode if int4_weights else None)
     cls = _PIPELINES[pipeline_type]
     device = resolve_device(device)
     sched = _scheduler(model_path, scheduler)
-    mmdit_cfg = mmdit_config_from_json(
+    mmdit_cfg = dataclasses.replace(mmdit_config_from_json(
         _read_json(os.path.join(model_path, "transformer", "config.json")),
-        dtype)
+        dtype), linear_quant=quant)
     vae_cfg = vae_config_from_json(
         _read_json(os.path.join(model_path, "vae", "config.json")), dtype)
 

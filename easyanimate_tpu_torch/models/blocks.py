@@ -6,7 +6,10 @@ EasyAnimateAttnProcessor2_0 processor.py:218-312). Module and parameter
 names are the reference's state-dict keys, so a reference-layout dict loads
 with strict=True. q and k stay in the reference (interleaved) feature order
 and take the interleaved RoPE; the JAX package's de-interleave is TPU layout
-work that leaves the scores unchanged.
+work that leaves the scores unchanged. With `linear_quant` ("int8", "int4"
+or "w4a8", JAX MMDiTBlock.quant) the block linears (q, k, v and out of
+both streams, both FFN linears) are ops/quant.py QuantLinears under the
+same names; q, k and v share one quantize of their input.
 """
 from typing import Optional, Tuple
 
@@ -16,6 +19,7 @@ from torch import nn
 
 from ..ops.attention import joint_attention
 from ..ops.norms import fp32_layer_norm
+from ..ops.quant import QuantLinear, make_linear
 from ..ops.rope import apply_rotary_emb
 from ..ops.swa import swa_attention_streams
 
@@ -49,27 +53,34 @@ class StreamQKV(nn.Module):
     output projection of one stream (reference diffusers Attention)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 qk_norm: bool = True, *, device=None, dtype=None):
+                 qk_norm: bool = True, *, linear_quant: Optional[str] = None,
+                 device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
-        self.to_q = nn.Linear(dim, inner, **fk)
-        self.to_k = nn.Linear(dim, inner, **fk)
-        self.to_v = nn.Linear(dim, inner, **fk)
+        self.to_q = make_linear(dim, inner, linear_quant, **fk)
+        self.to_k = make_linear(dim, inner, linear_quant, **fk)
+        self.to_v = make_linear(dim, inner, linear_quant, **fk)
         self.qk_norm = qk_norm
         if qk_norm:
             self.norm_q = nn.LayerNorm(head_dim, eps=1e-6, **fk)
             self.norm_k = nn.LayerNorm(head_dim, eps=1e-6, **fk)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim, **fk)])
+        self.to_out = nn.ModuleList([make_linear(inner, dim, linear_quant,
+                                                 **fk)])
 
     def forward(self, x):
         """x [B, S, dim] -> q, k, v [B, H, S, D]."""
         def heads(a):
             return a.unflatten(-1, (self.num_heads, self.head_dim)).transpose(1, 2)
 
-        q, k, v = heads(self.to_q(x)), heads(self.to_k(x)), heads(self.to_v(x))
+        if isinstance(self.to_q, QuantLinear):
+            xq = self.to_q.quantize_input(x)  # one Q1 for q, k and v
+            q, k, v = (heads(lin(x, xq))
+                       for lin in (self.to_q, self.to_k, self.to_v))
+        else:
+            q, k, v = heads(self.to_q(x)), heads(self.to_k(x)), heads(self.to_v(x))
         if self.qk_norm:
             q = fp32_layer_norm(q, self.norm_q.weight, self.norm_q.bias, 1e-6)
             k = fp32_layer_norm(k, self.norm_k.weight, self.norm_k.bias, 1e-6)
@@ -81,9 +92,9 @@ class StreamQKV(nn.Module):
 
 
 class _GELUProj(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int, **fk):
+    def __init__(self, dim_in: int, dim_out: int, linear_quant=None, **fk):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out, **fk)
+        self.proj = make_linear(dim_in, dim_out, linear_quant, **fk)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
@@ -93,12 +104,13 @@ class FeedForward(nn.Module):
     """gelu-tanh MLP with 4x inner width (diffusers FeedForward; net.1 is
     the reference's dropout slot)."""
 
-    def __init__(self, dim: int, mult: int = 4, *, device=None, dtype=None):
+    def __init__(self, dim: int, mult: int = 4, *,
+                 linear_quant: Optional[str] = None, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        self.net = nn.ModuleList([_GELUProj(dim, dim * mult, **fk),
-                                  nn.Identity(),
-                                  nn.Linear(dim * mult, dim, **fk)])
+        self.net = nn.ModuleList([
+            _GELUProj(dim, dim * mult, linear_quant, **fk), nn.Identity(),
+            make_linear(dim * mult, dim, linear_quant, **fk)])
 
     def forward(self, x):
         for layer in self.net:
@@ -116,21 +128,23 @@ class MMDiTBlock(nn.Module):
     def __init__(self, dim: int, time_dim: int, num_heads: int, head_dim: int,
                  *, qk_norm: bool = True, after_norm: bool = False,
                  is_mmdit: bool = True, is_swa: bool = False,
-                 norm_eps: float = 1e-6, device=None, dtype=None):
+                 norm_eps: float = 1e-6, linear_quant: Optional[str] = None,
+                 device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
+        qk = dict(fk, linear_quant=linear_quant)
         self.is_mmdit = is_mmdit
         self.is_swa = is_swa
         self.after_norm = after_norm
         self.norm_eps = norm_eps
         self.norm1 = LayerNormZero(dim, time_dim, norm_eps, **fk)
-        self.attn1 = StreamQKV(dim, num_heads, head_dim, qk_norm, **fk)
+        self.attn1 = StreamQKV(dim, num_heads, head_dim, qk_norm, **qk)
         if is_mmdit:
-            self.attn2 = StreamQKV(dim, num_heads, head_dim, qk_norm, **fk)
+            self.attn2 = StreamQKV(dim, num_heads, head_dim, qk_norm, **qk)
         self.norm2 = LayerNormZero(dim, time_dim, norm_eps, **fk)
-        self.ff = FeedForward(dim, **fk)
+        self.ff = FeedForward(dim, **qk)
         if is_mmdit:
-            self.txt_ff = FeedForward(dim, **fk)
+            self.txt_ff = FeedForward(dim, **qk)
         if after_norm:
             self.norm3 = nn.LayerNorm(dim, eps=norm_eps, **fk)
 

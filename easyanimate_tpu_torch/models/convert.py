@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.quant import QuantLinear
 from ..utils.safetensors_io import load_file, save_file
 
 
@@ -104,7 +105,7 @@ def load_reference_lora_state_dict(module: nn.Module,
     from ..training.lora import LoRAConfig
 
     paths = {kohya_name(p): p for p, m in module.named_modules()
-             if isinstance(m, nn.Linear)}
+             if isinstance(m, (nn.Linear, QuantLinear))}
     groups: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in sd.items():
         kind = next((k for k in _LORA_KINDS if key.endswith(k)), None)
@@ -151,9 +152,20 @@ def load_lora_reference(module: nn.Module, path: str, device=None):
         module, {k: v.numpy() for k, v in load_file(path).items()}, device)
 
 
+def _refuse_quantized() -> None:
+    # JAX export_mmdit_state_dict (easyanimate_tpu/models/convert.py:471)
+    raise ValueError("export needs a float transformer: quantized block "
+                     "linears cannot be converted back losslessly (train "
+                     "and EMA weights are float; quantization is a serving-"
+                     "time transform)")
+
+
 def mmdit_config_json(cfg) -> Dict:
     """MMDiTConfig -> reference transformer config.json fields (the inverse
-    of loader.mmdit_config_from_json; JAX models/convert.py:726)."""
+    of loader.mmdit_config_from_json; JAX models/convert.py:726). A config
+    with quantized block linears raises, as JAX's export does."""
+    if cfg.linear_quant:
+        _refuse_quantized()
     return {
         "_class_name": "EasyAnimateTransformer3DModel",
         "num_attention_heads": cfg.num_attention_heads,
@@ -188,7 +200,14 @@ def save_reference_checkpoint(directory: str, state_dict: Mapping[str, object],
     with the standard `.index.json` weight map when sharded (reference
     save_pretrained(max_shard_size="30GB"), scripts/train.py:1126; JAX
     models/convert.py:754). Values are torch tensors (any device) or numpy
-    arrays, written in their own dtype. Returns the shard file names."""
+    arrays, written in their own dtype. Returns the shard file names. The
+    state of a quantized model (a QuantLinear's `scale` beside its int8
+    `weight`) raises: the reference layout holds float weights."""
+    for k in state_dict:
+        w = state_dict.get(k[:-len("scale")] + "weight")
+        if k.endswith(".scale") and w is not None and str(w.dtype) in (
+                "int8", "torch.int8"):
+            _refuse_quantized()
     os.makedirs(directory, exist_ok=True)
     if config_json is not None:
         with open(os.path.join(directory, "config.json"), "w") as f:
@@ -223,3 +242,75 @@ def save_reference_checkpoint(directory: str, state_dict: Mapping[str, object],
         json.dump({"metadata": {"total_size": total},
                    "weight_map": weight_map}, f, indent=2)
     return names
+
+
+# JAX's quantized block linears (the _QUANT_PARENTS of easyanimate_tpu/
+# ops/quant.py, under their block subtree) -> the port's module paths
+_JAX_QUANT_LINEARS = {
+    **{f"{attn}/to_{p}": f"{attn}.to_{p}" for attn in ("attn1", "attn2")
+       for p in "qkv"},
+    "attn1_out": "attn1.to_out.0", "attn2_out": "attn2.to_out.0",
+    "ff/wi": "ff.net.0.proj", "ff/wo": "ff.net.2",
+    "txt_ff/wi": "txt_ff.net.0.proj", "txt_ff/wo": "txt_ff.net.2"}
+
+
+def _flatten_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _jax_layer_regions(flat: Dict[str, np.ndarray]):
+    """[(tree prefix, first layer, layer count, stacked)] of a JAX MMDiT
+    tree, read from its names: one scan stack `blocks/block`, segmented
+    stacks `blocks_seg{k}/block` between single layers `block{i}`, or
+    `block{i}` alone (JAX models/convert.py::_mmdit_layer_regions)."""
+    tops = {key.split("/", 1)[0] for key in flat}
+    if "blocks" in tops:
+        n = flat["blocks/block/norm1/linear/kernel"].shape[0]
+        return [("blocks/block", 0, n, True)]
+    regions, layer, seg = [], 0, 0
+    while True:
+        if f"blocks_seg{seg}" in tops:
+            prefix = f"blocks_seg{seg}/block"
+            n = flat[f"{prefix}/norm1/linear/kernel"].shape[0]
+            regions.append((prefix, layer, n, True))
+        elif f"block{layer}" in tops:
+            n = 1
+            regions.append((f"block{layer}", layer, 1, False))
+        else:
+            return regions
+        layer, seg = layer + n, seg + 1
+
+
+def quantized_linears_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The quantized block linears of a JAX tree from quantize_params_int8
+    or quantize_params_int4 (easyanimate_tpu/ops/quant.py; nested dicts of
+    numpy arrays, with or without the 'params' level) -> the port's state
+    entries for them: `transformer_blocks.<i>.<linear>.weight`, JAX's int8
+    kernel [in, out] or packed [in // 2, out] transposed, and `.scale`,
+    its [out] or [groups, out] transposed. The rest of such a tree is float
+    and crosses in the reference layout like any other weight."""
+    flat = _flatten_tree(params.get("params", params))
+    out = {}
+    for prefix, first, count, stacked in _jax_layer_regions(flat):
+        for jpath, path in _JAX_QUANT_LINEARS.items():
+            kern = flat.get(f"{prefix}/{jpath}/kernel")
+            if kern is None:
+                continue
+            scale = flat[f"{prefix}/{jpath}/scale"]
+            if kern.dtype != np.int8:
+                raise ValueError(f"{prefix}/{jpath}/kernel is {kern.dtype}, "
+                                 "not a quantized kernel")
+            for i in range(count):
+                k, s = (kern[i], scale[i]) if stacked else (kern, scale)
+                name = f"transformer_blocks.{first + i}.{path}"
+                out[name + ".weight"] = torch.from_numpy(
+                    np.ascontiguousarray(k.T))
+                out[name + ".scale"] = torch.from_numpy(
+                    np.ascontiguousarray(s.astype(np.float32).T))
+    return out

@@ -63,6 +63,10 @@ class MMDiTConfig:
     # recompute each block in the backward (easyanimate_tpu mmdit.py:166-170)
     remat: bool = True
     dtype: str = "bfloat16"
+    # quantized block linears (ops/quant.py): None, "int8" (W8A8), "int4"
+    # (W4A16) or "w4a8"; set by loader.load_pipeline, as JAX's
+    # (easyanimate_tpu/models/mmdit.py:68-70)
+    linear_quant: Optional[str] = None
     # RoPE base grid (pipeline_easyanimate.py:1002-1006)
     rope_base_height: int = 480
     rope_base_width: int = 720
@@ -140,7 +144,8 @@ class EasyAnimateTransformer3D(nn.Module):
                        cfg.attention_head_dim, qk_norm=cfg.qk_norm,
                        after_norm=cfg.after_norm,
                        is_mmdit=i < cfg.mmdit_layers, is_swa=i in swa,
-                       norm_eps=cfg.norm_eps, **fk)
+                       norm_eps=cfg.norm_eps, linear_quant=cfg.linear_quant,
+                       **fk)
             for i in range(cfg.num_layers)])
         self.norm_final = nn.LayerNorm(dim, eps=cfg.norm_eps, **fk)
         self.norm_out = AdaLayerNormOut(dim, cfg.time_embed_dim, cfg.norm_eps,

@@ -63,6 +63,12 @@ _SIGNATURES = {
     "ea_swa_bwd_dkv_bf16": (_P,) * 8 + (_I,) * 4 + (_P,),
     # head_dim -> 1 if ea_swa_bwd_dkv_bf16 runs the TMA + wgmma kernel
     "ea_swa_bwd_dkv_uses_sm90": (_I,),
+    # Q1: x, xq, ax, m, k, stream
+    "ea_quantize_rows_bf16": (_P, _P, _P, _I, _I, _P),
+    # Q2: acc, ax, w_scale, bias (or NULL), y, m, n, stream
+    "ea_dequantize_rows_bf16": (_P,) * 5 + (_I, _I, _P),
+    # Q3: packed, scale, w, s8 (or NULL), n, k, groups, to_int8, stream
+    "ea_unpack_int4": (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 

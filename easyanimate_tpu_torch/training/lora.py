@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.quant import QuantLinear
 from . import optim
 from .losses import masked_mse_loss
 from .trainer import (TrainConfig, TrainState, draw_flow_inputs,
@@ -55,11 +56,12 @@ class LoRAConfig:
         return self.alpha / self.rank
 
 
-def target_modules(model: nn.Module, cfg: LoRAConfig) -> Dict[str, nn.Linear]:
-    """{module path: Linear} for the Linears whose path matches cfg.targets,
-    in path order."""
+def target_modules(model: nn.Module, cfg: LoRAConfig) -> Dict[str, nn.Module]:
+    """{module path: Linear or QuantLinear} for the linears whose path
+    matches cfg.targets, in path order."""
     return {path: mod for path, mod in sorted(model.named_modules())
-            if isinstance(mod, nn.Linear) and re.search(cfg.targets, path)}
+            if isinstance(mod, (nn.Linear, QuantLinear))
+            and re.search(cfg.targets, path)}
 
 
 def lora_init(model: nn.Module, cfg: LoRAConfig,
@@ -81,14 +83,20 @@ def lora_init(model: nn.Module, cfg: LoRAConfig,
 def merge_lora(model: nn.Module, lora: LoRA, cfg: LoRAConfig,
                scale: float = 1.0) -> nn.Module:
     """weight += scale * coef * (down @ up)^T in place, summed in float32 and
-    rounded once to the weight's dtype (bf16 or float32). Quantized weights
-    wait for the port's quantized linears (ROADMAP queue 1 item 8)."""
+    rounded once to the weight's dtype (bf16 or float32). A quantized
+    weight (ops/quant.py::QuantLinear, int8 or packed int4) merges in
+    dequantized space and is requantized with fresh scales, as JAX's
+    (easyanimate_tpu/training/lora.py:60-90): a merge and its unmerge then
+    carry only quantization error."""
     coef = scale * cfg.coef
     for path, fac in lora.items():
-        w = model.get_submodule(path).weight
-        if not w.dtype.is_floating_point:
-            raise NotImplementedError(f"merge into {w.dtype} weights")
+        mod = model.get_submodule(path)
         delta = (fac["down"].float() @ fac["up"].float()).t() * coef
+        if isinstance(mod, QuantLinear):
+            mod.set_weight_(mod.dequantized_weight()
+                            + delta.to(mod.weight.device))
+            continue
+        w = mod.weight
         w.copy_((w.float() + delta.to(w.device)).to(w.dtype))
     return model
 

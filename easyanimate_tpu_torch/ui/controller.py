@@ -69,13 +69,17 @@ class EasyAnimateController:
 
     def update_diffusion_transformer(self, path: str):
         """Load another checkpoint directory into a pipeline of the same
-        kind, dtype and device, keeping fp8 weight storage: an fp8-served
-        12B does not come back in bf16 (twice the memory) after a swap."""
+        kind, dtype and device, keeping fp8 weight storage and the quantized
+        block linears' mode, as JAX's (easyanimate_tpu/ui/controller.py:
+        55-78): an fp8- or int4-served 12B does not come back in bf16
+        (twice or four times the memory), nor W4A16 as W4A8, after a
+        swap."""
         from ..loader import load_pipeline
 
         with self._gen_lock:
             fp8 = any(p.dtype == FP8
                       for p in self.pipeline.transformer.parameters())
+            quant = self.pipeline.transformer.cfg.linear_quant
             kind = ("inpaint" if isinstance(self.pipeline,
                                             EasyAnimateInpaintPipeline)
                     else "control" if isinstance(self.pipeline,
@@ -84,6 +88,9 @@ class EasyAnimateController:
             self.pipeline = load_pipeline(
                 path, pipeline_type=kind,
                 dtype=self.pipeline.transformer.cfg.dtype, fp8_weights=fp8,
+                int8_linears=quant == "int8",
+                int4_weights=quant in ("int4", "w4a8"),
+                int4_compute="bf16" if quant == "int4" else "int8",
                 device=self.pipeline.device)
             self._default_scheduler = None  # new pipeline, new default
             self._lora = self._lora_scale = None  # no LoRA in its weights

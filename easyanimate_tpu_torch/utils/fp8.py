@@ -6,7 +6,10 @@ Every floating weight of 2 or more dimensions is held as float8_e4m3fn (1
 byte a parameter) and upcast to the compute dtype inside its module's
 forward, as the reference's wrapper does; 1-D tensors (norms, biases) keep
 their dtype. nn.Linear and nn.Conv* cannot take an fp8 weight, so each such
-module's forward is given the upcast.
+module's forward is given the upcast. A quantized block linear
+(ops/quant.py::QuantLinear) is left as it is: its int8 weight and float32
+scale are buffers, not floating parameters, as JAX keeps the int kernels
+and the scales out of the fp8 cast (easyanimate_tpu/loader.py:305-318).
 """
 import types
 

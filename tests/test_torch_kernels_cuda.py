@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (forward K1/K2/K5, backward K3/K4
-and K6/K7) against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
+and K6/K7, and the quantized linears' Q1-Q3) against their plain PyTorch
+versions, on the card. Every test here needs a CUDA device and nvcc, and
 skips without one; the CPU tests (test_torch_ops.py) hold the plain versions
 against the JAX package.
 
@@ -427,3 +428,116 @@ def test_swa_fused_kernel_rejects_bad_inputs_on_card(cuda_device):
         tswa.swa_local_global_fwd(x, x, x, x.float(), x, 4)
     with pytest.raises(ValueError, match="shapes"):
         tswa.swa_local_global_fwd(x, x, x, x[:1], x, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(300, 3072), (17, 12288), (1, 8), (5, 200)])
+def test_quantize_rows_kernel_matches_plain_bit_for_bit(cuda_device, m, k):
+    """Q1: one row of 8 (a single vector), a ragged K, an outlier row, a
+    zero row (ax floored at 1e-12): the int8 values and ax exact."""
+    from easyanimate_tpu_torch.ops import quant as tquant
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    x[0] *= 8.0
+    if m > 2:
+        x[2] = 0.0
+    before = tquant.quantize_rows.launches
+    xq, ax = tquant.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert tquant.quantize_rows.launches == before + 1
+    xq_p, ax_p = tquant.quantize_rows_plain(x)
+    assert torch.equal(xq, xq_p) and torch.equal(ax, ax_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,with_bias", [(300, 3072, True),
+                                           (33, 12288, False), (1, 4, True)])
+def test_dequantize_rows_kernel_matches_plain(cuda_device, m, n, with_bias):
+    """Q2 on int32 accumulators up to 2e8 (past 2^24, as at K = 12,288):
+    the same float32 operations in the same order give the same bf16."""
+    from easyanimate_tpu_torch.ops import quant as tquant
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    acc = torch.randint(-2 * 10 ** 8, 2 * 10 ** 8, (m, n), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    ax = torch.rand(m, 1, generator=g, device=cuda_device) * 8
+    ws = torch.rand(n, generator=g, device=cuda_device) * 1e-3
+    bias = (torch.randn(n, generator=g, device=cuda_device) if with_bias
+            else None)
+    before = tquant.dequantize_rows.launches
+    y = tquant.dequantize_rows(acc, ax, ws, bias)
+    torch.cuda.synchronize()
+    assert tquant.dequantize_rows.launches == before + 1
+    assert torch.equal(y, tquant.dequantize_rows_plain(acc, ax, ws, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(12288, 3072), (3072, 12288), (64, 96)])
+@pytest.mark.parametrize("out", ["int8", "bf16"])
+def test_unpack_int4_kernel_matches_plain_bit_for_bit(cuda_device, n, k, out):
+    """Q3 in both modes, groups of 128 and (k 96) one group of 96."""
+    from easyanimate_tpu_torch.ops import quant as tquant
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    w = torch.randn(n, k, generator=g, device=cuda_device) * 0.02
+    w[:, 5] *= 10.0
+    packed, scale = tquant.quantize_weight_int4(w)
+    mode = "int8" if out == "int8" else torch.bfloat16
+    before = tquant.unpack_int4_weight.launches
+    got = tquant.unpack_int4_weight(packed, scale, mode)
+    torch.cuda.synchronize()
+    assert tquant.unpack_int4_weight.launches == before + 1
+    want = tquant.unpack_int4_weight_plain(packed, scale, mode)
+    if out == "int8":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_quant_kernels_reject_bad_inputs_on_card(cuda_device):
+    from easyanimate_tpu_torch.ops import quant as tquant
+
+    x = torch.zeros(32, 64, device=cuda_device)
+    with pytest.raises(TypeError):  # float32: the kernel reads bf16
+        tquant.quantize_rows(x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tquant.quantize_rows(torch.zeros(32, 12, device=cuda_device,
+                                         dtype=torch.bfloat16))
+    acc = torch.zeros(32, 64, device=cuda_device, dtype=torch.int32)
+    ax = torch.ones(32, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        tquant.dequantize_rows(acc, ax, torch.ones(64, device=cuda_device),
+                               out_dtype=torch.float32)
+    with pytest.raises(TypeError):  # a bf16 bias
+        tquant.dequantize_rows(acc, ax, torch.ones(64, device=cuda_device),
+                               torch.ones(64, device=cuda_device,
+                                          dtype=torch.bfloat16))
+    packed = torch.zeros(8, 24, device=cuda_device, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 32"):  # 48 in-features
+        tquant.unpack_int4_weight(packed, torch.ones(8, 2, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4", "w4a8"])
+def test_quant_linear_on_card_matches_cpu(cuda_device, mode):
+    """A bf16 QuantLinear on the card (Q1-Q3 and the library products)
+    against the same module on the CPU (the plain versions): the int8
+    paths give the same int32 accumulators and the same float32 epilogue,
+    so the same bf16; W4A16's bf16 products sum in another order."""
+    from easyanimate_tpu_torch.ops import quant as tquant
+
+    g = torch.Generator().manual_seed(3)
+    lin = tquant.QuantLinear(256, 128, mode, dtype=torch.bfloat16)
+    lin.set_weight_(torch.randn(128, 256, generator=g) * 0.06)
+    with torch.no_grad():
+        lin.bias.normal_(0.0, 0.1, generator=g)
+    x = torch.randn(3, 40, 256, generator=g).to(torch.bfloat16)
+    want = lin(x)
+    got = lin.to(cuda_device)(x.to(cuda_device)).cpu()
+    assert got.dtype == want.dtype == torch.bfloat16
+    if mode == "int4":
+        _close(got.float(), want.float(), 2e-2)
+    else:
+        assert torch.equal(got, want)

@@ -28,6 +28,7 @@ from easyanimate_tpu_torch import loader
 from easyanimate_tpu_torch.models import convert as tconvert
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.vae import MagvitVAEConfig
+from easyanimate_tpu_torch.ops import quant as tquant
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.utils import config as tconfig
 from easyanimate_tpu_torch.utils.fp8 import FP8, fp8_byte_share
@@ -116,6 +117,37 @@ def test_fp8_weights_match_jax_bit_for_bit(model_dir):
             assert v.dtype == torch.float32, k
             np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
     assert n_fp8 > 0 and 0.5 < fp8_byte_share(pipe.transformer) < 1.0
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("kw,mode", [
+    ({"int8_linears": True}, "int8"),
+    ({"int4_weights": True, "int4_compute": "int8"}, "w4a8"),
+    ({"int4_weights": True, "int4_compute": "bf16"}, "int4")])
+def test_quantized_loads_match_jax(model_dir, kw, mode, fp8):
+    """int8_linears and int4_weights (W4A8 and W4A16), each alone and with
+    fp8_weights, against JAX's load of the same directory: the latents
+    after STEPS steps; the block linears quantized from the file's weights
+    exactly as quantize_module_*_ quantizes them; fp8 only outside them."""
+    root, jcfg, sd, inputs = model_dir
+    _, pipe, lat_j, lat_t = _run_both(root, inputs, fp8_weights=fp8, **kw)
+    assert not np.array_equal(lat_t, inputs["lat0"])
+    np.testing.assert_allclose(lat_t, lat_j, atol=LATENT_TOL, rtol=LATENT_TOL)
+    model = pipe.transformer
+    assert model.cfg.linear_quant == mode
+    quantized = {p: m for p, m in model.named_modules()
+                 if isinstance(m, tquant.QuantLinear)}
+    assert len(quantized) == 2 * 12 and {m.mode for m in quantized.values()} \
+        == {mode}
+    for path, mod in quantized.items():
+        w = torch.from_numpy(sd[path + ".weight"])
+        q, s = (tquant.quantize_weight_int8(w) if mode == "int8"
+                else tquant.quantize_weight_int4(w))
+        assert torch.equal(mod.weight, q) and torch.equal(mod.scale, s), path
+        assert mod.bias.dtype == torch.float32
+    assert (0.0 < fp8_byte_share(model) < 1.0) == fp8
+    assert all(p.dtype != FP8 for m in quantized.values()
+               for p in m.parameters())
 
 
 def test_transformer_path_overlays_one_tensor(model_dir, tmp_path, capsys):
@@ -224,9 +256,14 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
 
     with pytest.raises(ValueError, match="exclusive"):
         load(int8_linears=True, int4_weights=True)
-    for kw in ({"int8_linears": True}, {"int4_weights": True}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            load(**kw)
+    with pytest.raises(ValueError, match="int4_compute must be int8|bf16"):
+        load(int4_weights=True, int4_compute="fp8")
+    # the quantized linears are ported: they load (test_quantized_loads_
+    # match_jax holds them against JAX)
+    for kw, mode in (({"int8_linears": True}, "int8"),
+                     ({"int4_weights": True}, "w4a8"),
+                     ({"int4_weights": True, "int4_compute": "bf16"}, "int4")):
+        assert load(**kw).transformer.cfg.linear_quant == mode
     # the control pipeline and the samplers are ported: they load
     assert isinstance(load(pipeline_type="control"),
                       loader.EasyAnimateControlPipeline)

@@ -279,7 +279,7 @@ def test_port_imports_no_jax():
         "'training.came', 'training.adam8bit', 'training.checkpoints', "
         "'utils.diffusion', 'utils.observability', 'data.masks', "
         "'data.buckets', 'data.dataset', 'data.prefetch', 'train', "
-        "'train_lora')}\n"
+        "'train_lora', 'ops.quant')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -399,6 +399,8 @@ def test_entry_point_signatures_match_the_sources():
     pointer and an int for each int: with one missing, ctypes passes the
     parameters after it in the wrong slots (the stream among them)."""
     src = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    assert {"ea_quantize_rows_bf16", "ea_dequantize_rows_bf16",
+            "ea_unpack_int4"} <= set(_build._SIGNATURES)  # Q1-Q3
     for name, argtypes in _build._SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m, name
