@@ -27,7 +27,11 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              timed beside F.linear in bf16 (a yardstick only)
   reference  a tiny T2V and a tiny I2V run on the card (bf16, kernels)
              against the same weights on the CPU (float32, plain versions)
-  train_reference  a tiny LoRA step and a tiny SFT step, the same way
+  train_reference  a tiny LoRA step and a tiny SFT step, the same way;
+             then a tiny LCM step, a tiny reward step (a tiny CLIP scorer)
+             and a tiny MagViT ae_step and disc_step (float32 on both,
+             each from the initial weights), each within its
+             TRAIN_REFERENCE_BOUNDS (loss; gradients' relative L2 error)
   loader     a reference-layout V5.1 directory written by the port's own
              safetensors writer into a temporary directory (transformer
              at the 12B widths cut to 2 layers, layer 1 SWA, in 256 MB
@@ -101,15 +105,33 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              then a resume that must restore the saved state and sampler
              cursor bit for bit, and step 3; the kohya export read back;
              VAE-encode, step, checkpoint save / load seconds, peak
+  lcm        LCM-LoRA distillation (training/lcm.py) on the dense 12B:
+             LoRA rank 64, 2 steps at 384x672x49f: s/step, peak, K1 240,
+             K3 48, K4 48 a step, the base weights unchanged, the LoRA
+             moved, the EMA equal to d * e + (1 - d) * p bit for bit
+  reward     reward backprop (training/reward.py) on the dense 12B and
+             the MagViT: rank 32, 4 FlowMatch steps (the driver's 50 cut
+             to 4), 'tail' with 2 selected, one decoded latent frame, a
+             CLIP-H/14 scorer at its published widths (random weights,
+             stand-in token ids); one step with DRTune off, one on: s/step,
+             peak, K1 288, K3 96, K4 96 a step, a non-zero LoRA gradient;
+             then MPSReward (CLIP-H + the cross model) and AestheticReward
+             (CLIP-L/14 + the head) alone on the decoded frames, forward
+             and backward to the frames: ms, finite
   sft        SFT at the 12B widths, 4 layers (0 dense, 1-3 SWA), float32
              masters: 3 steps each of AdamW, CAME and 8-bit AdamW, then
              1 'ddpm' step; s/step, peak and optimizer-state bytes each
+  vae_train  the full V5.1 MagViT's GAN training (training/vae_trainer.py;
+             float32, Discriminator3D, LPIPS on VGG16, random weights) on
+             a random 256x256x17 clip, batch 1: 3 ae_step + disc_step
+             pairs with disc_start 1: s per step, peak
 Each main-path phase sets the kernels' launch counts to 0 just before it
 and checks them just after, and that every launch of K1-K7 (d 64) ran its
 TMA + wgmma kernel; Q1-Q3 launch on the quantized paths only. Then the per-kernel JSON line and, last, the
 device line.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -150,13 +172,25 @@ from easyanimate_tpu_torch.pipeline import (EasyAnimateControlPipeline,
                                             EasyAnimatePipeline,
                                             make_scheduler)
 from easyanimate_tpu_torch.pipeline import control as control_module
+from easyanimate_tpu_torch.pipeline.schedulers import DDIMConfig
 from easyanimate_tpu_torch.pipeline.t2v import build_rope
 from easyanimate_tpu_torch import train as train_module
 from easyanimate_tpu_torch.data import dataset as dataset_module
 from easyanimate_tpu_torch.models.convert import (load_lora_reference,
                                                   save_lora_reference)
+from easyanimate_tpu_torch.reward import clip as tclip
+from easyanimate_tpu_torch.reward.mps import MPSCrossModel, MPSReward
+from easyanimate_tpu_torch.reward.reward_fn import (AestheticReward,
+                                                    CLIPScoreReward,
+                                                    convert_aesthetic_head)
+from easyanimate_tpu_torch.training import lcm as tlcm
 from easyanimate_tpu_torch.training import lora as tlora
+from easyanimate_tpu_torch.training import optim as toptim
+from easyanimate_tpu_torch.training import reward as treward
 from easyanimate_tpu_torch.training import trainer as ttrainer
+from easyanimate_tpu_torch.training import vae_trainer as tvt
+from easyanimate_tpu_torch.training.vae_losses import (LPIPS, Discriminator3D,
+                                                       VAELossConfig)
 from easyanimate_tpu_torch.training.checkpoints import (CheckpointManager,
                                                         flatten_state)
 from easyanimate_tpu_torch.ui import controller as controller_module
@@ -188,6 +222,22 @@ REF_BOUND = 0.25
 # gradients by ~1e-2 of the largest; the kernels' bf16 p and ds add as much
 TRAIN_LOSS_BOUND = 1e-2
 TRAIN_GRAD_BOUND = 5e-2
+# the tiny LCM, reward and VAE-GAN steps (train_reference_errors), card
+# against CPU float32: (loss, gradients) bounds, the loss's error relative
+# to the CPU's (the reward's over the score's scale exp(logit_scale): the
+# error of the mean cosine, as the loss itself can sit near 0) and the
+# gradients' relative L2 error over all leaves. Set from
+# tools/train_reference_seeds.py over seeds 17-24 (NVIDIA H100 80GB HBM3,
+# 700 W), gradients: LCM 0.064-0.101 on the card, the same with the plain
+# attention on the card and in bf16 on the CPU (the huber gradient is about
+# sign(diff), and elements of diff within bf16 rounding of 0 flip it); a
+# K1 handing rows their neighbours' output 0.173-0.230, K4 without dk, dv
+# 0.245-0.296 (K3 without dq, 0.114-0.149, is not told apart from the
+# noise here: the reward step and kernels_bwd catch it). Reward 0.039-0.062;
+# broken K1, K3, K4 at least 0.265, 0.178, 0.334. The VAE steps, float32
+# on both sides: 3.4e-6-2.6e-4
+TRAIN_REFERENCE_BOUNDS = {"lcm": (1e-2, 0.15), "reward": (1e-2, 0.1),
+                          "vae": (1e-3, 1e-3), "disc": (1e-3, 1e-3)}
 TRAIN_STEPS = 3
 # swa_fused: fused vs unfused streams, max |difference| over max |unfused|,
 # outputs and gradients: the unfused path rounds the local and the cross
@@ -718,7 +768,8 @@ def _rel_err(got, want):
 def phase_train_reference():
     """A tiny SFT step and a tiny LoRA step, on the card in bf16 through the
     kernels and on the CPU in float32 through the plain versions, from the
-    same weights and draws: loss and gradients, then one step each."""
+    same weights and draws: loss and gradients, then one step each; then
+    train_reference_errors's LCM, reward and VAE-GAN steps."""
     batch, draws = _tiny_train_inputs()
     tcfg = ttrainer.TrainConfig()
     lcfg = tlora.LoRAConfig(rank=4)
@@ -760,7 +811,11 @@ def phase_train_reference():
     cpu, gpu = res["cpu"], res["cuda"]
     out = {"phase": "train_reference",
            "what": "tiny MMDiT (6 heads x 16, dense + SWA layer), 1x4x3x16x16 "
-                   "latents: card bf16 kernels vs CPU float32 plain"}
+                   "latents: card bf16 kernels vs CPU float32 plain; LCM "
+                   "(rank 4, EMA target), reward (3 steps, tail 2, tiny "
+                   "CLIP score of one 64x64 frame) and the tiny MagViT's "
+                   "ae_step + disc_step (float32 on both, LPIPS, "
+                   "Discriminator3D)"}
     for kind in ("sft", "lora"):
         out[f"{kind}_loss_rel_err"] = abs(gpu[f"{kind}_loss"] - cpu[f"{kind}_loss"]
                                           ) / abs(cpu[f"{kind}_loss"])
@@ -773,10 +828,223 @@ def phase_train_reference():
           and all(out[f"{k}_loss_rel_err"] <= TRAIN_LOSS_BOUND
                   and out[f"{k}_grad_rel_err"] <= TRAIN_GRAD_BOUND
                   for k in ("sft", "lora")))
-    out.update(loss_bound=TRAIN_LOSS_BOUND, grad_bound=TRAIN_GRAD_BOUND, ok=ok)
+    for kind, row in train_reference_errors().items():
+        out.update({f"{kind}_loss_err": row["err"][0],
+                    f"{kind}_grad_rel_l2": row["err"][1],
+                    f"{kind}_grad_rel_err": row["err"][2],
+                    f"{kind}_bounds": row["bounds"],
+                    f"{kind}_step_loss": row["step_loss"]})
+        if "floor" in row:
+            out[f"{kind}_bf16_floor"] = row["floor"]
+        ok = ok and row["ok"]
+    out.update(loss_bound=TRAIN_LOSS_BOUND, grad_bound=TRAIN_GRAD_BOUND,
+               ok=ok)
     emit(out)
     if not ok:
         raise AssertionError("tiny training step on the card disagrees with the CPU")
+
+
+class ClipWordTokenizer:
+    """A word-level stand-in for a CLIP tokenizer (its files are not in the
+    repository): bos, each whitespace-separated word hashed to an id below
+    it, eos, padded with eos to max_length (as OpenAI's CLIP pads); the
+    Hugging Face call interface the reward models use."""
+
+    model_max_length = 77
+
+    def __init__(self, vocab_size=49408):
+        self.bos, self.eos = vocab_size - 2, vocab_size - 1
+
+    def __call__(self, prompts, padding, truncation, max_length,
+                 return_tensors):
+        ids = np.full((len(prompts), max_length), self.eos, np.int64)
+        mask = np.zeros((len(prompts), max_length), np.int64)
+        for i, text in enumerate(prompts):
+            row = [self.bos] + [zlib.crc32(w.encode()) % self.bos
+                                for w in text.split()]
+            row = row[:max_length - 1] + [self.eos]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+@contextlib.contextmanager
+def grads_seen(module, name):
+    """Within the block, the optimizers that module.<name> makes keep each
+    update's gradients (float32 copies on the CPU, in call order)."""
+    seen, real = [], getattr(module, name)
+
+    def factory(*a, **k):
+        tx = real(*a, **k)
+
+        def update(grads, state, params=None):
+            seen.append({n: g.detach().float().cpu() for n, g in grads.items()})
+            return tx.update(grads, state, params)
+
+        return toptim.GradientTransformation(tx.init, update)
+
+    setattr(module, name, factory)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+TINY_REWARD_LATENTS = (1, 4, 3, 8, 8)  # 64x64 pixels through the tiny MagViT
+REWARD_PROMPTS = ("a red bird on a branch", "a cat asleep on a sofa")
+
+
+def _tiny_clip(device):
+    """A 2-layer CLIP (32 wide, 32 px, gelu), random weights from a seed."""
+    cfg = tclip.CLIPConfig(
+        tclip.CLIPTextConfig(vocab_size=1000, hidden_size=32,
+                             intermediate_size=64, num_hidden_layers=2,
+                             num_attention_heads=2, hidden_act="gelu",
+                             eos_token_id=999),
+        tclip.CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                               num_hidden_layers=2, num_attention_heads=2,
+                               image_size=32, patch_size=8, hidden_act="gelu"),
+        projection_dim=16)
+    model = init_random_(tclip.CLIPModel(cfg, device="cpu"),
+                         torch.Generator().manual_seed(19))
+    return model.to(device)
+
+
+def _tiny_gan(device):
+    """Discriminator3D (base 8, 2 layers) and LPIPS, random from a seed."""
+    gen = torch.Generator().manual_seed(23)
+    disc = init_random_(Discriminator3D(8, 2, device="cpu"), gen)
+    lpips = init_random_(LPIPS(device="cpu"), gen).requires_grad_(False)
+    return disc.to(device), lpips.to(device)
+
+
+def _clone_lora(lora, device):
+    return {p: {k: t.detach().clone().to(device) for k, t in f.items()}
+            for p, f in lora.items()}
+
+
+def _train_reference_slice(pairs, seed=17):
+    """The LCM step and the reward step (tiny CLIP score) on each (device,
+    dtype) of `pairs`, from the same weights, and factors and draws from
+    `seed`: [{"<kind>_loss": float, "<kind>_grads": {name: tensor}}] in the
+    order of `pairs`, for kind lcm and reward (each optimizer's input
+    gradients)."""
+    batch, _ = _tiny_train_inputs()
+    gen = torch.Generator().manual_seed(seed)
+    lcfg = tlora.LoRAConfig(rank=4)
+    lora = tlora.lora_init(_tiny_models("float32")[0], lcfg, gen)
+    for f in lora.values():  # non-zero up: the down factors get gradients
+        f["up"].normal_(0.0, 0.01, generator=gen)
+    ema = {p: {k: t + 0.01 * torch.randn(t.shape, generator=gen)
+               for k, t in f.items()} for p, f in lora.items()}
+    lcm_cfg = tlcm.LCMConfig(num_ddim_timesteps=10)
+    lcm_draws = tlcm.LCMDraws(torch.tensor([6]),
+                              torch.randn(batch["latents"].shape,
+                                          generator=gen), torch.tensor([7.5]))
+    rcfg = treward.RewardConfig(num_sample_steps=3, backprop_strategy="tail",
+                                backprop_num_steps=2, guidance_scale=3.0)
+    r_noise = torch.randn(TINY_REWARD_LATENTS, generator=gen)
+    res = []
+    for device, dtype in pairs:
+        out = {}
+        model, vae = (m.to(device) for m in _tiny_models(dtype))
+        b = _to(batch, device)
+        b["rope"] = build_rope(model.cfg, 128, 128, 3, device=device)
+        with grads_seen(tlcm, "make_optimizer") as seen:
+            init, step = tlcm.make_lcm_train_step(
+                model, DDIMConfig(), lcm_cfg, lcfg, ttrainer.TrainConfig())
+            st = init(lora=_clone_lora(lora, device))
+            st.ema_params = _clone_lora(ema, device)
+            _, m = step(st, b, draws=tlcm.LCMDraws(*_to(tuple(lcm_draws),
+                                                         device)))
+        out.update(lcm_loss=m["loss"].item(), lcm_grads=seen[-1])
+
+        scorer = CLIPScoreReward(_tiny_clip(device), ClipWordTokenizer(1000))
+        rb = {"text": b["text"], "latent_shape": TINY_REWARD_LATENTS,
+              "rope": build_rope(model.cfg, 64, 64, 3, device=device)}
+        with grads_seen(treward, "make_optimizer") as seen:
+            init, step = treward.make_reward_train_step(
+                model, vae, lambda fr: scorer(fr, REWARD_PROMPTS)[1][None],
+                rcfg, lcfg, ttrainer.TrainConfig(),
+                vae_scaling=vae.cfg.scaling_factor)
+            st = init(lora=_clone_lora(lora, device))
+            _, m = step(st, rb, draws=treward.RewardDraws(
+                r_noise.to(device), treward.backprop_step_mask(rcfg)))
+        out.update(reward_loss=m["loss"].item(), reward_grads=seen[-1])
+        res.append(out)
+    return res
+
+
+def _vae_train_reference(device, seed=17):
+    """The tiny MagViT's ae_step and disc_step (float32, LPIPS,
+    Discriminator3D, disc_start 0) on `device`, each from the initial
+    weights (an Adam step moves a parameter by ~lr * sign(g), so one side's
+    disc_step after its ae_step would read other weights wherever a
+    gradient sat within rounding of 0), on a clip and sample draw from
+    `seed`: {"<kind>_loss", "<kind>_grads"} for kind vae and disc."""
+    gen = torch.Generator().manual_seed(seed)
+    video = torch.rand((1, 3, 5, 64, 64), generator=gen) * 2 - 1
+    noise = torch.randn((1, 4, 2, 8, 8), generator=gen).to(device)
+    vb = {"video": video.to(device)}
+    cfg = tvt.VAETrainConfig(loss=VAELossConfig(disc_start=0))
+    out = {}
+    for kind in ("vae", "disc"):
+        vae32 = _tiny_models("float32")[1].to(device)
+        disc, lpips = _tiny_gan(device)
+        with grads_seen(tvt, "_adam") as seen:
+            state = tvt.create_vae_train_state(vae32, disc, cfg)
+            ae, ds = tvt.make_vae_train_steps(vae32, disc, cfg, lpips)
+            if kind == "vae":
+                _, aux = ae(state, vb, noise=noise)
+                loss = aux["loss"]
+            else:
+                _, aux = ds(state, vb, noise=noise)
+                loss = aux["disc_loss"]
+        out.update({f"{kind}_loss": loss.item(), f"{kind}_grads": seen[0]})
+    return out
+
+
+def _rel_l2(got, want):
+    """||got - want|| over ||want||, all tensors as one vector."""
+    num = sum(((got[k].float().cpu() - w) ** 2).sum().item()
+              for k, w in want.items())
+    return math.sqrt(num / sum((w ** 2).sum().item() for w in want.values()))
+
+
+def train_step_errors(got, want, kind):
+    """(loss error, gradients' relative L2 error, max |gradient error| over
+    the largest |gradient|) of one train_reference step against another;
+    see TRAIN_REFERENCE_BOUNDS."""
+    loss, grads = f"{kind}_loss", f"{kind}_grads"
+    scale = (math.exp(tclip.CLIPConfig.logit_scale_init_value)
+             if kind == "reward" else abs(want[loss]))
+    return (abs(got[loss] - want[loss]) / scale,
+            _rel_l2(got[grads], want[grads]),
+            _rel_err(got[grads], want[grads]))
+
+
+def train_reference_errors(seed=17):
+    """The card against the CPU in float32 on the tiny LCM and reward steps
+    (the card's MMDiT in bf16 through the kernels; "floor": the CPU's plain
+    versions in bf16, reported, not bounded) and the tiny VAE steps
+    (float32 on both): {kind: {"err": train_step_errors, "bounds":
+    TRAIN_REFERENCE_BOUNDS[kind], "floor" for lcm and reward, "step_loss":
+    [cpu, card], "ok": bool}}."""
+    f32, bf16, card = _train_reference_slice(
+        (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "bfloat16")), seed)
+    cpu_vae, card_vae = (_vae_train_reference(d, seed) for d in ("cpu", "cuda"))
+    f32.update(cpu_vae)
+    card.update(card_vae)
+    rows = {}
+    for kind, bounds in TRAIN_REFERENCE_BOUNDS.items():
+        err = train_step_errors(card, f32, kind)
+        rows[kind] = {"err": err, "bounds": bounds,
+                      "step_loss": [f32[f"{kind}_loss"], card[f"{kind}_loss"]],
+                      "ok": (set(card[f"{kind}_grads"]) == set(f32[f"{kind}_grads"])
+                             and err[0] <= bounds[0] and err[1] <= bounds[1])}
+        if kind in ("lcm", "reward"):
+            rows[kind]["floor"] = train_step_errors(bf16, f32, kind)
+    return rows
 
 
 def build_12b(seed):
@@ -2424,6 +2692,238 @@ def phase_train_driver(model, vae, seed, root):
     return {k: v * DRIVER_STEPS for k, v in expect.items()}
 
 
+LCM_STEPS = 2
+LCM_RANK = 64  # the driver's default (examples/train_lcm_lora.py)
+# per LCM step: the student's forward and its remat recompute, two teacher
+# evaluations and the target's (K1 5 x 48); one backward (K3, K4 48)
+LCM_LAUNCHES = {"K1": 5 * 48, "K2": 0, "K3": 48, "K4": 48, "K5": 0, "K6": 0,
+                "K7": 0}
+
+
+def phase_lcm(model, seed):
+    """make_lcm_train_step on the resident bf16 12B: LoRA rank 64, LCMConfig
+    defaults, 384x672x49f latents, random text (the negative text zeros),
+    LCM_STEPS steps. Checks: each step's launches (LCM_LAUNCHES), the base
+    weights unchanged (checksum), the LoRA moved, and after each step the
+    EMA factors equal to d * e + (1 - d) * p, bit for bit."""
+    before = checksum(model)
+    batch, gen = train_batch(model.cfg, seed)
+    lcfg = tlora.LoRAConfig(rank=LCM_RANK)
+    lcm_cfg = tlcm.LCMConfig()
+    init, step = tlcm.make_lcm_train_step(model, DDIMConfig(), lcm_cfg, lcfg,
+                                          ttrainer.TrainConfig())
+    state = init(gen)
+    start = {k: t.detach().clone()
+             for k, t in tlora.flatten_lora(state.params).items()}
+    prev = {k: t.clone() for k, t in tlora.flatten_lora(state.ema_params).items()}
+    ema_equal = []
+
+    def check_ema(i, st):
+        p, e = tlora.flatten_lora(st.params), tlora.flatten_lora(st.ema_params)
+        d = lcm_cfg.ema_decay
+        ema_equal.append(all(torch.equal(e[k], d * prev[k] + (1 - d) * p[k])
+                             for k in e))
+        prev.update({k: t.clone() for k, t in e.items()})
+
+    state, out = train_phase("lcm", step, state, batch, gen, LCM_LAUNCHES,
+                             steps=LCM_STEPS, after_step=check_ema)
+    moved = max((t.detach() - start[k]).abs().max().item()
+                for k, t in tlora.flatten_lora(state.params).items())
+    frozen = checksum(model) == before
+    out.update(lora_rank=lcfg.rank, lora_alpha=lcfg.alpha,
+               lora_params=sum(t.numel() for t in start.values()),
+               lcm_config=dataclasses.asdict(lcm_cfg),
+               base_weights_unchanged=frozen, lora_max_abs_change=moved,
+               ema_equal_after_each_step=ema_equal)
+    emit(out)
+    del state, start, prev
+    torch.cuda.empty_cache()
+    if not (frozen and moved > 0 and len(ema_equal) == LCM_STEPS
+            and all(ema_equal)):
+        raise AssertionError(f"lcm: a check failed: {out}")
+    return out
+
+
+REWARD_SAMPLE_STEPS, REWARD_SELECTED, REWARD_RANK = 4, 2, 32
+# per reward step: 4 CFG evaluations at batch 2 (K1 4 x 48) and the two
+# selected steps' remat recompute (2 x 48) and backward (K3, K4 2 x 48)
+REWARD_LAUNCHES = {"K1": (REWARD_SAMPLE_STEPS + REWARD_SELECTED) * 48,
+                   "K2": 0, "K3": REWARD_SELECTED * 48,
+                   "K4": REWARD_SELECTED * 48, "K5": 0, "K6": 0, "K7": 0}
+# the improved-aesthetic-predictor's linear stack over CLIP-L/14's 768:
+# (index in its nn.Sequential, in, out)
+AESTHETIC_HEAD = ((0, 768, 1024), (2, 1024, 128), (4, 128, 64), (6, 64, 16),
+                  (7, 16, 1))
+
+
+def _scorer_pass(scorer, frames, *args):
+    """One forward + backward to the frames: (ms, reward, grad finite and
+    non-zero)."""
+    fr = frames.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, reward = scorer(fr, *args)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    g = fr.grad
+    return ms, reward.item(), bool(torch.isfinite(g).all()) and bool(g.any())
+
+
+def phase_reward(model, vae, seed):
+    """make_reward_train_step on the resident bf16 12B and the full MagViT
+    (bf16): LoRA rank 32, REWARD_SAMPLE_STEPS FlowMatch steps (the driver's
+    50 cut to 4), 'tail' with REWARD_SELECTED selected, one decoded latent
+    frame, CFG 6.0; the scorer a CLIP-H/14 at its published widths (random
+    float32 weights, stand-in token ids) scoring against REWARD_PROMPTS.
+    One step with DRTune off, one with it on: launches (REWARD_LAUNCHES),
+    a non-zero LoRA gradient, the base weights unchanged. Then MPSReward
+    (the same CLIP-H + a random cross model) and AestheticReward (a CLIP-L/14
+    + a random head) alone on the last step's decoded frames, forward and
+    backward to the frames, twice each (the first includes warm-up)."""
+    before = checksum(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    clip_h = init_random_(tclip.CLIPModel(tclip.CLIP_PRESETS["clip-vit-h-14"],
+                                          device=DEVICE), gen)
+    torch.cuda.synchronize()
+    clip_build_s = time.perf_counter() - t0
+    tok = ClipWordTokenizer()
+    scorer = CLIPScoreReward(clip_h, tok)
+    decoded = {}
+
+    def reward_fn(frames):
+        decoded["frames"] = frames.detach()
+        return scorer(frames, REWARD_PROMPTS)[1][None]
+
+    cfg = model.cfg
+    lat_frames = (FRAMES - 1) // 4 + 1
+    batch = {"text": 0.02 * torch.randn(1, TEXT_LEN, cfg.text_embed_dim,
+                                        generator=gen, device=DEVICE),
+             "latent_shape": (1, 16, lat_frames, H // 8, W // 8),
+             "rope": build_rope(cfg, H, W, lat_frames, device=DEVICE)}
+    outs = []
+    for drtune in (False, True):
+        rcfg = treward.RewardConfig(
+            num_sample_steps=REWARD_SAMPLE_STEPS, backprop_strategy="tail",
+            backprop_num_steps=REWARD_SELECTED,
+            stop_latent_model_input_gradient=drtune, num_decoded_latents=1,
+            guidance_scale=6.0)
+        init, step = treward.make_reward_train_step(
+            model, vae, reward_fn, rcfg, tlora.LoRAConfig(rank=REWARD_RANK),
+            ttrainer.TrainConfig(), vae_scaling=vae.cfg.scaling_factor)
+        name = "reward_drtune" if drtune else "reward"
+        state, out = train_phase(name, step, init(gen), batch, gen,
+                                 REWARD_LAUNCHES, steps=1)
+        out.update(reward_config=dataclasses.asdict(rcfg),
+                   lora_rank=REWARD_RANK, scorer="CLIP-H/14 (random)",
+                   decoded_frames=list(decoded["frames"].shape))
+        emit(out)
+        outs.append(out)
+        del state
+        torch.cuda.empty_cache()
+    frames = decoded.pop("frames")
+
+    cross = init_random_(MPSCrossModel(device=DEVICE), gen)
+    mps = MPSReward(clip_h, tok, cross)
+    clip_l = init_random_(tclip.CLIPModel(tclip.CLIP_PRESETS["clip-vit-l-14"],
+                                          device=DEVICE), gen)
+    head = {f"layers.{i}.weight": torch.randn(o, n, generator=gen,
+                                              device=DEVICE) * n ** -0.5
+            for i, n, o in AESTHETIC_HEAD}
+    head.update({f"layers.{i}.bias": torch.zeros(o, device=DEVICE)
+                 for i, n, o in AESTHETIC_HEAD})
+    aesthetic = AestheticReward(clip_l, convert_aesthetic_head(head,
+                                                               device=DEVICE))
+    scorers = {}
+    # MPS scores each sample against its own prompt (one frame, one prompt)
+    for name, sc, args in (("mps", mps, ([REWARD_PROMPTS[0]],)),
+                           ("aesthetic", aesthetic, ())):
+        runs = [_scorer_pass(sc, frames, *args) for _ in range(2)]
+        scorers[name] = {"ms": [r[0] for r in runs], "reward": runs[-1][1],
+                         "finite_nonzero_frame_grad": all(r[2] for r in runs)}
+    frozen = checksum(model) == before
+    summary = {"phase": "reward_scorers", "frames": list(frames.shape),
+               "clip_h_build_s": clip_build_s,
+               "clip_h_params": sum(p.numel() for p in clip_h.parameters()),
+               "clip_l_params": sum(p.numel() for p in clip_l.parameters()),
+               "mps_cross_params": sum(p.numel() for p in cross.parameters()),
+               "scorers": scorers, "base_weights_unchanged": frozen}
+    emit(summary)
+    del clip_h, clip_l, cross, mps, aesthetic, scorer, frames
+    torch.cuda.empty_cache()
+    ok = (frozen and all(o["grad_norm_last"] > 0 for o in outs)
+          and all(v["finite_nonzero_frame_grad"]
+                  and math.isfinite(v["reward"]) for v in scorers.values()))
+    if not ok:
+        raise AssertionError(f"reward: a check failed: {outs} {summary}")
+    return outs, summary
+
+
+VAE_PAIRS, VAE_SIZE, VAE_FRAMES = 3, 256, 17  # examples/train_vae.py defaults
+
+
+def phase_vae_train(seed):
+    """make_vae_train_steps on the full V5.1 MagViT (MagvitVAEConfig(),
+    float32, as JAX trains it), Discriminator3D() and LPIPS (VGG16), all
+    random from `seed`, on a random 256x256x17 clip, batch 1: VAE_PAIRS
+    ae_step + disc_step pairs with disc_start 1 (pair 1's ae_step has the
+    GAN branch off, every later step on). s per step, peak; checks: finite
+    losses, a positive adaptive weight once the GAN branch is on, the
+    decoder's last conv and the discriminator moved. Out of memory fails
+    the phase (the widths are not narrowed)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vae = init_random_(AutoencoderKLMagvit(MagvitVAEConfig(), device=DEVICE),
+                       gen)
+    disc = init_random_(Discriminator3D(device=DEVICE), gen)
+    lpips = init_random_(LPIPS(device=DEVICE), gen).requires_grad_(False)
+    cfg = tvt.VAETrainConfig(loss=VAELossConfig(disc_start=1))
+    state = tvt.create_vae_train_state(vae, disc, cfg)
+    ae, ds = tvt.make_vae_train_steps(vae, disc, cfg, lpips)
+    batch = {"video": torch.rand((1, 3, VAE_FRAMES, VAE_SIZE, VAE_SIZE),
+                                 generator=gen, device=DEVICE) * 2 - 1}
+    last0 = vae.decoder.conv_out.weight.detach().clone()
+    disc0 = disc.conv_in.weight.detach().clone()
+    rows = []
+    for i in range(VAE_PAIRS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = ae(state, batch, generator=gen)
+        loss = aux["loss"].item()
+        t1 = time.perf_counter()
+        state, daux = ds(state, batch, generator=gen)
+        d_loss = daux["disc_loss"].item()
+        t2 = time.perf_counter()
+        rows.append({"ae_s": t1 - t0, "disc_s": t2 - t1, "loss": loss,
+                     "disc_loss": d_loss,
+                     **{k: aux[k].item() for k in
+                        ("l1", "l2", "perceptual", "kl", "g_loss",
+                         "d_weight")}})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = ((vae.decoder.conv_out.weight - last0).abs().max().item(),
+             (disc.conv_in.weight - disc0).abs().max().item())
+    out = {"phase": "vae_train", "pairs": rows,
+           "max_memory_allocated_gib": peak,
+           "vae_params": sum(p.numel() for p in vae.parameters()),
+           "disc_params": sum(p.numel() for p in disc.parameters()),
+           "lpips_params": sum(p.numel() for p in lpips.parameters()),
+           "clip": [1, 3, VAE_FRAMES, VAE_SIZE, VAE_SIZE], "disc_start": 1,
+           "max_abs_change": {"decoder.conv_out.weight": moved[0],
+                              "disc.conv_in.weight": moved[1]}}
+    emit(out)
+    del state, vae, disc, lpips, batch
+    torch.cuda.empty_cache()
+    if not (len(rows) == VAE_PAIRS
+            and all(math.isfinite(r["loss"]) and math.isfinite(r["disc_loss"])
+                    for r in rows)
+            and all(r["d_weight"] > 0 for r in rows[1:])
+            and moved[0] > 0 and moved[1] > 0):
+        raise AssertionError(f"vae_train: a check failed: {out}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -2566,13 +3066,24 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         expect_driver = path_run("train_driver", lambda: phase_train_driver(
             model, vae, args.seed + 60, root))
+    # LCM distillation, then reward backprop (DRTune off, on) with the
+    # CLIP-H scorer, and MPS and the aesthetic score on its frames
+    expect_lcm = {k: LCM_STEPS * n for k, n in LCM_LAUNCHES.items()}
+    path_run("lcm", lambda: phase_lcm(model, args.seed + 80), expect_lcm)
+    expect_reward = {k: 2 * n for k, n in REWARD_LAUNCHES.items()}
+    path_run("reward", lambda: phase_reward(model, vae, args.seed + 81),
+             expect_reward)
     del model, vae
     torch.cuda.empty_cache()
     path_run("sft", lambda: phase_sft(args.seed + 6))
+    # the MagViT's GAN training: no attention kernel of ours (the mid
+    # block's attention is plain)
+    path_run("vae_train", lambda: phase_vae_train(args.seed + 82),
+             dict.fromkeys(COUNTERS, 0))
     n_sft = sum(steps for _, _, steps in SFT_VARIANTS)
     expect_train = {k: n * (lora_dense[k] + lora_swa[k])
                     + n_sft * SFT_LAUNCHES[k] + expect_driver[k]
-                    for k in COUNTERS}
+                    + expect_lcm[k] + expect_reward[k] for k in COUNTERS}
     expect_serve = {"K1": 4 * 48 * steps, "K2": 47 * steps}
     # three requests and two latent-only ones (int8, w4a8)
     expect_loader = {k: 5 * n for k, n in LOADER_LAUNCHES.items()}

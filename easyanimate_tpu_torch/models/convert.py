@@ -60,9 +60,12 @@ def load_on_device(module: nn.Module, sd: Mapping[str, torch.Tensor],
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator` (which must live on
     the parameters' device): norm weights 1, biases 0, every other tensor
-    N(0, 1/fan_in). Used to drive the full-size model with random weights
-    built directly on the device, e.g. after `to_empty`."""
+    N(0, 1/fan_in); a scalar (CLIP's logit_scale) keeps its value. Used to
+    drive the full-size model with random weights built directly on the
+    device, e.g. after `to_empty`."""
     for name, p in module.named_parameters():
+        if p.dim() == 0:
+            continue
         if p.dim() == 1:
             is_norm_weight = name.endswith("weight")  # 1-D weights are norms
             p.fill_(1.0 if is_norm_weight else 0.0)

@@ -5,8 +5,12 @@ autoencoder_magvit.py:59-505, omnigen_enc_dec.py). Encoder + quant_conv and
 post_quant_conv + decoder, with the `cache_mag` chunk protocol (frame 0
 alone, then chunks that carry the causal conv caches: mini_batch_encoder
 pixel frames per encoder pass) and the even-cover spatial tiling, and the
-diagonal Gaussian's mode and sample. The other chunk modes and seam
+diagonal Gaussian's mode, sample and KL. The other chunk modes and seam
 smoothing are not ported.
+
+encode_chunk and decode_chunk are differentiable (the VAE trainer,
+training/vae_trainer.py, takes their gradients with cache=None): no layer
+writes in place into a tensor that autograd saved.
 """
 import dataclasses
 from typing import Callable, List, Optional, Sequence
@@ -193,14 +197,25 @@ def gaussian_mode(moments: torch.Tensor) -> torch.Tensor:
 
 
 def gaussian_sample(moments: torch.Tensor,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-    """mean + exp(logvar / 2) * N(0, 1), logvar clamped to [-30, 20]."""
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean + exp(logvar / 2) * N(0, 1), logvar clamped to [-30, 20]; the
+    N(0, 1) draw is `noise` when given, else drawn from `generator`."""
     mean, logvar = moments.chunk(2, dim=1)
     std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
-    return mean + std * noise
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    return mean + std * noise.to(mean.dtype)
+
+
+def gaussian_kl(moments: torch.Tensor) -> torch.Tensor:
+    """KL(q || N(0, I)) per sample, summed over the non-batch dims; logvar
+    clamped to [-30, 20]."""
+    mean, logvar = moments.chunk(2, dim=1)
+    logvar = logvar.clamp(-30.0, 20.0)
+    kl = 0.5 * (mean.square() + logvar.exp() - 1.0 - logvar)
+    return kl.flatten(1).sum(dim=1)
 
 
 def _decode_chunk_frames(cfg: MagvitVAEConfig) -> int:

@@ -38,7 +38,8 @@ from .data import (AspectRatioBatchSampler, DataLoader,
                    ImageVideoControlDataset, ImageVideoDataset,
                    ResumableRandomSampler, to_device)
 from .device import resolve_device
-from .models.vae import gaussian_mode, gaussian_sample, vae_encode
+from .models.vae import (MagvitVAEConfig, gaussian_mode, gaussian_sample,
+                         vae_encode)
 from .pipeline.inpaint import add_noise_to_reference_video, resize_mask_to_latent
 from .pipeline.t2v import build_rope
 from .training.checkpoints import CheckpointManager
@@ -589,21 +590,25 @@ def _log_validation(args, transformer, vae, state, encode_text, step, device):
     print("validation sample ->", out)
 
 
+# the tiny MagViT of the JAX drivers' --tiny_demo (examples/train.py,
+# train_reward_lora.py, train_vae.py)
+TINY_VAE = MagvitVAEConfig(
+    latent_channels=4, block_out_channels=(8, 16),
+    down_block_types=("SpatialTemporalDownBlock3D", "SpatialDownBlock3D"),
+    up_block_types=("SpatialTemporalUpBlock3D", "SpatialUpBlock3D"),
+    layers_per_block=1, norm_num_groups=4, mini_batch_encoder=2,
+    mini_batch_decoder=1, scaling_factor=0.5)
+
+
 def _tiny_models(enable_inpaint, enable_control=False, enable_camera=False,
                  device=None, seed: int = 0):
     """The tiny MMDiT preset and a tiny MagViT (examples/train.py:630-660),
     float32, random weights from `seed`."""
     from .models.convert import init_random_
     from .models.mmdit import PRESETS, EasyAnimateTransformer3D
-    from .models.vae import AutoencoderKLMagvit, MagvitVAEConfig
+    from .models.vae import AutoencoderKLMagvit
 
     device = resolve_device(device)
-    vae_cfg = MagvitVAEConfig(
-        latent_channels=4, block_out_channels=(8, 16),
-        down_block_types=("SpatialTemporalDownBlock3D", "SpatialDownBlock3D"),
-        up_block_types=("SpatialTemporalUpBlock3D", "SpatialUpBlock3D"),
-        layers_per_block=1, norm_num_groups=4, mini_batch_encoder=2,
-        mini_batch_decoder=1, scaling_factor=0.5)
     ctl_ch = 6 if enable_camera else 4  # camera control = 6ch Plucker video
     in_ch = 4
     if enable_inpaint:
@@ -615,7 +620,7 @@ def _tiny_models(enable_inpaint, enable_control=False, enable_camera=False,
     gen = torch.Generator(device=device).manual_seed(seed)
     transformer = init_random_(EasyAnimateTransformer3D(mmdit_cfg,
                                                         device=device), gen)
-    vae = init_random_(AutoencoderKLMagvit(vae_cfg, device=device), gen)
+    vae = init_random_(AutoencoderKLMagvit(TINY_VAE, device=device), gen)
     return transformer, vae
 
 

@@ -314,11 +314,21 @@ def test_a_swap_waits_for_the_running_generation():
         release.wait(30)
         return _encode_text(prompts)
 
-    ctl = EasyAnimateController(pipeline=_pipe(inpaint=False),
-                                encode_text=encode)
-    gen = threading.Thread(target=lambda: order.append(ctl.generate(
+    pipe = _pipe(inpaint=False)
+
+    class Recorded(type(pipe)):
+        def __call__(self, *args, **kwargs):
+            out = super().__call__(*args, **kwargs)
+            # recorded inside the controller's lock: once generate returns,
+            # the swap may run before this thread would record anything
+            order.append(tuple(out.shape))
+            return out
+
+    pipe.__class__ = Recorded
+    ctl = EasyAnimateController(pipeline=pipe, encode_text=encode)
+    gen = threading.Thread(target=lambda: ctl.generate(
         prompt="x", sample_steps=1, width=16, height=16, video_length=5,
-        cfg_scale=1.0).shape))
+        cfg_scale=1.0))
     swap = threading.Thread(target=lambda: order.append(ctl.update_lora(None)))
     gen.start()
     assert started.wait(30)
