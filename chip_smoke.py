@@ -11,7 +11,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes (K1 also at the
-             serve phase's one-CFG-half and 45-frame-window shapes), with
+             serve phase's one-CFG-half and 45-frame-window shapes and at
+             the V5 12B's joint length, 77 + 256 + 13,104 = 13,437), with
              kernel / plain / library (yardstick only) times and each
              kernel's bound
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
@@ -25,8 +26,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              the whole quantized linear in each mode (int8, w4a8, int4) at
              the three block-linear widths held to JAX's cosine guards and
              timed beside F.linear in bf16 (a yardstick only)
-  reference  a tiny T2V and a tiny I2V run on the card (bf16, kernels)
-             against the same weights on the CPU (float32, plain versions)
+  reference  a tiny T2V, a tiny I2V and a tiny V5 run (the tiny Bert and
+             mT5 towers' two streams into a tiny dual-stream MMDiT, DDIM)
+             on the card (bf16, kernels) against the same weights on the
+             CPU (float32, plain versions)
   train_reference  a tiny LoRA step and a tiny SFT step, the same way;
              then a tiny LCM step, a tiny reward step (a tiny CLIP scorer)
              and a tiny MagViT ae_step and disc_step (float32 on both,
@@ -97,6 +100,18 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              and backward, with fuse_cross=True (K5) against False
   lora_dense 3 LoRA steps (rank 128) on the same 12B at 384x672x49f
   lora_swa   3 LoRA steps on its swa_layers = 1..47 variant
+  v5_text    V5's prompt towers at their published widths, float32
+             (random weights): the Bert (hidden 1024, 24 layers) on a CFG
+             pair of 77 token ids and the mT5-XL encoder (d_model 2048, 24
+             blocks) on 256; ms per tower for the pair, peak; then freed
+  v5         the V5 12B (the V5 yaml's fields over the 12B's widths: the
+             Bert and mT5 streams through their RMS-normed projections,
+             after_norm; the 12B's tensors shared, V5's own ones random)
+             on those embeddings, 384x672x49f, CFG 6.0, DDIM: K1 48 per
+             CFG evaluation at the joint length 13,437; then after_norm's
+             float32 LayerNorms timed alone at the request's shapes
+  lora_v5    LORA_V5_STEPS LoRA steps (rank 128) on that V5 12B with a
+             batch carrying text_t5: K1 96, K3 48, K4 48 a step
   train_driver  the training driver's loop (easyanimate_tpu_torch.train)
              on the dense 12B and the full MagViT: a manifest of 2 videos
              and 2 images (file reads patched: seeded frames at the size),
@@ -153,13 +168,17 @@ from easyanimate_tpu_torch.models.convert import (init_random_,
                                                   mmdit_config_json,
                                                   save_reference_checkpoint)
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
-from easyanimate_tpu_torch.models.text import (Qwen2Config, Qwen2TextEncoder,
-                                               QwenVLTextEncoder)
+from easyanimate_tpu_torch.models.text import (TINY_BERT, TINY_T5, BertConfig,
+                                               BertModel, BertTextEncoder,
+                                               MT5EncoderModel, MT5TextEncoder,
+                                               Qwen2Config, Qwen2TextEncoder,
+                                               QwenVLTextEncoder, T5Config)
 from easyanimate_tpu_torch.models.vae import (AutoencoderKLMagvit,
                                               MagvitVAEConfig, vae_decode,
                                               vae_encode)
 from easyanimate_tpu_torch.ops import _build
 from easyanimate_tpu_torch.ops import quant as tquant
+from easyanimate_tpu_torch.ops.norms import fp32_layer_norm
 from easyanimate_tpu_torch.ops.flash_attention import (
     LOG2E, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain, row_dot)
@@ -202,6 +221,11 @@ from easyanimate_tpu_torch.utils.media import (YUV420Video,
 from easyanimate_tpu_torch.utils.transfer import HostCopy
 
 H, W, FRAMES, TEXT_LEN = 384, 672, 49, 256
+# V5's prompt towers at their published widths (HunyuanDiT's Bert, mT5-XL's
+# encoder) and the Bert stream's length (BertTextEncoder's max_length); the
+# mT5 stream takes TEXT_LEN
+V5_BERT, V5_T5, BERT_LEN = BertConfig(), T5Config(), 77
+LORA_V5_STEPS = 2
 O_BOUND = 2e-2    # bf16 o (8-bit mantissa) and the kernel's bf16 p before p @ v
 # the same, as max |kernel - plain| over max |plain|: at the flagship, q
 # pre-scaled and 13,360 keys, |o| stays below ~0.1, so O_BOUND alone would
@@ -216,6 +240,16 @@ BWD_BOUND = 2e-2
 # tiny pipeline, bf16 on the card vs float32 on the CPU, latents ~ N(0, 1):
 # CFG 6 scales the bf16 rounding of both halves by up to 1 + 2 * 6 = 13
 REF_BOUND = 0.25
+# the tiny V5 request (DDIM, whose x0 steps take random-weight latents to
+# ~15): max |card - CPU| over max |CPU latents|. The plain versions in
+# bf16 on the CPU read 1.9% (0.291 of 15.1), the card 2.0% (NVIDIA H100
+# 80GB HBM3, 700 W); tools/v5_reference_rehearsal.py reads the card with
+# K1 broken (each row handed its neighbour's output). The bound leaves a
+# 2.5x margin over the card
+REF_V5_REL_BOUND = 5e-2
+# and the card's error within this multiple of the same run's bf16 floor
+# (the plain versions in bf16 on the CPU): 2.0% over 1.9% read 1.05
+REF_V5_FLOOR_MULT = 1.5
 # tiny training step, bf16 on the card vs float32 on the CPU: loss relative
 # 1e-2, gradients 5e-2 of the largest |gradient|. bf16 weights and
 # activations alone (the plain versions in bf16 on the CPU) move the
@@ -430,6 +464,13 @@ def _compare_fused(name, args):
     return err, rel
 
 
+def v5_joint_len():
+    """K1's sequence on the V5 12B at HxWxFRAMES: Bert + mT5 text tokens
+    and the video's patches (13,437 at 384x672x49f)."""
+    return (BERT_LEN + TEXT_LEN
+            + ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16))
+
+
 def phase_kernels(gen):
     dev = torch.device("cuda")
 
@@ -468,6 +509,15 @@ def phase_kernels(gen):
                          flash_attention_plain,
                          (q[:48], k[:48], v[:48], 13360)))
     del q, k, v, q4, k4, v4, kc, vc, g4, h4
+    # the V5 12B's joint length: the Bert (77) and mT5 (256) text tokens
+    # and the video's, an odd length whose last tile the kernel masks
+    s_v5 = v5_joint_len()
+    q, k, v = rand(96, s_v5, 64, scale=qs), rand(96, s_v5, 64), rand(96, s_v5, 64)
+    errs.append(_compare(f"K1 dense V5 {s_v5}", flash_attention_fwd,
+                         flash_attention_plain, (q, k, v, s_v5)))
+    stats["K1"]["v5_ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v), 5)
+    stats["K1"]["v5_shape"] = [96, s_v5, 64]
+    del q, k, v
     s_win = 12 * (H // 16) * (W // 16) + TEXT_LEN
     q, k, v = rand(96, s_win, 64, scale=qs), rand(96, s_win, 64), rand(96, s_win, 64)
     errs.append(_compare(f"K1 dense long-video window {s_win}",
@@ -680,13 +730,20 @@ def phase_kernels_bwd(gen):
     return stats
 
 
-def _tiny_models(dtype, inpaint=False):
+def _tiny_models(dtype, inpaint=False, v5=False):
     """Tiny MMDiT (6 heads x 16, one dense + one SWA layer; with inpaint,
-    4 + 1 + 4 input channels) and a 4-block MagViT VAE, random float32
-    weights from a fixed seed, cast to dtype."""
+    4 + 1 + 4 input channels; with v5, two dense layers with V5's two text
+    streams at the tiny towers' widths, their norms and after_norm) and a
+    4-block MagViT VAE, random float32 weights from a fixed seed, cast to
+    dtype."""
     cfg = dataclasses.replace(PRESETS["tiny"], num_attention_heads=6,
-                              swa_layers=(1,),
+                              swa_layers=None if v5 else (1,),
                               in_channels=9 if inpaint else 4)
+    if v5:
+        cfg = dataclasses.replace(
+            cfg, text_embed_dim=TINY_BERT.hidden_size,
+            text_embed_dim_t5=TINY_T5.d_model, add_norm_text_encoder=True,
+            after_norm=True)
     vae_cfg = MagvitVAEConfig(latent_channels=4,
                               block_out_channels=(32, 64, 128, 128),
                               norm_num_groups=8, decode_chunk_frames=4)
@@ -704,16 +761,38 @@ def _tiny_models(dtype, inpaint=False):
     return cast
 
 
-def phase_reference(kind):
-    """A tiny request on the card (bf16, kernels) and on the CPU (float32,
-    plain versions) from the same weights, noise and prompt: T2V, or I2V
-    from a random start image through get_image_to_video_latent."""
+def _tiny_v5_prompts(device):
+    """V5's two streams for the tiny reference: the tiny Bert and mT5
+    towers (random float32 weights from a fixed seed, float32 on the card
+    too, as the port runs them) on a CFG pair of right-padded ids. Returns
+    the pipeline's keywords, [positive, negative] in each stream."""
+    gen = torch.Generator().manual_seed(12)
+    out = {}
+    for cls, enc_cls, cfg, n, key in (
+            (BertModel, BertTextEncoder, TINY_BERT, 12, ""),
+            (MT5EncoderModel, MT5TextEncoder, TINY_T5, 16, "_t5")):
+        tower = init_random_(cls(cfg, device="cpu"), gen).to(device)
+        ids = torch.randint(1, cfg.vocab_size, (2, n), generator=gen)
+        mask = (torch.arange(n)[None] < torch.tensor([[n - 2], [3]])).long()
+        emb, _ = enc_cls(tower, max_length=n).encode_ids(ids * mask, mask)
+        out[f"prompt_embeds{key}"] = emb[:1]
+        out[f"negative_prompt_embeds{key}"] = emb[1:]
+    return out
+
+
+def reference_runs(kind, runs):
+    """The tiny request of `kind` from fixed weights, noise and prompt:
+    T2V, I2V from a random start image through get_image_to_video_latent,
+    or V5 (the tiny towers' two streams into the tiny dual-stream MMDiT,
+    DDIM), once per (name, device, dtype) of `runs`. Returns {name: float32
+    latents on the CPU} and the decoded uint8 video of the run named
+    "card" (None without one)."""
     gen = torch.Generator().manual_seed(11)
     lat0 = torch.randn(1, 4, 2, 8, 8, generator=gen)
     pos = torch.randn(1, 6, 24, generator=gen)
     kw = dict(height=64, width=64, video_length=5, num_inference_steps=3,
               guidance_scale=6.0, latents=lat0, output_type="latent")
-    inpaint = kind == "i2v"
+    inpaint, v5 = kind == "i2v", kind == "v5"
     if inpaint:
         image = torch.randint(0, 256, (64, 64, 3), generator=gen,
                               dtype=torch.uint8).numpy()
@@ -721,20 +800,52 @@ def phase_reference(kind):
         # the augmentation's draws would differ between the two devices
         kw.update(video=video, mask_video=mask, noise_aug_strength=0.0)
     pipe_cls = EasyAnimateInpaintPipeline if inpaint else EasyAnimatePipeline
-    outs = {}
-    for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
-        model, vae = (m.to(device) for m in _tiny_models(dtype, inpaint))
+    outs, decoded = {}, None
+    for name, device, dtype in runs:
+        model, vae = (m.to(device) for m in _tiny_models(dtype, inpaint, v5))
         pipe = pipe_cls(model, vae, device)
-        outs[device] = pipe(pos, torch.zeros_like(pos), **kw).float().cpu()
-    video = pipe.decode_latents(outs["cuda"].to("cuda"), to_uint8=True)
-    diff = (outs["cuda"] - outs["cpu"]).abs()
+        if v5:  # V5's scheduler (the yaml's ddim) and its two streams
+            pipe.scheduler = DDIMConfig()
+            out = pipe(**_tiny_v5_prompts(device), **kw)
+        else:
+            out = pipe(pos, torch.zeros_like(pos), **kw)
+        outs[name] = out.float().cpu()
+        if name == "card":
+            decoded = pipe.decode_latents(out, to_uint8=True)
+    return outs, decoded
+
+
+def phase_reference(kind):
+    """The tiny request of `kind` (reference_runs) on the card (bf16,
+    kernels) against the CPU (float32, plain versions); V5 also against
+    its bf16 floor."""
+    v5 = kind == "v5"
+    runs = [("cpu", "cpu", "float32"), ("card", "cuda", "bfloat16")]
+    if v5:  # the bf16 floor: the plain versions in bf16 on the CPU
+        runs.append(("cpu_bf16", "cpu", "bfloat16"))
+    outs, video = reference_runs(kind, runs)
+    diff = (outs["card"] - outs["cpu"]).abs()
     err = diff.max().item()
-    ok = (err <= REF_BOUND and video.shape == (1, 3, 5, 64, 64)
-          and video.dtype.name == "uint8")
-    emit({"phase": "reference", "what": f"tiny {kind.upper()} 64x64x5f, 3 "
-          "steps: card bf16 kernels vs CPU float32 plain",
-          "max_abs_err_latents": err, "mean_abs_err_latents": diff.mean().item(),
-          "bound": REF_BOUND, "ok": ok})
+    row = {"phase": "reference", "what": f"tiny {kind.upper()} 64x64x5f, 3 "
+           "steps: card bf16 kernels vs CPU float32 plain",
+           "max_abs_err_latents": err,
+           "mean_abs_err_latents": diff.mean().item()}
+    if v5:
+        # DDIM's x0 steps take random-weight latents to ~15, so the V5 case
+        # is held relative to their scale
+        scale = outs["cpu"].abs().max().item()
+        floor = (outs["cpu_bf16"] - outs["cpu"]).abs().max().item()
+        row.update(latents_abs_max=scale, rel_err_latents=err / scale,
+                   cpu_bf16_rel_err_latents=floor / scale,
+                   bound_rel=REF_V5_REL_BOUND,
+                   bound_over_floor=REF_V5_FLOOR_MULT)
+        ok = (err / scale <= REF_V5_REL_BOUND
+              and err <= REF_V5_FLOOR_MULT * floor)
+    else:
+        row["bound"] = REF_BOUND
+        ok = err <= REF_BOUND
+    ok = ok and video.shape == (1, 3, 5, 64, 64) and video.dtype.name == "uint8"
+    emit({**row, "ok": ok})
     if not ok:
         raise AssertionError(f"tiny {kind} pipeline on the card disagrees "
                              "with the CPU")
@@ -1074,7 +1185,8 @@ def swa_variant(model):
     return swa
 
 
-def request(phase, pipe, seed, steps, counters, embeds=None, **inputs):
+def request(phase, pipe, seed, steps, counters, embeds=None,
+            embeds_from="text phase (Qwen2-VL tower)", **inputs):
     """One request through the pipeline's __call__ (T2V, or I2V with the
     `inputs`); checks the output, the per-step latents and the kernels'
     launch counts. `embeds` (positive, negative) replace the random prompt
@@ -1135,7 +1247,7 @@ def request(phase, pipe, seed, steps, counters, embeds=None, **inputs):
     if "video" in inputs:
         out["vae_encode_s"] = out["before_denoise_s"]
     if embeds is not None:
-        out["prompt_embeds"] = "text phase (Qwen2-VL tower)"
+        out["prompt_embeds"] = embeds_from
     emit(out)
     if video.shape != (1, 3, FRAMES, H, W) or video.dtype.name != "uint8":
         raise AssertionError(f"{phase}: video {video.shape} {video.dtype}")
@@ -1345,6 +1457,109 @@ def phase_text(seed):
         raise AssertionError(f"text: embeddings {tuple(emb.shape)}, finite "
                              f"{finite}")
     return emb[:1], emb[1:]
+
+
+def phase_v5_text(seed):
+    """V5's two prompt towers at their published widths (V5_BERT: hidden
+    1024 x 24 layers; V5_T5, mT5-XL's encoder: d_model 2048 x 24 blocks),
+    float32 as the port runs them (TF32 off), random weights built on meta
+    and filled on the card, each encode a CFG pair of right-padded token
+    ids (Bert BERT_LEN, mT5 TEXT_LEN; positive ~40 valid tokens, negative
+    10); then both are freed before the denoise. Returns ((Bert positive,
+    negative), (mT5 positive, negative))."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out, embeds, ok = {"phase": "v5_text"}, [], True
+    for name, cls, enc_cls, cfg, length, dim in (
+            ("bert", BertModel, BertTextEncoder, V5_BERT, BERT_LEN,
+             V5_BERT.hidden_size),
+            ("mt5", MT5EncoderModel, MT5TextEncoder, V5_T5, TEXT_LEN,
+             V5_T5.d_model)):
+        t0 = time.perf_counter()
+        tower = init_random_(cls(cfg, device="meta").to_empty(device=DEVICE),
+                             gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        enc = enc_cls(tower, max_length=length)
+        g = torch.Generator().manual_seed(seed)
+        valid = torch.tensor([[min(40, length)], [10]])
+        mask = (torch.arange(length)[None] < valid).long()
+        ids = torch.randint(1, cfg.vocab_size, (2, length), generator=g) * mask
+        emb, _ = enc.encode_ids(ids, mask)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TEXT_ENCODES):
+            t0 = time.perf_counter()
+            emb, _ = enc.encode_ids(ids, mask)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        blocks = tower.encoder.layer if name == "bert" else tower.encoder.block
+        block_params = sum(p.numel() for p in blocks.parameters())
+        finite = bool(torch.isfinite(emb).all())
+        mean_s = sum(times) / len(times)
+        out[name] = {
+            "config": dataclasses.asdict(cfg),
+            "params": sum(p.numel() for p in tower.parameters()),
+            "bytes": sum(p.numel() * p.element_size()
+                         for p in tower.parameters()),
+            "batch": list(ids.shape), "valid_tokens": valid.flatten().tolist(),
+            "build_s": build_s, "encode_ms": mean_s * 1e3,
+            "encode_ms_each": [t * 1e3 for t in times],
+            # the block linears' products, float32 without TF32
+            "linear_tflops": 2 * block_params * ids.numel() / mean_s / 1e12,
+            "embeds_shape": list(emb.shape), "embeds_finite": finite}
+        ok = ok and finite and tuple(emb.shape) == (2, length, dim)
+        embeds.append((emb[:1].clone(), emb[1:].clone()))
+        del enc, tower, emb
+    out["pair_ms"] = out["bert"]["encode_ms"] + out["mt5"]["encode_ms"]
+    out["peak_gib_above_resident"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 30
+    torch.cuda.empty_cache()
+    out["after_free_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    emit(out)
+    if not ok:
+        raise AssertionError(f"v5_text: embeddings {out}")
+    return embeds
+
+
+def after_norm_ms(cfg):
+    """ms a CFG step spends in V5's after_norm (each block's float32
+    LayerNorm of its video and text FFN outputs, models/blocks.py), timed
+    with CUDA events on random bf16 tensors of the request's shapes: what
+    V5's step adds beside its 77 more text tokens."""
+    dev, dim = DEVICE, cfg.inner_dim
+    n_vid = ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16)
+    w = torch.ones(dim, dtype=torch.bfloat16, device=dev)
+    b = torch.zeros_like(w)
+    per = {}
+    for name, n in (("vid", n_vid), ("txt", BERT_LEN + TEXT_LEN)):
+        x = torch.randn(2, n, dim, device=dev).to(torch.bfloat16)
+        per[name] = cuda_ms(lambda: fp32_layer_norm(x, w, b, cfg.norm_eps), 10)
+    return {"ms_per_call": per,
+            "ms_per_step": cfg.num_layers * (per["vid"] + per["txt"])}
+
+
+def v5_variant(model, seed):
+    """The V5 12B (PRESETS["v5-12b"]: the V5 yaml's text streams over the
+    V5.1 12B's widths) on the resident 12B's tensors, as swa_variant does;
+    what V5 adds (text_proj with its RMS norm at the Bert's 1024,
+    text_proj_t5 at mT5's 2048, each block's after_norm norm3) is filled on
+    the card from `seed`."""
+    v5 = EasyAnimateTransformer3D(PRESETS["v5-12b"], device="meta")
+    own = v5.state_dict()
+    shared = {k: t for k, t in model.state_dict().items()
+              if k in own and own[k].shape == t.shape}
+    v5.load_state_dict(shared, strict=False, assign=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    new = [v5.text_proj, v5.text_proj_t5,
+           *(blk.norm3 for blk in v5.transformer_blocks)]
+    for mod in new:
+        init_random_(mod.to_empty(device=DEVICE), gen)
+    if any(t.is_meta for t in v5.state_dict().values()):
+        raise AssertionError("v5_variant: a tensor is left unfilled")
+    return v5
 
 
 def inpaint_variant(model, seed):
@@ -2357,15 +2572,21 @@ def read_counts():
 
 
 def train_batch(cfg, seed):
-    """Random latents for HxWxFRAMES, random text embeddings, RoPE."""
+    """Random latents for HxWxFRAMES, random text embeddings (V5: both
+    streams), RoPE."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(seed)
     lat = torch.randn(1, 16, (FRAMES - 1) // 4 + 1, H // 8, W // 8,
                       generator=gen, device=dev)
-    txt = 0.02 * torch.randn(1, TEXT_LEN, cfg.text_embed_dim, generator=gen,
-                             device=dev)
-    return {"latents": lat, "text": txt,
-            "rope": build_rope(cfg, H, W, lat.shape[2], device=dev)}, gen
+    v5 = cfg.text_embed_dim_t5 is not None  # Bert's 77 + mT5's 256 tokens
+    txt = 0.02 * torch.randn(1, BERT_LEN if v5 else TEXT_LEN,
+                             cfg.text_embed_dim, generator=gen, device=dev)
+    batch = {"latents": lat, "text": txt,
+             "rope": build_rope(cfg, H, W, lat.shape[2], device=dev)}
+    if v5:
+        batch["text_t5"] = 0.02 * torch.randn(
+            1, TEXT_LEN, cfg.text_embed_dim_t5, generator=gen, device=dev)
+    return batch, gen
 
 
 @torch.no_grad()
@@ -2406,9 +2627,10 @@ def train_phase(phase, step_fn, state, batch, gen, expect, steps=TRAIN_STEPS,
     return state, out
 
 
-def phase_lora(phase, model, seed, expect):
+def phase_lora(phase, model, seed, expect, steps=TRAIN_STEPS):
     """make_lora_train_step on frozen bf16 12B weights: rank 128, alpha 16,
-    TrainConfig defaults, 384x672x49f, remat on."""
+    TrainConfig defaults, 384x672x49f, remat on; `steps` steps on one
+    batch (V5's with its text_t5)."""
     before = checksum(model)
     batch, gen = train_batch(model.cfg, seed)
     lcfg = tlora.LoRAConfig(rank=128)
@@ -2429,9 +2651,11 @@ def phase_lora(phase, model, seed, expect):
                                  f"{sorted(zero)[:6]}")
 
     state, out = train_phase(phase, step, state, batch, gen, expect,
-                             after_step=up_moved)
+                             steps=steps, after_step=up_moved)
     frozen = checksum(model) == before
-    out.update(lora_rank=lcfg.rank, lora_alpha=lcfg.alpha,
+    out.update(batch_text={k: list(batch[k].shape) for k in ("text", "text_t5")
+                           if k in batch},
+               lora_rank=lcfg.rank, lora_alpha=lcfg.alpha,
                lora_params=n_lora, lora_modules=len(state.params),
                base_weights_unchanged=frozen,
                up_nonzero_after_step_1=len(state.params) - len(unreached),
@@ -2943,6 +3167,7 @@ def main():
     torch.cuda.synchronize()
     phase_reference("t2v")
     phase_reference("i2v")
+    phase_reference("v5")
     torch.cuda.synchronize()
     phase_train_reference()
     torch.cuda.synchronize()
@@ -3061,6 +3286,31 @@ def main():
         "lora_swa", swa_model, args.seed + 5, lora_swa))
     del swa_model
     torch.cuda.empty_cache()
+    # V5 (EasyAnimateV5-12b-zh): the Bert and mT5-XL towers (freed before
+    # the denoise), a DDIM request on both streams, then LoRA steps with
+    # text_t5; the 12B's tensors are shared, V5's own ones added
+    v5_embeds = phase_v5_text(args.seed + 90)
+    v5_model = v5_variant(model, args.seed + 91)
+    pipe = EasyAnimatePipeline(v5_model, vae, scheduler=DDIMConfig())
+    (bert_pos, bert_neg), (t5_pos, t5_neg) = v5_embeds
+    expect_v5 = dict(serve, K1=48 * steps)
+    path_run("v5", lambda: request(
+        "v5", pipe, args.seed + 92, steps, COUNTERS,
+        embeds=(bert_pos, bert_neg),
+        embeds_from="v5_text phase (Bert; mT5 as prompt_embeds_t5)",
+        prompt_embeds_t5=t5_pos, negative_prompt_embeds_t5=t5_neg),
+        expect_v5)
+    del pipe, v5_embeds, bert_pos, bert_neg, t5_pos, t5_neg
+    torch.cuda.empty_cache()
+    emit({"phase": "v5_after_norm", **after_norm_ms(v5_model.cfg),
+          "note": "fp32_layer_norm (PyTorch ops, no kernel of ours) at the "
+                  "v5 request's CFG-batch shapes, CUDA events"})
+    expect_lora_v5 = {k: LORA_V5_STEPS * n for k, n in lora_dense.items()}
+    path_run("lora_v5", lambda: phase_lora(
+        "lora_v5", v5_model, args.seed + 93, lora_dense, steps=LORA_V5_STEPS),
+        expect_lora_v5)
+    del v5_model
+    torch.cuda.empty_cache()
     # the driver's loop on the dense 12B: LoRA steps from a manifest, a
     # checkpoint, a resume; its temporary directory is removed after it
     with tempfile.TemporaryDirectory() as root:
@@ -3090,7 +3340,8 @@ def main():
     want = {k: expect_train.get(k, 0) + expect_serve.get(k, 0)
             + expect_loader.get(k, 0) + expect_fused[k]
             + expect_requests.get(k, 0) + expect_control[k]
-            + expect_samplers[k] + expect_quant[k] for k in COUNTERS}
+            + expect_samplers[k] + expect_quant[k] + expect_v5[k]
+            + expect_lora_v5[k] for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
     loader_cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=2)
@@ -3170,7 +3421,9 @@ def main():
         sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
                      "easyanimate_tpu/ops/flash_attention.py:92"),
                  "K1", ("flash_fwd.cu", "fwd_sm90.cuh"), 2 * dense,
-                 "cross_sdpa_ms"),
+                 "cross_sdpa_ms")
+        | {"v5_ms": stats["K1"]["v5_ms"],
+           "v5_shape": stats["K1"]["v5_shape"]},
         sm90_row(row("K2", "sliding_window_fwd", "swa_fwd.cu",
                      "easyanimate_tpu/ops/swa.py:32"),
                  "K2", ("swa_fwd.cu", "fwd_sm90.cuh"), 2 * band),
@@ -3200,7 +3453,8 @@ def main():
                "K1/K2/K5, dq/dk/dv for K3-K7, do ~ N(0, 1)); max_rel_err: "
                "over max |plain|, the bound's measure. K1, K3, K4: ms at "
                "the dense flagship, cross_* at the SWA cross pass (13360 x "
-               "1027), library = SDPA (its backward for K3/K4); K2's, "
+               "1027), v5_ms at the V5 12B's joint length (13437), library "
+               "= SDPA (its backward for K3/K4); K2's, "
                "K5's, K6's and K7's tflops count the band's visible pairs; "
                "every path launch of K1-K7 ran their TMA + wgmma kernels "
                "(launches_sm90). K3/K4 and K6/K7 "

@@ -11,19 +11,19 @@ through the port's own safetensors reader: neither `safetensors` nor
 Pipelines: "t2v", "inpaint" and "control"; the scheduler comes from the
 directory's scheduler_config.json or the `scheduler` argument, as JAX's
 (:322-342). The block linears may be held quantized (W8A8 int8, or packed
-int4 computing as W4A8 or W4A16; ops/quant.py), as JAX's :268-301. Not
-ported, each raising NotImplementedError with its ROADMAP queue 1 item:
-VAE chunk modes other than `cache_mag` (8), and the Bert / T5 text stacks
-(11). The pipeline gets the TeaCache polynomial of its model path, as
-JAX's does (:349-355).
+int4 computing as W4A8 or W4A16; ops/quant.py), as JAX's :268-301. The
+text stacks (load_text_encoders, JAX :154-213): V5.1's Qwen2-VL, V5's Bert
++ mT5 dual stream and the single T5 / mT5 stream. Not ported, raising
+NotImplementedError with its ROADMAP queue 1 item: VAE chunk modes other
+than `cache_mag` (8). The pipeline gets the TeaCache polynomial of its
+model path, as JAX's does (:349-355).
 """
 import dataclasses
-import json
 import os
 from typing import Optional
 
 from .device import resolve_device
-from .models.convert import load_on_device
+from .models.convert import load_on_device, read_json
 from .models.mmdit import EasyAnimateTransformer3D, MMDiTConfig
 from .models.vae import AutoencoderKLMagvit, MagvitVAEConfig
 from .pipeline import (DDIMConfig, EasyAnimateControlPipeline,
@@ -36,11 +36,6 @@ from .utils.safetensors_io import load_dir, load_file
 _PIPELINES = {"t2v": EasyAnimatePipeline,
               "inpaint": EasyAnimateInpaintPipeline,
               "control": EasyAnimateControlPipeline}
-
-
-def _read_json(path):
-    with open(path) as f:
-        return json.load(f)
 
 
 def _override_state_dict(base_sd: dict, ckpt_path: Optional[str],
@@ -149,16 +144,27 @@ def _parse_types(v, default):
 
 def load_text_encoders(model_path: Optional[str] = None,
                        text_encoder_path: Optional[str] = None,
+                       text_encoder_2_path: Optional[str] = None,
                        max_length: int = 256, device=None):
-    """The prompt-encoding callable of a model directory: encode(prompts)
-    -> {"text": [B, S, D]}. Only the V5.1 Qwen2(-VL) stack is ported; it
-    needs the directory's tokenizer files for prompt strings."""
+    """The prompt-encoding callable of a model directory, on `device` (the
+    card by default): encode(prompts) -> {"text": [B, S, D]}, and V5's
+    {"text_t5": [B, S_t5, D_t5]} beside it. The stack comes from
+    text_encoder/config.json's model_type (the reference's load spine,
+    predict_t2v.py:91-254):
+      qwen2 / qwen2_vl (V5.1)                     -> one stream, max_length
+      bert (+ text_encoder_2's mT5, V4 / V5)      -> Bert at its 77 tokens,
+                                                     mT5 at max_length
+      t5 / mt5 (V1-V3)                            -> one stream, max_length
+    umt5 raises NotImplementedError (T5Config.from_json: a bias table in
+    every block). Prompt strings need each directory's tokenizer files."""
     te = text_encoder_path or (model_path and
                                os.path.join(model_path, "text_encoder"))
     if not te or not os.path.isdir(te):
         raise FileNotFoundError(
             f"no text encoder at {te!r}; pass text_encoder_path")
-    model_type = _read_json(os.path.join(te, "config.json")).get(
+    te2 = text_encoder_2_path or (model_path and
+                                  os.path.join(model_path, "text_encoder_2"))
+    model_type = read_json(os.path.join(te, "config.json")).get(
         "model_type", "")
 
     from .models.text.encoders import build_text_encoder
@@ -166,16 +172,20 @@ def load_text_encoders(model_path: Optional[str] = None,
     if model_type.startswith("qwen2"):
         enc = build_text_encoder("qwen2_vl", te, max_length=max_length,
                                  device=device)
-
-        def encode(prompts):
-            emb, _ = enc(list(prompts))
-            return {"text": emb}
-
-        return encode
-    if model_type in ("bert", "t5", "mt5", "umt5"):
-        raise NotImplementedError(
-            f"text encoder {model_type!r}: the Bert / T5 stacks are not "
-            "ported (ROADMAP queue 1 item 11)")
+        return lambda prompts: {"text": enc(list(prompts))[0]}
+    if model_type == "bert":
+        if not (te2 and os.path.isdir(te2)):
+            raise FileNotFoundError(
+                "bert text encoder needs the mT5 text_encoder_2 directory")
+        bert = build_text_encoder("bert", te, device=device)
+        mt5 = build_text_encoder("mt5", te2, max_length=max_length,
+                                 device=device)
+        return lambda prompts: {"text": bert(list(prompts))[0],
+                                "text_t5": mt5(list(prompts))[0]}
+    if model_type in ("t5", "mt5", "umt5"):
+        mt5 = build_text_encoder("mt5", te, max_length=max_length,
+                                 device=device)
+        return lambda prompts: {"text": mt5(list(prompts))[0]}
     raise ValueError(f"unrecognized text encoder model_type {model_type!r}")
 
 
@@ -185,7 +195,7 @@ def _scheduler(model_path: str, scheduler: Optional[str]):
     prediction type; any other string FlowMatch's defaults (JAX's quirk,
     kept: a sampler name belongs in make_scheduler)."""
     path = os.path.join(model_path, "scheduler", "scheduler_config.json")
-    scfg = _read_json(path) if os.path.exists(path) else {}
+    scfg = read_json(path) if os.path.exists(path) else {}
     flow = "FlowMatch" in scfg.get("_class_name", "")
     if scheduler == "flow" or (scheduler is None and flow):
         return FlowMatchEulerConfig(
@@ -244,10 +254,10 @@ def load_pipeline(model_path: str, pipeline_type: str = "t2v",
     device = resolve_device(device)
     sched = _scheduler(model_path, scheduler)
     mmdit_cfg = dataclasses.replace(mmdit_config_from_json(
-        _read_json(os.path.join(model_path, "transformer", "config.json")),
+        read_json(os.path.join(model_path, "transformer", "config.json")),
         dtype), linear_quant=quant)
     vae_cfg = vae_config_from_json(
-        _read_json(os.path.join(model_path, "vae", "config.json")), dtype)
+        read_json(os.path.join(model_path, "vae", "config.json")), dtype)
 
     transformer = EasyAnimateTransformer3D(mmdit_cfg, device="meta")
     vae = AutoencoderKLMagvit(vae_cfg, device="meta")

@@ -56,6 +56,39 @@ def load_on_device(module: nn.Module, sd: Mapping[str, torch.Tensor],
     return module
 
 
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params (a nested dict of arrays) -> the port's state dict under
+    the dotted paths: Dense kernels (in, out) -> weights (out, in), a conv's
+    HWIO -> OIHW, norm scale -> weight, Embed embedding -> weight. The
+    parameter names of the CLIP scorers and of the Bert and mT5 towers are
+    the Flax paths, so nothing else is renamed; keys a module lacks (Bert's
+    pooler) are left for its loader to drop by name."""
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+                continue
+            a = np.array(v, dtype=np.float32)
+            name = ".".join(path)
+            if k == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                k = "weight"
+            elif k in ("scale", "embedding"):
+                k = "weight"
+            out[f"{name}.{k}" if name else k] = torch.from_numpy(
+                np.ascontiguousarray(a))
+
+    walk(params, ())
+    return out
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator` (which must live on

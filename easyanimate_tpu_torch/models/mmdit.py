@@ -12,8 +12,11 @@ of the V5.1 models (JAX :231-269): `inpaint_latents` then `control_latents`
 join the latents on the channel axis in front of the patchify (InP and
 Control models); `ref_latents` go through `ref_proj` plus a 2-D sin-cos
 table and replace the text tokens; `clip_encoder_hidden_states` go through
-`clip_proj` and are prepended to them. V5's second (T5) text stream is not
-ported (ROADMAP queue 1 item 11).
+`clip_proj` and are prepended to them. V5's two prompt streams (JAX
+:144-153, :250-257): the Bert stream through `text_proj` and the mT5
+stream (`encoder_hidden_states_t5`) through `text_proj_t5`, each after a
+float32 RMS norm (eps 1e-6) when `add_norm_text_encoder` is set, joined
+as [text, t5] before the ref and clip branches.
 """
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
@@ -25,7 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.norms import fp32_layer_norm
+from ..ops.norms import RMSNorm, fp32_layer_norm
 from .blocks import MMDiTBlock
 from .embeddings import (PatchEmbed2D, TimestepEmbedding,
                          sinusoidal_timestep_embedding, unpatchify)
@@ -43,8 +46,8 @@ class MMDiTConfig:
     swa_layers: Optional[Sequence[int]] = None
     time_embed_dim: int = 512
     text_embed_dim: int = 3584        # Qwen2-VL hidden size (V5.1)
-    # V5's second text stream and its pre-norm: not ported (ROADMAP queue 1
-    # item 11); only the defaults are accepted
+    # V5: the mT5 stream's width (its text_proj_t5) and the RMS norm in
+    # front of both text projections
     text_embed_dim_t5: Optional[int] = None
     add_norm_text_encoder: bool = False
     after_norm: bool = False
@@ -73,10 +76,6 @@ class MMDiTConfig:
     vae_scale_factor: int = 8
 
     def __post_init__(self):
-        if self.text_embed_dim_t5 is not None or self.add_norm_text_encoder:
-            raise NotImplementedError(
-                "text_embed_dim_t5 / add_norm_text_encoder (V5's second text "
-                "stream) are not ported: ROADMAP queue 1 item 11")
         if self.time_position_encoding_type != "3d_rope":
             raise NotImplementedError(
                 f"time_position_encoding_type "
@@ -98,6 +97,11 @@ PRESETS: Dict[str, MMDiTConfig] = {
     # image/video-to-video: latents + 1 mask channel + 16 masked-video latents
     "v5.1-12b-inpaint": MMDiTConfig(in_channels=16 + 1 + 16),
     "v5.1-7b": MMDiTConfig(num_attention_heads=40, num_layers=40),
+    # V5 (EasyAnimateV5-12b-zh): the 12B with the Bert (1024) + mT5-XL
+    # (2048) prompt streams, config/easyanimate_video_v5_magvit_multi_
+    # text_encoder.yaml:3-8
+    "v5-12b": MMDiTConfig(text_embed_dim=1024, text_embed_dim_t5=2048,
+                          add_norm_text_encoder=True, after_norm=True),
     # tiny config for tests
     "tiny": MMDiTConfig(
         num_attention_heads=2, attention_head_dim=16, in_channels=4,
@@ -122,6 +126,16 @@ class AdaLayerNormOut(nn.Module):
         return x * (1 + scale[:, None]) + shift[:, None]
 
 
+def _text_proj(cfg: MMDiTConfig, in_dim: int, **fk) -> nn.Module:
+    """A text stream's projection: a Linear, or with add_norm_text_encoder
+    Sequential(RMS norm at JAX's eps 1e-6, Linear), the reference's
+    text_proj.0 / .1 keys."""
+    linear = nn.Linear(in_dim, cfg.inner_dim, **fk)
+    if not cfg.add_norm_text_encoder:
+        return linear
+    return nn.Sequential(RMSNorm(in_dim, **fk), linear)
+
+
 class EasyAnimateTransformer3D(nn.Module):
     def __init__(self, cfg: MMDiTConfig, device=None):
         """Parameters on `device`, the card by default."""
@@ -131,7 +145,9 @@ class EasyAnimateTransformer3D(nn.Module):
         dim = cfg.inner_dim
         self.time_embedding = TimestepEmbedding(dim, cfg.time_embed_dim, **fk)
         self.proj = PatchEmbed2D(cfg.in_channels, dim, cfg.patch_size, **fk)
-        self.text_proj = nn.Linear(cfg.text_embed_dim, dim, **fk)
+        self.text_proj = _text_proj(cfg, cfg.text_embed_dim, **fk)
+        if cfg.text_embed_dim_t5 is not None:
+            self.text_proj_t5 = _text_proj(cfg, cfg.text_embed_dim_t5, **fk)
         if cfg.ref_channels is not None or cfg.add_ref_latent_in_control_model:
             # the channel count of JAX loader.py:_strict_check
             self.ref_proj = PatchEmbed2D(cfg.ref_channels or cfg.out_channels,
@@ -158,12 +174,14 @@ class EasyAnimateTransformer3D(nn.Module):
               inpaint_latents: Optional[torch.Tensor] = None,
               ref_latents: Optional[torch.Tensor] = None,
               clip_encoder_hidden_states: Optional[torch.Tensor] = None,
-              control_latents: Optional[torch.Tensor] = None):
+              control_latents: Optional[torch.Tensor] = None,
+              encoder_hidden_states_t5: Optional[torch.Tensor] = None):
         """-> (vid_tokens, txt_tokens, temb). inpaint_latents, then
         control_latents, (B, *, T, H, W) join the latents on the channel
-        axis before the patchify; ref_latents (B, C_ref, 1, H, W) replace
-        the text tokens; clip_encoder_hidden_states (B, S, C_clip) are
-        prepended to them."""
+        axis before the patchify; V5's encoder_hidden_states_t5
+        (B, S_t5, D_t5) join the text tokens after them; ref_latents
+        (B, C_ref, 1, H, W) replace the text tokens; clip_encoder_hidden_
+        states (B, S, C_clip) are prepended to them."""
         cfg, dt = self.cfg, self.cfg.torch_dtype
         temb = sinusoidal_timestep_embedding(timestep, cfg.inner_dim)
         temb = self.time_embedding(temb.to(dt))
@@ -173,6 +191,12 @@ class EasyAnimateTransformer3D(nn.Module):
             hidden_states = torch.cat([hidden_states.to(dt), *extra], dim=1)
         vid = self.proj(hidden_states.to(dt))
         txt = self.text_proj(encoder_hidden_states.to(dt))
+        if encoder_hidden_states_t5 is not None:
+            if cfg.text_embed_dim_t5 is None:
+                raise ValueError("encoder_hidden_states_t5 given to a model "
+                                 "without a T5 stream (text_embed_dim_t5)")
+            t5 = self.text_proj_t5(encoder_hidden_states_t5.to(dt))
+            txt = torch.cat([txt, t5], dim=1)
         if ref_latents is not None:
             rh, rw = (s // cfg.patch_size for s in ref_latents.shape[-2:])
             pos = torch.from_numpy(sincos_2d(cfg.inner_dim, rh, rw))
@@ -219,17 +243,18 @@ class EasyAnimateTransformer3D(nn.Module):
                 inpaint_latents: Optional[torch.Tensor] = None,
                 ref_latents: Optional[torch.Tensor] = None,
                 clip_encoder_hidden_states: Optional[torch.Tensor] = None,
-                control_latents: Optional[torch.Tensor] = None
+                control_latents: Optional[torch.Tensor] = None,
+                encoder_hidden_states_t5: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """latents (B, C, T, H, W), timestep (B,), text (B, S, D_text) ->
-        prediction (B, C_out, T, H, W); the conditioning inputs are
-        embed's."""
+        prediction (B, C_out, T, H, W); the conditioning inputs and V5's
+        second text stream are embed's."""
         _, _, t, hh, ww = hidden_states.shape
         p = self.cfg.patch_size
         vid, txt, temb = self.embed(hidden_states, timestep,
                                     encoder_hidden_states, inpaint_latents,
                                     ref_latents, clip_encoder_hidden_states,
-                                    control_latents)
+                                    control_latents, encoder_hidden_states_t5)
         vid = self.backbone(vid, txt, temb, rope,
                             grid_size=(t, hh // p, ww // p))
         return self.head(vid, t, hh, ww)

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import resolve_device
-from ...ops.norms import fp32_rms_norm
+from ...ops.norms import RMSNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,16 +68,6 @@ def apply_rope_half(x, cos, sin):
     h = x.shape[-1] // 2
     rot = torch.cat([-x[..., h:], x[..., :h]], dim=-1)
     return (x.float() * cos + rot.float() * sin).to(x.dtype)
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, **fk):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, **fk))
-
-    def forward(self, x):
-        return fp32_rms_norm(x, self.weight, self.eps)
 
 
 class Qwen2Attention(nn.Module):

@@ -6,6 +6,7 @@ EasyAnimateRMSNorm, easyanimate/models/norm.py:16-42).
 from typing import Optional
 
 import torch
+from torch import nn
 
 
 def fp32_layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
@@ -32,3 +33,16 @@ def fp32_rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if weight is not None:
         y = weight.to(x.dtype) * y
     return y
+
+
+class RMSNorm(nn.Module):
+    """fp32_rms_norm with a learned `weight` (the Qwen2 tower's norms, and
+    the norm in front of V5's text projections, at JAX's eps 1e-6)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, **fk):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, **fk))
+
+    def forward(self, x):
+        return fp32_rms_norm(x, self.weight, self.eps)

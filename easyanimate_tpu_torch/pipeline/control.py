@@ -17,7 +17,10 @@ pipeline_easyanimate_control.py):
   - under CFG both halves get the same control latents; the transformer
     takes them as `control_latents`, after the latents on the channel axis.
 The loop and the decode are EasyAnimatePipeline's, with every sampler and
-serving knob.
+serving knob. The control pipeline takes no T5 stream, as JAX's does not
+(easyanimate_tpu/pipeline/control.py:28-95 swallows prompt_embeds_t5 in
+its **kw): on a V5 model it runs on the Bert stream alone, whatever the
+controller hands it (a trap kept as it is, ROADMAP §3).
 """
 from typing import Optional
 
@@ -48,14 +51,16 @@ class EasyAnimateControlPipeline(EasyAnimatePipeline):
                  teacache_threshold: Optional[float] = None,
                  cfg_split: bool = False,
                  cfg_skip_ratio: Optional[float] = None,
-                 callback: Callback = None):
+                 callback: Callback = None,
+                 prompt_embeds_t5=None, negative_prompt_embeds_t5=None):
         """control_video (B, 3, T, H, W) in [0, 1], or control_camera_video
         (B, 6, T, H, W) Plücker rays (data/camera.py's (T, H, W, 6),
         channels first), and ref_image (B, 3, 1, H, W) in [0, 1]: numpy
         arrays or tensors -> video as EasyAnimatePipeline returns it. The
         camera input wins over a control video, as in JAX. `latents`
         replaces the initial noise (unit variance); `generator` draws it
-        otherwise."""
+        otherwise. prompt_embeds_t5 / negative_prompt_embeds_t5 are taken
+        and not used, as JAX's **kw takes them."""
         _check_output_type(output_type)
         cfg, vcfg = self.transformer.cfg, self.vae.cfg
         dev = self.device

@@ -100,6 +100,8 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
                  noise_aug_strength: float = 0.0563,
                  generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None,
+                 prompt_embeds_t5: Optional[torch.Tensor] = None,
+                 negative_prompt_embeds_t5: Optional[torch.Tensor] = None,
                  output_type: str = "np", decode: bool = True,
                  teacache_threshold: Optional[float] = None,
                  cfg_split: bool = False,
@@ -110,8 +112,9 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
         utils.media.get_image_to_video_latent) -> video as
         EasyAnimatePipeline returns it. `latents` replaces the initial noise
         (unit variance); `generator` draws it and the noise augmentation
-        otherwise. The serving knobs are EasyAnimatePipeline's; the
-        CFG-doubled inpaint_latents are halved as the text is."""
+        otherwise. The serving knobs and V5's prompt_embeds_t5 are
+        EasyAnimatePipeline's (JAX :84-85, :197-214); the CFG-doubled
+        inpaint_latents are halved as the text is."""
         _check_output_type(output_type)
         cfg, vcfg = self.transformer.cfg, self.vae.cfg
         dev = self.device
@@ -156,7 +159,8 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
         elif has_inpaint_channels:
             masked_video_latents = torch.zeros(shape, device=dev)
 
-        cond = {}
+        cond = self._t5_cond(prompt_embeds_t5, negative_prompt_embeds_t5,
+                             guidance_scale)
         if has_inpaint_channels:
             if mask_video is None:
                 n = 1 if cfg.resize_inpaint_mask_directly else vcfg.latent_channels

@@ -156,6 +156,8 @@ class EasyAnimatePipeline:
                  guidance_rescale: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None,
+                 prompt_embeds_t5: Optional[torch.Tensor] = None,
+                 negative_prompt_embeds_t5: Optional[torch.Tensor] = None,
                  output_type: str = "np", decode: bool = True,
                  teacache_threshold: Optional[float] = None,
                  cfg_split: bool = False,
@@ -164,10 +166,12 @@ class EasyAnimatePipeline:
         """prompt embeds (B, S, D) -> video (B, 3, T, H, W): a numpy array,
         float in [0, 1] ('np') or uint8 ('uint8'); the float video still on
         the device ('device'); or the final latents ('latent', or
-        decode=False). `latents` replaces the initial noise; `generator`
-        draws it otherwise. `callback(step, latents)` runs after every
-        step (PNDM: after each of its N + 1 evaluations). The serving knobs
-        are the module docstring's."""
+        decode=False). V5's second stream, prompt_embeds_t5 (and its
+        negative under CFG), rides beside the text (JAX :171-212). `latents`
+        replaces the initial noise; `generator` draws it otherwise.
+        `callback(step, latents)` runs after every step (PNDM: after each of
+        its N + 1 evaluations). The serving knobs are the module
+        docstring's."""
         _check_output_type(output_type)
         shape = self.latent_shape(prompt_embeds.shape[0], video_length,
                                   height, width)
@@ -184,7 +188,10 @@ class EasyAnimatePipeline:
             latents, self._cfg_text(prompt_embeds, negative_prompt_embeds,
                                     guidance_scale),
             height, width, num_inference_steps, guidance_scale,
-            guidance_rescale, cond={}, t_start=0, callback=callback,
+            guidance_rescale,
+            cond=self._t5_cond(prompt_embeds_t5, negative_prompt_embeds_t5,
+                               guidance_scale),
+            t_start=0, callback=callback,
             teacache_threshold=teacache_threshold, cfg_split=cfg_split,
             cfg_skip_ratio=cfg_skip_ratio, generator=generator)
         return self._output(latents, output_type, decode)
@@ -197,6 +204,17 @@ class EasyAnimatePipeline:
         if negative_prompt_embeds is None:
             raise ValueError("CFG (guidance_scale > 1) needs negative embeds")
         return torch.cat([negative_prompt_embeds, prompt_embeds]).to(self.device)
+
+    def _t5_cond(self, prompt_embeds_t5, negative_prompt_embeds_t5,
+                 guidance_scale: float) -> Dict[str, torch.Tensor]:
+        """V5's second text stream as a transformer keyword, CFG-batched as
+        the text is; it then follows the text through cfg_split's halves,
+        cfg_skip's cond-only tail and TeaCache's embed, as every `cond`
+        entry does. Empty without it."""
+        if prompt_embeds_t5 is None:
+            return {}
+        return {"encoder_hidden_states_t5": self._cfg_text(
+            prompt_embeds_t5, negative_prompt_embeds_t5, guidance_scale)}
 
     def _teacache_on(self, threshold: Optional[float]) -> Optional[float]:
         """The threshold, or None when the model has no calibrated

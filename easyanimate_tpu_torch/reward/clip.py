@@ -25,7 +25,7 @@ callable the caller passes, with the Hugging Face tokenizer interface
 import dataclasses
 import json
 import os
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -310,28 +310,3 @@ def tokenize(tokenizer, prompts, max_length: Optional[int] = None,
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
                                      device=device)
     return as_t(ids["input_ids"]), None if mask is None else as_t(mask)
-
-
-def clip_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """FlaxCLIPModel params (a nested dict of arrays) -> the port's state
-    dict: Dense kernels (in, out) -> weights (out, in), the patch conv's
-    HWIO -> OIHW, LayerNorm scale -> weight, Embed embedding -> weight."""
-    out = {}
-
-    def walk(tree, path):
-        for k, v in tree.items():
-            if isinstance(v, Mapping):
-                walk(v, path + (k,))
-                continue
-            a = np.array(v, dtype=np.float32)
-            name = ".".join(path)
-            if k == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-                k = "weight"
-            elif k in ("scale", "embedding"):
-                k = "weight"
-            out[f"{name}.{k}" if name else k] = torch.from_numpy(
-                np.ascontiguousarray(a))
-
-    walk(params, ())
-    return out

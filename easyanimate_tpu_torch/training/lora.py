@@ -145,7 +145,8 @@ def make_lora_train_step(model: nn.Module, train_cfg: TrainConfig,
     init_fn(generator=None, lora=None) -> TrainState whose params are the
     LoRA (lora_init from `generator`, or the given factors, e.g. from
     load_reference_lora_state_dict). step(state, batch, generator=None,
-    draws=None) -> (state, metrics) updates the factors in place."""
+    draws=None) -> (state, metrics) updates the factors in place; the batch
+    is make_loss_fn's, V5's text_t5 included (JAX lora.py:129)."""
     model.requires_grad_(False)
     tx = make_optimizer(train_cfg)
 

@@ -24,10 +24,10 @@ gradient of a bf16 parameter, cast to float32, is the gradient JAX takes
 with respect to its float32 parameter.
 
 The step takes latents + text embeddings (VAE and text encoding happen
-before it), and the inpaint / control latents of the -InP and -Control
-models. Random draws come from a torch.Generator, or are handed in
-(`draws`) so that a test can give both packages the same numbers. V5's
-second text stream (`text_t5`) is not ported (ROADMAP queue 1 item 11).
+before it), V5's second text stream (`text_t5`), and the inpaint /
+control latents of the -InP and -Control models. Random draws come from a
+torch.Generator, or are handed in (`draws`) so that a test can give both
+packages the same numbers.
 """
 import dataclasses
 import math
@@ -279,13 +279,12 @@ def draw_inputs(generator: Optional[torch.Generator], latents: torch.Tensor,
 
 def apply_model(model: nn.Module, noisy: torch.Tensor,
                 timesteps: torch.Tensor, batch: Dict[str, Any]):
-    """The model on the noised latents with the batch's text, RoPE and
-    conditioning (inpaint / control latents), as the JAX loss applies it
-    (easyanimate_tpu/training/trainer.py:281-288)."""
-    if batch.get("text_t5") is not None:
-        raise NotImplementedError("text_t5, V5's second text stream, is not "
-                                  "ported (ROADMAP queue 1 item 11)")
+    """The model on the noised latents with the batch's text (and V5's
+    `text_t5`), RoPE and conditioning (inpaint / control latents), as the
+    JAX loss applies it (easyanimate_tpu/training/trainer.py:281-288). The
+    LoRA step applies it too (JAX lora.py:126-131)."""
     return model(noisy, timesteps, batch["text"], batch.get("rope"),
+                 encoder_hidden_states_t5=batch.get("text_t5"),
                  inpaint_latents=batch.get("inpaint_latents"),
                  control_latents=batch.get("control_latents"))
 
@@ -300,8 +299,9 @@ def flow_prediction(model: nn.Module, batch: Dict[str, Any], draws: FlowDraws):
 def make_loss_fn(model: nn.Module, cfg: TrainConfig) -> Callable:
     """loss_fn(batch, draws) -> (loss, metrics) for cfg.loss_type, with the
     model's current parameters. batch: latents (B, C, T, H, W), text
-    (B, S, D), optional rope (cos, sin), inpaint_latents and
-    control_latents; draws: FlowDraws ('flow') or DDPMDraws."""
+    (B, S, D), optional text_t5 (B, S_t5, D_t5), rope (cos, sin),
+    inpaint_latents and control_latents; draws: FlowDraws ('flow') or
+    DDPMDraws."""
     if cfg.loss_type not in ("flow", "ddpm", "sigma"):
         raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
     if cfg.loss_type != "flow":

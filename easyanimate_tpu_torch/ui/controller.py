@@ -149,20 +149,24 @@ class EasyAnimateController:
     # -- generation -----------------------------------------------------------
 
     def _embeds(self, prompt: str, negative_prompt: str):
-        """(positive, negative) prompt embeddings from encode_text."""
+        """(positive, negative, extra pipeline kwargs) from encode_text: a
+        loader.load_text_encoders callable (prompts -> {"text", and V5's
+        "text_t5"}, which becomes prompt_embeds_t5 and its negative), an
+        (embeds, mask) pair or bare embeddings (JAX controller.py:143-158)."""
         if self.encode_text is None:
             raise ValueError("no text encoder attached; pass prompt embeds "
                              "to the pipeline directly")
         pos = self.encode_text([prompt])
         neg = self.encode_text([negative_prompt or ""])
         if isinstance(pos, dict):
+            extra = {}
             if pos.get("text_t5") is not None:
-                raise NotImplementedError("a second (T5) text stream is not "
-                                          "ported (ROADMAP queue 1 item 11)")
-            return pos["text"], neg["text"]
+                extra = {"prompt_embeds_t5": pos["text_t5"],
+                         "negative_prompt_embeds_t5": neg["text_t5"]}
+            return pos["text"], neg["text"], extra
         if isinstance(pos, tuple):  # (embeds, mask)
-            return pos[0], neg[0]
-        return pos, neg
+            return pos[0], neg[0], {}
+        return pos, neg, {}
 
     def generate(self, *args, **kwargs) -> Union[np.ndarray, YUV420Video]:
         """One generation at a time, and none during a model swap. Returns the
@@ -203,7 +207,8 @@ class EasyAnimateController:
         if sampler:
             self.pipeline.scheduler = make_scheduler(
                 sampler, base=self._default_scheduler)
-        pos, neg = self._embeds(prompt, negative_prompt)
+        pos, neg, extra = self._embeds(prompt, negative_prompt)
+        kw = {**extra, **kw}
         if self.enable_teacache:
             kw.setdefault("teacache_threshold", self.teacache_threshold)
         generator = torch.Generator(device=self.pipeline.device).manual_seed(

@@ -2,11 +2,13 @@
 
 Parity: easyanimate_tpu/utils/config.py (the reference's OmegaConf yamls,
 config/*.yaml, with transformer_additional_kwargs / vae_kwargs consumed at
-train.py:944-1036 and predict_*.py:91-141). Only the V5.1 types are ported:
-EasyAnimateTransformer3DModel and AutoencoderKLMagvit with the `cache_mag`
-chunk mode. The legacy transformers and the other VAEs raise (ROADMAP queue
-1 item 11), as do the other chunk modes (item 8). `yaml` is imported inside
-load_yaml_config only.
+train.py:944-1036 and predict_*.py:91-141). The V5 and V5.1 types are
+ported: EasyAnimateTransformer3DModel (V5's yaml sets its two text streams,
+config/easyanimate_video_v5_magvit_multi_text_encoder.yaml:3-8) and
+AutoencoderKLMagvit with the `cache_mag` chunk mode. The legacy
+transformers and the other VAEs raise (ROADMAP queue 1 item 11), as do the
+other chunk modes (item 8). `yaml` is imported inside load_yaml_config
+only.
 """
 import dataclasses
 from typing import Any, Dict

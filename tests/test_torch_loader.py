@@ -277,11 +277,19 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
     for vae_json in ({}, {"slice_mag_vae": True}):  # JAX: "none", "slice_mag"
         with pytest.raises(NotImplementedError, match="item 8"):
             loader.vae_config_from_json(vae_json)
-    for mmdit_json in ({"text_embed_dim_t5": 4096},
-                       {"add_norm_text_encoder": True},
-                       {"time_position_encoding_type": "2d_rope"}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            loader.mmdit_config_from_json(mmdit_json)
+    # V5's two text-stream fields are ported: they reach the config (and
+    # the model's text_proj_t5 and pre-norms, tests/test_torch_v5.py)
+    v5 = loader.mmdit_config_from_json({"text_embed_dim": 1024,
+                                        "text_embed_dim_t5": 2048,
+                                        "add_norm_text_encoder": True,
+                                        "after_norm": True})
+    assert (v5.text_embed_dim, v5.text_embed_dim_t5, v5.add_norm_text_encoder,
+            v5.after_norm) == (1024, 2048, True, True)
+    assert loader.mmdit_config_from_json(
+        {"add_norm_text_encoder": True}).text_embed_dim_t5 is None
+    with pytest.raises(NotImplementedError, match="item 11"):
+        loader.mmdit_config_from_json(
+            {"time_position_encoding_type": "2d_rope"})
     for t_type in ("HunyuanTransformer3DModel", "Transformer3DModel"):
         with pytest.raises(NotImplementedError, match="item 11"):
             tconfig.build_transformer({"transformer_type": t_type})
@@ -290,12 +298,16 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
             tconfig.build_vae({"vae_type": v_type})
     with pytest.raises(NotImplementedError, match="item 8"):
         tconfig.build_vae({"chunk_mode": "slice_mag"})
+    # the Bert / T5 stacks are ported (tests/test_torch_v5_text.py loads
+    # them): a Bert directory needs its mT5 text_encoder_2, and each tower
+    # needs its weights
     te = tmp_path / "text_encoder"
     te.mkdir()
-    for model_type in ("bert", "t5", "mt5"):
+    for model_type, missing in (("bert", "text_encoder_2"),
+                                ("t5", "safetensors"), ("mt5", "safetensors")):
         (te / "config.json").write_text(json.dumps({"model_type": model_type}))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            loader.load_text_encoders(str(tmp_path))
+        with pytest.raises(FileNotFoundError, match=missing):
+            loader.load_text_encoders(str(tmp_path), device="cpu")
 
 
 def test_strictness(model_dir, tmp_path):

@@ -6,9 +6,9 @@ gradients with respect to the frames; the converters; the traps of the
 JAX scorers, one test each.
 
 Weights: the CLIP towers come from the Flax model through
-clip_state_dict_from_flax; the MPS cross model and the aesthetic head go
-the other way, from the port's random weights through the JAX package's
-own converters of the reference layouts. JAX's MPSReward calls
+models/convert.py::state_dict_from_flax; the MPS cross model and the
+aesthetic head go the other way, from the port's random weights through
+the JAX package's own converters of the reference layouts. JAX's MPSReward calls
 `model.text_model(...)` / `model.vision_model(...)`, which FlaxCLIPModel
 does not expose, so it gets a thin adapter over the same Flax module.
 Tolerances: 1e-5 (rtol and atol) for CLIP features, float32 sums in
@@ -29,7 +29,8 @@ import torch
 
 from easyanimate_tpu.reward import mps as jmps
 from easyanimate_tpu.reward import reward_fn as jrf
-from easyanimate_tpu_torch.models.convert import init_random_
+from easyanimate_tpu_torch.models.convert import (init_random_,
+                                                  state_dict_from_flax)
 from easyanimate_tpu_torch.reward import clip as tclip
 from easyanimate_tpu_torch.reward import mps as tmps
 from easyanimate_tpu_torch.reward import reward_fn as trf
@@ -105,8 +106,7 @@ def _flax_clip(act="quick_gelu", eos=2, projection_dim=16, seed=0):
 def _port_clip(flax_model):
     cfg = tclip.CLIPConfig.from_dict(flax_model.config.to_dict())
     port = tclip.CLIPModel(cfg, device="cpu")
-    port.load_state_dict(tclip.clip_state_dict_from_flax(flax_model.params),
-                         strict=True)
+    port.load_state_dict(state_dict_from_flax(flax_model.params), strict=True)
     return port
 
 

@@ -162,9 +162,14 @@ def test_build_text_encoder_reads_a_port_written_directory(tmp_path):
     assert torch.equal(m, torch.from_numpy(mask))
     with pytest.raises(RuntimeError, match="tokenizer"):
         enc(["a prompt"])
-    for kind in ("bert", "mt5"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_text_encoder(kind, str(tmp_path))
+    # the Bert and mT5 towers are ported and load strictly: a Qwen2
+    # directory holds none of their tensors (tests/test_torch_v5_text.py
+    # loads their own directories); an unknown kind raises
+    for kind, name in (("bert", "Bert"), ("mt5", "T5")):
+        with pytest.raises(KeyError, match=f"{name} checkpoint: .* missing"):
+            build_text_encoder(kind, str(tmp_path), device="cpu")
+    with pytest.raises(KeyError, match="gpt9"):
+        build_text_encoder("gpt9", str(tmp_path))
 
 
 def _word_tokenizer(path):

@@ -144,8 +144,23 @@ def test_conditioned_sft_and_lora_steps_match_jax(kind, rng):
 
 
 def test_text_t5_is_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrainer.apply_model(None, None, None, {"text": None, "text_t5": 1})
+    """V5's text_t5 reaches the model (tests/test_torch_v5.py holds the V5
+    steps against JAX); a model without a T5 stream refuses it."""
+    cfg = dataclasses.replace(port_mmdit_cfg(JAX_PRESETS["tiny"]),
+                              num_layers=1)
+    lat, t = torch.zeros(1, 4, 1, 4, 4), torch.ones(1)
+    batch = {"text": torch.ones(1, 3, cfg.text_embed_dim),
+             "text_t5": torch.ones(1, 2, 8)}
+    with pytest.raises(ValueError, match="T5 stream"):
+        ttrainer.apply_model(EasyAnimateTransformer3D(cfg, device="cpu"),
+                             lat, t, batch)
+    v5 = EasyAnimateTransformer3D(dataclasses.replace(
+        cfg, text_embed_dim_t5=8, add_norm_text_encoder=True), device="cpu")
+    with torch.no_grad():
+        with_t5 = ttrainer.apply_model(v5, lat, t, batch)
+        without = ttrainer.apply_model(v5, lat, t, {"text": batch["text"]})
+    assert with_t5.shape == lat.shape
+    assert not torch.equal(with_t5, without)
 
 
 # ---------------------------------------------------------------------------

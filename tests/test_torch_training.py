@@ -184,10 +184,20 @@ def test_optimizer_matches_optax(rng, case):
 
 
 def test_unported_options_raise():
-    # V5's second text stream is the step's one unported input (item 11);
-    # came / adamw8bit and ddpm / sigma are ported and build
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.apply_model(None, None, None, {"text": None, "text_t5": 0})
+    # V5's second text stream is ported: apply_model hands text_t5 to the
+    # model as encoder_hidden_states_t5 (tests/test_torch_v5.py holds the
+    # V5 steps against JAX); came / adamw8bit and ddpm / sigma are ported
+    # and build
+    seen = {}
+
+    def model(*args, **kw):
+        seen.update(kw)
+        return "pred"
+
+    t5 = torch.ones(1, 2, 3)
+    assert ttrainer.apply_model(model, None, None,
+                                {"text": None, "text_t5": t5}) == "pred"
+    assert seen["encoder_hidden_states_t5"] is t5
     for opt in ("came", "adamw8bit"):
         ttrainer.make_optimizer(ttrainer.TrainConfig(optimizer=opt))
     for loss in ("ddpm", "sigma"):
