@@ -14,7 +14,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              serve phase's one-CFG-half and 45-frame-window shapes and at
              the V5 12B's joint length, 77 + 256 + 13,104 = 13,437), with
              kernel / plain / library (yardstick only) times and each
-             kernel's bound
+             kernel's bound; then K1 at head dim 88 (K1@88, the mma.sync
+             body) at V4's three shapes: self attention [32, 36,864, 88],
+             the text cross pass (kv 333) and the CLIP pass (kv 16), and
+             on 12 ragged heads
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
              against their plain versions at the training step's shapes,
              with SDPA's backward at the dense and cross shapes (yardsticks)
@@ -26,10 +29,13 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              the whole quantized linear in each mode (int8, w4a8, int4) at
              the three block-linear widths held to JAX's cosine guards and
              timed beside F.linear in bf16 (a yardstick only)
-  reference  a tiny T2V, a tiny I2V and a tiny V5 run (the tiny Bert and
+  reference  a tiny T2V, a tiny I2V, a tiny V5 run (the tiny Bert and
              mT5 towers' two streams into a tiny dual-stream MMDiT, DDIM)
-             on the card (bf16, kernels) against the same weights on the
-             CPU (float32, plain versions)
+             and a tiny V4 run (the same streams into a 2 x 88-head,
+             4-layer HunyuanDiT, DDIM, the slice_mag MagViT decoding
+             untiled with smooth_output) on the card (bf16, kernels)
+             against the same weights on the CPU (float32, plain
+             versions); V5 and V4 also against the CPU's bf16 floor
   train_reference  a tiny LoRA step and a tiny SFT step, the same way;
              then a tiny LCM step, a tiny reward step (a tiny CLIP scorer)
              and a tiny MagViT ae_step and disc_step (float32 on both,
@@ -140,10 +146,23 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              float32, Discriminator3D, LPIPS on VGG16, random weights) on
              a random 256x256x17 clip, batch 1: 3 ae_step + disc_step
              pairs with disc_start 1: s per step, peak
+  v4_t2v, v4_i2v  V4 (EasyAnimateV4) at full width and depth: the
+             HunyuanDiT (40 layers, 16 x 88 heads, the V4 yaml's basic
+             blocks and time_position_encoding; random bf16 weights) and
+             the yaml's slice_mag MagViT with latent_channels 4, at
+             512x512x144f (36,864 tokens), DDIM, CFG 6.0, NEW_PHASE_STEPS
+             steps on random Bert [2, 77, 1024] and mT5 [2, 256, 2048]
+             embeddings: a T2V request (decode tiled, so not smoothed)
+             and an I2V one on the -InP variant (12 channels in, 8 out;
+             the start frame and its mask VAE-encoded, random CLIP states
+             [1, 256, 1024], the gate shut at step 0 and open at step 1):
+             s/step, encode and decode s, peak; K1 80 (T2V) and 120
+             (I2V) launches per CFG evaluation, none on the sm90 kernel
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after, and that every launch of K1-K7 (d 64) ran its
-TMA + wgmma kernel; Q1-Q3 launch on the quantized paths only. Then the per-kernel JSON line and, last, the
-device line.
+and checks them just after, and that every launch of K1-K7 at d 64 ran
+its TMA + wgmma kernel (V4's, at d 88, none did); Q1-Q3 launch on the
+quantized paths only. Then the per-kernel JSON line (K1@88 its own row)
+and, last, the device line.
 """
 import argparse
 import contextlib
@@ -167,6 +186,8 @@ from easyanimate_tpu_torch.loader import load_pipeline
 from easyanimate_tpu_torch.models.convert import (init_random_,
                                                   mmdit_config_json,
                                                   save_reference_checkpoint)
+from easyanimate_tpu_torch.models.hunyuan import (HunyuanConfig,
+                                                  HunyuanTransformer3D)
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
 from easyanimate_tpu_torch.models.text import (TINY_BERT, TINY_T5, BertConfig,
                                                BertModel, BertTextEncoder,
@@ -250,6 +271,14 @@ REF_V5_REL_BOUND = 5e-2
 # and the card's error within this multiple of the same run's bf16 floor
 # (the plain versions in bf16 on the CPU): 2.0% over 1.9% read 1.05
 REF_V5_FLOOR_MULT = 1.5
+# the tiny V4 request (2 heads x 88, 4 layers, DDIM, the slice_mag MagViT),
+# held as the V5 case is: relative to the latents' scale (DDIM takes them
+# to ~29 here), and within a multiple of the same run's bf16 floor. Read
+# on an NVIDIA H100 80GB HBM3 (700 W): the card 1.98%, the CPU's bf16 run
+# 1.72% (1.15x). K1 at d 88 alone is held to its plain version in
+# `kernels`
+REF_V4_REL_BOUND = 5e-2
+REF_V4_FLOOR_MULT = 1.5
 # tiny training step, bf16 on the card vs float32 on the CPU: loss relative
 # 1e-2, gradients 5e-2 of the largest |gradient|. bf16 weights and
 # activations alone (the plain versions in bf16 on the CPU) move the
@@ -419,10 +448,15 @@ def phase_build():
                                            "EXIT"))
         out[key] = {"ptxas": ptxas, "sass": sass}
         report[kernel] = {"ptxas": ptxas, "sass": sass, "sass_sites": sites}
+    # K1's d 88 instance on the mma.sync body: registers and spills only
+    # (it issues no wgmma or TMA)
+    out["K1@88"] = {"ptxas": _build.ptxas_report(K1_D88)}
+    report[K1_D88] = out["K1@88"]
     emit({"phase": "build", "library": lib.name, "seconds": seconds,
           **report})
     for kernel, r in report.items():
-        if not (r["sass"]["HGMMA"] and r["sass"]["UTMALDG"]):
+        if kernel != K1_D88 and not (r["sass"]["HGMMA"]
+                                     and r["sass"]["UTMALDG"]):
             raise AssertionError(f"{kernel} issues no wgmma or no TMA load: "
                                  f"{r['sass']}")
     return out
@@ -469,6 +503,86 @@ def v5_joint_len():
     and the video's patches (13,437 at 384x672x49f)."""
     return (BERT_LEN + TEXT_LEN
             + ((FRAMES - 1) // 4 + 1) * (H // 16) * (W // 16))
+
+
+# V4 (EasyAnimateV4's HunyuanDiT-3D, 16 heads x 88, 40 layers) at
+# 512x512x144f: the slice_mag MagViT's 144 // 4 = 36 latent frames of
+# 32 x 32 patches, 36,864 tokens; K1's three shapes there, each over the
+# CFG batch's 32 heads: self attention, the text cross pass over Bert's 77 +
+# mT5's 256 tokens, the CLIP cross pass over the Resampler's 16
+V4_H = V4_W = 512
+V4_FRAMES = 144
+V4_HEADS, V4_HEAD_DIM, V4_LAYERS = 16, 88, 40
+V4_TOKENS = V4_FRAMES // 4 * (V4_H // 16) * (V4_W // 16)
+V4_BH = 2 * V4_HEADS
+V4_KV = {"self": V4_TOKENS, "text": BERT_LEN + TEXT_LEN, "clip": 16}
+# the I2V request's CLIP ViT-L patch states (16 x 16 patches, width 1,024)
+# and its gate: with NEW_PHASE_STEPS = 2, shut at step 0, open at step 1
+V4_CLIP_N, V4_CLIP_DIM, V4_CLIP_RATIO = 256, 1024, 0.5
+# K1 launches per CFG evaluation: each layer's attn1 and attn2, and for
+# I2V its attn_clip (which runs with the gate shut too, on zero states)
+V4_K1_T2V, V4_K1_I2V = 2 * V4_LAYERS, 3 * V4_LAYERS
+K1_D88 = "attn_fwd_kernelILi88ELb0E"  # K1's d 88 mma.sync instance
+
+
+def k1_bound(bh, sq, skv, d):
+    """K1's bound for one call: 2 products of 2 * bh * sq * skv * d
+    operations; q and o [bh, sq, d] and k and v [bh, skv, d] in bf16, the
+    float32 lse [bh, sq, 1]."""
+    return bound(4 * bh * sq * skv * d,
+                 2 * bh * d * (2 * sq + 2 * skv) + 4 * bh * sq)
+
+
+def phase_kernels_v4(gen):
+    """K1 at head dim 88 (the mma.sync body, csrc/attn_fwd.cuh) against its
+    plain version at V4's three shapes and on 12 ragged heads, with its
+    kernel / plain / SDPA (yardstick) times and bounds at each shape."""
+    dev = DEVICE
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    d = V4_HEAD_DIM
+    q = rand(V4_BH, V4_TOKENS, d, scale=d ** -0.5 * LOG2E)
+    k_self, v_self = rand(V4_BH, V4_TOKENS, d), rand(V4_BH, V4_TOKENS, d)
+    errs, shapes = [], {}
+    for name, skv in V4_KV.items():
+        k, v = ((k_self, v_self) if name == "self"
+                else (rand(V4_BH, skv, d), rand(V4_BH, skv, d)))
+        errs.append(_compare(f"K1@88 {name} {V4_TOKENS} x {skv}",
+                             flash_attention_fwd, flash_attention_plain,
+                             (q, k, v, skv)))
+        q4, k4, v4 = (x.view(2, V4_HEADS, -1, d) for x in (q, k, v))
+        bms, by = k1_bound(V4_BH, V4_TOKENS, skv, d)
+        iters = 5 if name == "self" else 20
+        shapes[name] = {
+            "shape": [[V4_BH, V4_TOKENS, d], [V4_BH, skv, d]],
+            "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), iters),
+            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
+            "sdpa_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4), iters),
+            "bound_ms": bms, "bound_by": by}
+        shapes[name]["tflops"] = (4 * V4_BH * V4_TOKENS * skv * d
+                                  / shapes[name]["ms"] / 1e9)
+        shapes[name]["share_of_bound"] = bms / shapes[name]["ms"]
+        del k, v, q4, k4, v4
+    del q, k_self, v_self
+    # 12 heads of 1001 rows (not a multiple of the 64-row tiles), each head
+    # offset by its own mean: a tile read across a head's end would show
+    shift = torch.arange(12, device=dev).view(12, 1, 1) % 3 - 1.0
+    qh = rand(12, 1001, d, scale=d ** -0.5 * LOG2E)
+    kh, vh = ((rand(12, 1001, d).float() + shift).to(torch.bfloat16)
+              for _ in range(2))
+    errs.append(_compare("K1@88 ragged heads 1001", flash_attention_fwd,
+                         flash_attention_plain, (qh, kh, vh, 1001)))
+    stats = {"shapes": shapes, "max_abs_err": max(e[0] for e in errs),
+             "max_rel_err": max(e[1] for e in errs)}
+    emit({"phase": "kernels", "case": "K1@88 times", **stats,
+          "note": "mma.sync body (no sm90 kernel at d 88); sdpa_ms is a "
+                  "yardstick, not on the path"})
+    torch.cuda.empty_cache()
+    return stats
 
 
 def phase_kernels(gen):
@@ -780,19 +894,59 @@ def _tiny_v5_prompts(device):
     return out
 
 
+# the tiny V4 request's frames: 4 latent frames of the slice_mag MagViT
+# (mini_batch 8 / 2) decode to 2 chunks of 5 frames, and smooth_output
+# re-decodes their middle 2 (the one re-decoded frame is broadcast, as JAX
+# does)
+V4_REF_FRAMES = 16
+
+
+def _tiny_v4_models(dtype):
+    """Tiny V4 (2 heads x 88, 4 layers so that both skip halves exist, the
+    yaml's time_position_encoding, text widths of the tiny Bert and mT5
+    towers) and the 4-block MagViT in V4's slice_mag (mini_batch 8 / 2),
+    random float32 weights from a fixed seed, cast to dtype."""
+    cfg = HunyuanConfig(num_attention_heads=2, attention_head_dim=88,
+                        num_layers=4, cross_attention_dim=TINY_BERT.hidden_size,
+                        cross_attention_dim_t5=TINY_T5.d_model,
+                        pooled_projection_dim=32, text_len=12, text_len_t5=16,
+                        time_position_encoding=True, dtype="float32")
+    vae_cfg = MagvitVAEConfig(latent_channels=4,
+                              block_out_channels=(32, 64, 128, 128),
+                              norm_num_groups=8, chunk_mode="slice_mag",
+                              mini_batch_encoder=8, mini_batch_decoder=2)
+    gen = torch.Generator().manual_seed(7)
+    models = (init_random_(HunyuanTransformer3D(cfg, device="cpu"), gen),
+              init_random_(AutoencoderKLMagvit(vae_cfg, device="cpu"), gen))
+    if dtype == "float32":
+        return models
+    cast = (HunyuanTransformer3D(dataclasses.replace(cfg, dtype=dtype),
+                                 device="cpu"),
+            AutoencoderKLMagvit(dataclasses.replace(vae_cfg, dtype=dtype),
+                                device="cpu"))
+    for dst, src in zip(cast, models):
+        dst.load_state_dict(src.state_dict())
+    return cast
+
+
 def reference_runs(kind, runs):
     """The tiny request of `kind` from fixed weights, noise and prompt:
     T2V, I2V from a random start image through get_image_to_video_latent,
-    or V5 (the tiny towers' two streams into the tiny dual-stream MMDiT,
-    DDIM), once per (name, device, dtype) of `runs`. Returns {name: float32
-    latents on the CPU} and the decoded uint8 video of the run named
-    "card" (None without one)."""
+    V5 (the tiny towers' two streams into the tiny dual-stream MMDiT,
+    DDIM), or V4 (the same two streams into the tiny HunyuanDiT, DDIM,
+    V4_REF_FRAMES through the slice_mag MagViT), once per (name, device,
+    dtype) of `runs`. Returns {name: float32 latents on the CPU} and the
+    decoded uint8 video of the run named "card" (None without one); for
+    V4 also the card's decode without smoothing."""
     gen = torch.Generator().manual_seed(11)
-    lat0 = torch.randn(1, 4, 2, 8, 8, generator=gen)
+    v4 = kind == "v4"
+    lat0 = torch.randn(1, 4, V4_REF_FRAMES // 4 if v4 else 2, 8, 8,
+                       generator=gen)
     pos = torch.randn(1, 6, 24, generator=gen)
-    kw = dict(height=64, width=64, video_length=5, num_inference_steps=3,
-              guidance_scale=6.0, latents=lat0, output_type="latent")
-    inpaint, v5 = kind == "i2v", kind == "v5"
+    kw = dict(height=64, width=64, video_length=V4_REF_FRAMES if v4 else 5,
+              num_inference_steps=3, guidance_scale=6.0, latents=lat0,
+              output_type="latent")
+    inpaint, v5 = kind == "i2v", kind in ("v5", "v4")
     if inpaint:
         image = torch.randint(0, 256, (64, 64, 3), generator=gen,
                               dtype=torch.uint8).numpy()
@@ -802,9 +956,11 @@ def reference_runs(kind, runs):
     pipe_cls = EasyAnimateInpaintPipeline if inpaint else EasyAnimatePipeline
     outs, decoded = {}, None
     for name, device, dtype in runs:
-        model, vae = (m.to(device) for m in _tiny_models(dtype, inpaint, v5))
+        models = (_tiny_v4_models(dtype) if v4
+                  else _tiny_models(dtype, inpaint, v5))
+        model, vae = (m.to(device) for m in models)
         pipe = pipe_cls(model, vae, device)
-        if v5:  # V5's scheduler (the yaml's ddim) and its two streams
+        if v5:  # V5's and V4's scheduler (the yamls' ddim), two streams
             pipe.scheduler = DDIMConfig()
             out = pipe(**_tiny_v5_prompts(device), **kw)
         else:
@@ -812,40 +968,53 @@ def reference_runs(kind, runs):
         outs[name] = out.float().cpu()
         if name == "card":
             decoded = pipe.decode_latents(out, to_uint8=True)
+            if v4:  # smooth_output on by default for slice_mag
+                decoded = (decoded, pipe.decode_latents(
+                    out, smooth=False, to_uint8=True))
     return outs, decoded
 
 
 def phase_reference(kind):
     """The tiny request of `kind` (reference_runs) on the card (bf16,
-    kernels) against the CPU (float32, plain versions); V5 also against
-    its bf16 floor."""
-    v5 = kind == "v5"
+    kernels) against the CPU (float32, plain versions); V5 and V4 also
+    against their bf16 floor. V4's decode must smooth (its middle frames
+    differ from the unsmoothed decode's)."""
+    rel = {"v5": (REF_V5_REL_BOUND, REF_V5_FLOOR_MULT),
+           "v4": (REF_V4_REL_BOUND, REF_V4_FLOOR_MULT)}.get(kind)
     runs = [("cpu", "cpu", "float32"), ("card", "cuda", "bfloat16")]
-    if v5:  # the bf16 floor: the plain versions in bf16 on the CPU
+    if rel:  # the bf16 floor: the plain versions in bf16 on the CPU
         runs.append(("cpu_bf16", "cpu", "bfloat16"))
     outs, video = reference_runs(kind, runs)
+    frames, want_frames = (V4_REF_FRAMES, 10) if kind == "v4" else (5, 5)
     diff = (outs["card"] - outs["cpu"]).abs()
     err = diff.max().item()
-    row = {"phase": "reference", "what": f"tiny {kind.upper()} 64x64x5f, 3 "
-           "steps: card bf16 kernels vs CPU float32 plain",
+    row = {"phase": "reference", "what": f"tiny {kind.upper()} 64x64x"
+           f"{frames}f, 3 steps: card bf16 kernels vs CPU float32 plain",
            "max_abs_err_latents": err,
            "mean_abs_err_latents": diff.mean().item()}
-    if v5:
-        # DDIM's x0 steps take random-weight latents to ~15, so the V5 case
-        # is held relative to their scale
+    if kind == "v4":
+        video, unsmoothed = video
+        blend = np.abs(video.astype(np.int16) - unsmoothed)
+        row.update(smoothed_frames=[int(i) for i in np.nonzero(
+            blend.max(axis=(0, 1, 3, 4)))[0]])
+        ok = bool(blend[:, :, 4:-4].max() > 0 and blend[:, :, :4].max() == 0)
+    else:
+        ok = True
+    if rel:
+        # DDIM's x0 steps take random-weight latents far from N(0, 1), so
+        # the V5 and V4 cases are held relative to their scale
         scale = outs["cpu"].abs().max().item()
         floor = (outs["cpu_bf16"] - outs["cpu"]).abs().max().item()
         row.update(latents_abs_max=scale, rel_err_latents=err / scale,
                    cpu_bf16_rel_err_latents=floor / scale,
-                   bound_rel=REF_V5_REL_BOUND,
-                   bound_over_floor=REF_V5_FLOOR_MULT)
-        ok = (err / scale <= REF_V5_REL_BOUND
-              and err <= REF_V5_FLOOR_MULT * floor)
+                   bound_rel=rel[0], bound_over_floor=rel[1])
+        ok = ok and err / scale <= rel[0] and err <= rel[1] * floor
     else:
         row["bound"] = REF_BOUND
         ok = err <= REF_BOUND
-    ok = ok and video.shape == (1, 3, 5, 64, 64) and video.dtype.name == "uint8"
-    emit({**row, "ok": ok})
+    ok = (ok and video.shape == (1, 3, want_frames, 64, 64)
+          and video.dtype.name == "uint8")
+    emit({**row, "video_shape": list(video.shape), "ok": ok})
     if not ok:
         raise AssertionError(f"tiny {kind} pipeline on the card disagrees "
                              "with the CPU")
@@ -1586,6 +1755,133 @@ def i2v_inputs(seed):
                           dtype=torch.uint8).numpy()
     video, mask = get_image_to_video_latent(image, None, FRAMES, (H, W))
     return {"video": video, "mask_video": mask}
+
+
+def v4_models(seed):
+    """V4's HunyuanDiT at full width and depth: HunyuanConfig's defaults
+    (40 layers, 16 x 88 heads, Bert 1,024 x 77 and mT5 2,048 x 256, pooled
+    1,024, learned sigma) plus the V4 yaml's fields (basic blocks,
+    time_position_encoding; the card has no yaml reader, so they are
+    written here), random bf16 weights built on meta and filled on the
+    card; and the V4 yaml's MagViT (slice_mag, mini_batch 8 / 2) with
+    latent_channels 4, the transformer's in_channels (the yaml leaves it
+    unset and MagvitVAEConfig's 16 is V5's)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    cfg = HunyuanConfig(basic_block_type="basic", time_position_encoding=True)
+    model = init_random_(HunyuanTransformer3D(cfg, device="meta").to_empty(
+        device=DEVICE), gen)
+    vae = init_random_(AutoencoderKLMagvit(
+        MagvitVAEConfig(latent_channels=4, chunk_mode="slice_mag",
+                        mini_batch_encoder=8, mini_batch_decoder=2,
+                        dtype="bfloat16"), device="meta").to_empty(
+        device=DEVICE), gen)
+    torch.cuda.synchronize()
+    emit({"phase": "v4_build", "params": sum(p.numel()
+                                             for p in model.parameters()),
+          "bytes": sum(p.numel() * p.element_size()
+                       for p in model.parameters()),
+          "vae_params": sum(p.numel() for p in vae.parameters()),
+          "seconds": time.perf_counter() - t0})
+    return model, vae
+
+
+def v4_inpaint_variant(model, seed):
+    """V4's InP transformer (in_channels 4 + 4 + 4: latents, the
+    VAE-encoded mask, the masked video; out_channels 8) on the T2V model's
+    tensors, with a random 12-channel patchify."""
+    cfg = dataclasses.replace(model.cfg, in_channels=12, out_channels=8)
+    inpaint = HunyuanTransformer3D(cfg, device="meta")
+    shape = inpaint.pos_embed_proj.weight.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sd = dict(model.state_dict())
+    sd["pos_embed_proj.weight"] = (
+        torch.randn(shape, generator=gen, device=DEVICE)
+        * shape[1:].numel() ** -0.5).to(torch.bfloat16)
+    inpaint.load_state_dict(sd, assign=True)
+    return inpaint
+
+
+def v4_request(phase, pipe, seed, steps, **inputs):
+    """One V4 request at V4_H x V4_W x V4_FRAMES, CFG 6.0, DDIM, on random
+    Bert [2, 77, 1024] and mT5 [2, 256, 2048] prompt embeddings (the towers
+    are v5_text's: this bypasses them). T2V decodes (tiled at 512 px, so
+    without smoothing, as in JAX); I2V (`inputs`: the start frame, the CLIP
+    states) returns latents. Stamps each step, the transformer's first call
+    (so an I2V's VAE encodes stand apart) and, through a pre-hook, whether
+    each evaluation saw non-zero CLIP states."""
+    dev = pipe.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = {k: torch.randn(2, n, w, generator=gen, device=dev)
+           for k, n, w in (("bert", BERT_LEN, 1024), ("t5", TEXT_LEN, 2048))}
+    lat0 = torch.randn(pipe.latent_shape(1, V4_FRAMES, V4_H, V4_W),
+                       generator=gen, device=dev)
+    stamps, calls = [], []
+    prev = [lat0.to(pipe.transformer.cfg.torch_dtype)]
+
+    def pre_hook(module, args, kwargs):
+        if not calls:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        clip = kwargs.get("clip_encoder_hidden_states")
+        calls.append(None if clip is None else bool(clip.abs().amax() > 0))
+
+    def check_step(i, lat):
+        if not bool(torch.isfinite(lat).all()):  # syncs: stamps are real
+            raise AssertionError(f"{phase}: non-finite latents at step {i}")
+        if torch.equal(prev[0], lat):
+            raise AssertionError(f"{phase}: latents unchanged at step {i}")
+        prev[0] = lat.clone()
+        stamps.append(time.perf_counter())
+
+    hook = pipe.transformer.register_forward_pre_hook(pre_hook,
+                                                      with_kwargs=True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = pipe(emb["bert"][:1], emb["bert"][1:],
+                   prompt_embeds_t5=emb["t5"][:1],
+                   negative_prompt_embeds_t5=emb["t5"][1:], height=V4_H,
+                   width=V4_W, video_length=V4_FRAMES,
+                   num_inference_steps=steps, guidance_scale=6.0,
+                   latents=lat0, generator=gen,
+                   output_type="latent" if inputs else "uint8",
+                   callback=check_step, **inputs)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    t_end = time.perf_counter()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    row = {"phase": phase, "seed": seed, "steps": steps,
+           "latent_shape": list(prev[0].shape),
+           "tokens": V4_TOKENS, "before_denoise_s": stamps[0] - t0,
+           "denoise_s_per_step": sum(step_s) / steps, "step_s": step_s,
+           "after_denoise_s": t_end - stamps[-1], "request_s": t_end - t0,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "clip_states_nonzero_per_evaluation": calls}
+    if inputs:
+        row.update(vae_encode_s=row["before_denoise_s"],
+                   clip_apply_ratio=inputs["clip_apply_ratio"])
+        ok = (tuple(out.shape) == tuple(lat0.shape)
+              and bool(torch.isfinite(out).all()) and any(calls)
+              and not all(calls))
+    else:
+        # slice_mag decodes each chunk of mini_batch_decoder latents with
+        # its first frame not doubled, as JAX's does: 2 latents -> 5
+        # frames, 36 -> 90
+        vcfg = pipe.vae.cfg
+        n = vcfg.mini_batch_decoder
+        frames = (lat0.shape[2] // n
+                  * (1 + (n - 1) * vcfg.temporal_compression))
+        row.update(vae_decode_s=row["after_denoise_s"],
+                   video_shape=list(out.shape), video_dtype=str(out.dtype))
+        ok = (out.shape == (1, 3, frames, V4_H, V4_W)
+              and out.dtype.name == "uint8")
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: output or CLIP gate wrong: {row}")
 
 
 # the control and samplers phases' steps (PNDM's: min(--steps, 4)); with
@@ -3159,6 +3455,9 @@ def main():
     build = phase_build()
     stats = phase_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
     torch.cuda.synchronize()
+    v4_stats = phase_kernels_v4(
+        torch.Generator(device="cuda").manual_seed(args.seed + 300))
+    torch.cuda.synchronize()
     stats.update(phase_kernels_bwd(
         torch.Generator(device="cuda").manual_seed(args.seed + 100)))
     torch.cuda.synchronize()
@@ -3168,6 +3467,7 @@ def main():
     phase_reference("t2v")
     phase_reference("i2v")
     phase_reference("v5")
+    phase_reference("v4")
     torch.cuda.synchronize()
     phase_train_reference()
     torch.cuda.synchronize()
@@ -3185,10 +3485,11 @@ def main():
 
     totals_q = dict.fromkeys(QCOUNTERS, 0)
 
-    def path_run(phase, fn, expect=None, expect_q=None):
+    def path_run(phase, fn, expect=None, expect_q=None, sm90=True):
         """One main-path run: counts set to 0 just before, read just after;
-        every launch of K1-K7 (d 64) ran its TMA + wgmma kernel; Q1-Q3
-        launched `expect_q` times (none on a float model's path)."""
+        every launch of K1-K7 ran its TMA + wgmma kernel (d 64), or with
+        sm90=False (V4, d 88) none did; Q1-Q3 launched `expect_q` times
+        (none on a float model's path)."""
         reset_counts()
         result = fn()
         got = read_counts()
@@ -3200,7 +3501,7 @@ def main():
         for k, n in got_q.items():
             totals_q[k] += n
         for key, (counter, kernel) in sm90_counters.items():
-            if counter.launches_sm90 != got[key]:
+            if counter.launches_sm90 != (got[key] if sm90 else 0):
                 raise AssertionError(f"{phase}: {counter.launches_sm90} of "
                                      f"{got[key]} {key} launches ran {kernel}")
             totals_sm90[key] += counter.launches_sm90
@@ -3330,6 +3631,35 @@ def main():
     # block's attention is plain)
     path_run("vae_train", lambda: phase_vae_train(args.seed + 82),
              dict.fromkeys(COUNTERS, 0))
+    torch.cuda.empty_cache()
+    # V4 (EasyAnimateV4): the HunyuanDiT at full width and depth, K1 on its
+    # d 88 mma.sync body (no launch on the TMA + wgmma kernel); a T2V
+    # request, then an I2V one on the InP variant with the CLIP branch
+    v4_model, v4_vae = v4_models(args.seed + 94)
+    pipe = EasyAnimatePipeline(v4_model, v4_vae, scheduler=DDIMConfig())
+    expect_v4_t2v = dict(serve, K1=V4_K1_T2V * new_steps)
+    path_run("v4_t2v", lambda: v4_request("v4_t2v", pipe, args.seed + 95,
+                                          new_steps), expect_v4_t2v,
+             sm90=False)
+    pipe = EasyAnimateInpaintPipeline(
+        v4_inpaint_variant(v4_model, args.seed + 96), v4_vae,
+        scheduler=DDIMConfig())
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 97)
+    image = torch.randint(0, 256, (V4_H, V4_W, 3), generator=gen,
+                          device=DEVICE, dtype=torch.uint8).cpu().numpy()
+    video, mask = get_image_to_video_latent(image, None, V4_FRAMES,
+                                            (V4_H, V4_W))
+    v4_i2v = dict(video=video, mask_video=mask,
+                  clip_encoder_hidden_states=torch.randn(
+                      1, V4_CLIP_N, V4_CLIP_DIM, generator=gen, device=DEVICE),
+                  clip_apply_ratio=V4_CLIP_RATIO)
+    expect_v4_i2v = dict(serve, K1=V4_K1_I2V * new_steps)
+    path_run("v4_i2v", lambda: v4_request("v4_i2v", pipe, args.seed + 98,
+                                          new_steps, **v4_i2v), expect_v4_i2v,
+             sm90=False)
+    del pipe, v4_model, v4_vae, v4_i2v, video, mask
+    torch.cuda.empty_cache()
+    v4_k1 = expect_v4_t2v["K1"] + expect_v4_i2v["K1"]
     n_sft = sum(steps for _, _, steps in SFT_VARIANTS)
     expect_train = {k: n * (lora_dense[k] + lora_swa[k])
                     + n_sft * SFT_LAUNCHES[k] + expect_driver[k]
@@ -3341,7 +3671,8 @@ def main():
             + expect_loader.get(k, 0) + expect_fused[k]
             + expect_requests.get(k, 0) + expect_control[k]
             + expect_samplers[k] + expect_quant[k] + expect_v5[k]
-            + expect_lora_v5[k] for k in COUNTERS}
+            + expect_lora_v5[k] + expect_v4_t2v[k] + expect_v4_i2v[k]
+            for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
     loader_cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=2)
@@ -3417,13 +3748,39 @@ def main():
     band = 2 * BH * band_columns(S_VID, WINDOW) * HEAD_DIM
     glob = 2 * BH * S_VID * S_GLOBAL * HEAD_DIM  # one global-pass product
 
+    # K1 at d 88 (V4): its own row, launched on the mma.sync body only;
+    # K1's row keeps its d 64 launches
+    k1_row = sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
+                          "easyanimate_tpu/ops/flash_attention.py:92"),
+                      "K1", ("flash_fwd.cu", "fwd_sm90.cuh"), 2 * dense,
+                      "cross_sdpa_ms")
+    k1_row["launches"] -= v4_k1
+    self88, ptxas88 = v4_stats["shapes"]["self"], build["K1@88"]["ptxas"]
+    k1_88_row = {
+        "name": "K1@88 flash_attention_fwd (d 88, V4)", "route": "cuda",
+        "source": "easyanimate_tpu_torch/csrc/attn_fwd.cuh",
+        "sources": ["easyanimate_tpu_torch/csrc/flash_fwd.cu",
+                    "easyanimate_tpu_torch/csrc/attn_fwd.cuh"],
+        "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
+        "launches": v4_k1, "launches_sm90": 0, "kernel": K1_D88,
+        "max_abs_err": v4_stats["max_abs_err"],
+        "max_rel_err": v4_stats["max_rel_err"], "ms": self88["ms"],
+        "plain_ms": self88["plain_ms"], "bound_ms": self88["bound_ms"],
+        "bound_by": self88["bound_by"], "library_ms": self88["sdpa_ms"],
+        "shape": self88["shape"], "tflops": self88["tflops"],
+        "share_of_bound": self88["share_of_bound"],
+        "shapes": v4_stats["shapes"],
+        "registers": ptxas88.get("registers"),
+        "spill_bytes": (ptxas88.get("spill_store_bytes", 0)
+                        + ptxas88.get("spill_load_bytes", 0))}
+    if k1_row["launches"] != k1_row["launches_sm90"]:
+        raise AssertionError(f"K1 d 64 launches {k1_row['launches']} != "
+                             f"sm90 {k1_row['launches_sm90']}")
+
     emit({"kernels": [
-        sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
-                     "easyanimate_tpu/ops/flash_attention.py:92"),
-                 "K1", ("flash_fwd.cu", "fwd_sm90.cuh"), 2 * dense,
-                 "cross_sdpa_ms")
-        | {"v5_ms": stats["K1"]["v5_ms"],
-           "v5_shape": stats["K1"]["v5_shape"]},
+        k1_row | {"v5_ms": stats["K1"]["v5_ms"],
+                  "v5_shape": stats["K1"]["v5_shape"]},
+        k1_88_row,
         sm90_row(row("K2", "sliding_window_fwd", "swa_fwd.cu",
                      "easyanimate_tpu/ops/swa.py:32"),
                  "K2", ("swa_fwd.cu", "fwd_sm90.cuh"), 2 * band),
@@ -3456,8 +3813,11 @@ def main():
                "1027), v5_ms at the V5 12B's joint length (13437), library "
                "= SDPA (its backward for K3/K4); K2's, "
                "K5's, K6's and K7's tflops count the band's visible pairs; "
-               "every path launch of K1-K7 ran their TMA + wgmma kernels "
-               "(launches_sm90). K3/K4 and K6/K7 "
+               "every path launch of K1-K7 at d 64 ran their TMA + wgmma "
+               "kernels (launches_sm90); K1@88 (V4's head dim) runs the "
+               "mma.sync body: ms, plain_ms, library_ms (SDPA) and bound at "
+               "V4's self attention [32, 36864, 88], shapes[] also at its "
+               "text (333) and CLIP (16) cross passes. K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "
                "kernels' gradients. K2 library_ms: SDPA with the band mask. "

@@ -51,7 +51,7 @@ static_assert(kBlockQ == 64 && kBlockKV == 64,
 // shared-memory tile.
 template <int D>
 __device__ __forceinline__ void load_a_frags(uint32_t frag[][4],
-                                             __nv_bfloat16 (*src)[D + 8],
+                                             __nv_bfloat16 (*src)[kRow<D>],
                                              int r0, int g, int t) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -67,7 +67,7 @@ __device__ __forceinline__ void load_a_frags(uint32_t frag[][4],
 template <int D>
 __device__ __forceinline__ void scores_16x64(float acc[][4],
                                              uint32_t a[][4],
-                                             __nv_bfloat16 (*b_rows)[D + 8],
+                                             __nv_bfloat16 (*b_rows)[kRow<D>],
                                              int g, int t) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -87,7 +87,7 @@ __device__ __forceinline__ void scores_16x64(float acc[][4],
 template <int D>
 __device__ __forceinline__ void accumulate_pv(float acc[][4],
                                               float p[][4],
-                                              __nv_bfloat16 (*rows)[D + 8],
+                                              __nv_bfloat16 (*rows)[kRow<D>],
                                               int g, int t) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
@@ -145,10 +145,10 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                    const float* __restrict__ di,
                    __nv_bfloat16* __restrict__ dq, int sq, int skv,
                    int kv_len, int window) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sO[kBlockQ][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][D + 8];
+  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sO[kBlockQ][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][kRow<D>];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
@@ -236,10 +236,10 @@ attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, int sq, int skv,
                     int kv_len, int window) {
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sO[kBlockQ][D + 8];
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sO[kBlockQ][kRow<D>];
   __shared__ float sL[kBlockQ];
   __shared__ float sD[kBlockQ];
 

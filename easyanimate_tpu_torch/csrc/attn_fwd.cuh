@@ -1,7 +1,7 @@
 // The mma.sync forward-attention body of K1 (flash_fwd.cu: dense), K2
 // (swa_fwd.cu: banded) and K5 (swa_fused_fwd.cu: banded + global) at head
-// dims 16 and 32 only; at d 64 all three are TMA + wgmma kernels on
-// fwd_sm90.cuh.
+// dims 16 and 32, and of K1 alone at 88 (V4's HunyuanDiT, 16 heads x 88);
+// at d 64 all three are TMA + wgmma kernels on fwd_sm90.cuh.
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -13,11 +13,16 @@
 //     q rows and keeps their bf16 A fragments in registers for the whole
 //     kv loop;
 //   - kv streams through shared memory in tiles of 64 rows (k and v), with
-//     a __syncthreads fence around each load (no double buffering);
+//     a __syncthreads fence around each load (no double buffering); rows
+//     padded to kRow<D> so fragment loads do not conflict in the banks;
 //   - both products are mma.sync.m16n8k16 bf16 -> f32; the f32 score
 //     fragment of q k^T is re-packed in registers as the A operand of p v
 //     (the usual register-level FA2 layout trick), so p never touches
 //     shared memory;
+//   - a head dim that is 8 past a multiple of 16 (88) reduces q k^T over
+//     its last 8 columns with one mma.sync.m16n8k8, so no column is padded
+//     (88 = five k16 steps and one k8 step; p v runs as eleven n8 tiles and
+//     a row of 176 bytes loads as eleven 16-byte chunks);
 //   - running max / sum in f32, rows reduced across the 4 threads of a quad
 //     with shuffles;
 //   - the ragged edge is masked by column index (s = -inf), so no padded
@@ -27,8 +32,11 @@
 // shared memory feeds 64 q rows, and the mma.sync path reaches a fraction
 // of the wgmma peak; with no load/compute overlap the tensor cores idle
 // during every tile load. hopper.cuh and fwd_sm90.cuh hold the TMA + wgmma
-// + producer warpgroup pieces K1, K2 and K5 moved onto; only their d 16
-// and 32 calls (the tiny test preset) still run this body.
+// + producer warpgroup pieces K1, K2 and K5 moved onto; their d 16 and 32
+// calls (the tiny test preset) and K1's d 88 calls (V4) still run this
+// body. At d 88 a q tile's two products are 4 * 64 * 88 operations per kv
+// row against 2 * 176 bytes of k and v from shared memory: the same
+// starved-tensor-core shape as at d 64 before the wgmma redesign.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +48,15 @@ namespace ea {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockKV = 64;
+
+// Shared-memory row length of a [rows, D] bf16 tile: rows 16-byte aligned
+// (each is loaded as 16-byte chunks), and a row stride of 4 words past a
+// multiple of 8, so that the 8 rows (g) one fragment load touches fall in 8
+// distinct groups of 4 banks: D + 8 for d 16, 32 and 64 (12, 20 and 36
+// words), D itself for 88 (44 words; 96 would put every other row in the
+// same banks, a 4-way conflict on each load).
+template <int D>
+constexpr int kRow = D + ((D / 2) % 8 == 0 ? 8 : 0);
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = kWarps * 32;
 
@@ -50,6 +67,16 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The k8 step of q k^T for a head dim 8 past a multiple of 16.
+__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[2],
+                                         uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -69,9 +96,9 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 }
 
 // Copy rows [row0, row0 + kRows) of a [*, D] bf16 matrix into shared memory
-// (row stride D + 8), zero-filling rows at or past `limit`.
+// (row stride kRow<D>), zero-filling rows at or past `limit`.
 template <int D, int kRows>
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[D + 8],
+__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kRow<D>],
                                           const __nv_bfloat16* src, int row0,
                                           int limit) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -115,17 +142,33 @@ struct SoftmaxState {
   }
 };
 
+// One warp's 16 q rows as bf16 A fragments: one per 16 columns of d, and
+// at a d 8 past a multiple of 16 the last 8 columns as a k8 fragment.
+template <int D>
+struct QFrags {
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static constexpr int kSteps = D / 16;       // m16n8k16 steps
+  static constexpr bool kTail = D % 16 != 0;  // and one m16n8k8 step
+  uint32_t a[kSteps][4];
+  uint32_t tail[2];
+};
+
 // Load this warp's 16 q rows of sQ as bf16 A fragments.
 template <int D>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4],
-                                             __nv_bfloat16 (*sQ)[D + 8],
+__device__ __forceinline__ void load_q_frags(QFrags<D>& qa,
+                                             __nv_bfloat16 (*sQ)[kRow<D>],
                                              int r0, int g, int t) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = ld32(&sQ[r0 + g][kk * 16 + 2 * t]);
-    qa[kk][1] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t]);
-    qa[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 2 * t + 8]);
-    qa[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t + 8]);
+  for (int kk = 0; kk < QFrags<D>::kSteps; ++kk) {
+    qa.a[kk][0] = ld32(&sQ[r0 + g][kk * 16 + 2 * t]);
+    qa.a[kk][1] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t]);
+    qa.a[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 2 * t + 8]);
+    qa.a[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t + 8]);
+  }
+  if constexpr (QFrags<D>::kTail) {
+    constexpr int c = QFrags<D>::kSteps * 16;
+    qa.tail[0] = ld32(&sQ[r0 + g][c + 2 * t]);
+    qa.tail[1] = ld32(&sQ[r0 + g + 8][c + 2 * t]);
   }
 }
 
@@ -135,8 +178,8 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4],
 // must call it (it fences with __syncthreads).
 template <int D, bool kWindowed>
 __device__ __forceinline__ void attend_tiles(
-    SoftmaxState<D>& st, const uint32_t (&qa)[D / 16][4],
-    __nv_bfloat16 (*sK)[D + 8], __nv_bfloat16 (*sV)[D + 8],
+    SoftmaxState<D>& st, const QFrags<D>& qa,
+    __nv_bfloat16 (*sK)[kRow<D>], __nv_bfloat16 (*sV)[kRow<D>],
     const __nv_bfloat16* kb, const __nv_bfloat16* vb, int kv_begin,
     int kv_end, int kv_len, int window, int row_a, int row_b, int g, int t) {
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kBlockKV) {
@@ -150,11 +193,15 @@ __device__ __forceinline__ void attend_tiles(
     for (int nt = 0; nt < kBlockKV / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < QFrags<D>::kSteps; ++kk) {
         uint32_t b[2];
         b[0] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t]);
         b[1] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t + 8]);
-        mma_16816(s[nt], qa[kk], b);
+        mma_16816(s[nt], qa.a[kk], b);
+      }
+      if constexpr (QFrags<D>::kTail) {
+        constexpr int c = QFrags<D>::kSteps * 16;
+        mma_1688(s[nt], qa.tail, ld32(&sK[nt * 8 + g][c + 2 * t]));
       }
     }
 
@@ -230,7 +277,8 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16, 32).
+// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16,
+// 32 and 88).
 // kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
 template <int D, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
@@ -239,9 +287,9 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int sq, int skv, int kv_len, int window) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][D + 8];
+  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][kRow<D>];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
@@ -258,7 +306,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
+  QFrags<D> qa;
   load_q_frags<D>(qa, sQ, r0, g, t);
 
   const int row_a = q0 + r0 + g;  // this thread's two rows
@@ -315,6 +363,12 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
       break;
     case 32:
       attn_fwd_kernel<32, kWindowed><<<grid, block, 0, st>>>(
+          qp, kp, vp, op, lp, sq, skv, kv_len, window);
+      break;
+    case 88:
+      // K1 only (V4's HunyuanDiT); K2 takes no d 88 (ops/_build.py)
+      if constexpr (kWindowed) return static_cast<int>(cudaErrorInvalidValue);
+      else attn_fwd_kernel<88, false><<<grid, block, 0, st>>>(
           qp, kp, vp, op, lp, sq, skv, kv_len, window);
       break;
     // d 64 runs the TMA + wgmma kernels (flash_fwd.cu, swa_fwd.cu): no

@@ -53,9 +53,14 @@
 // the consumer loop below, over every kv tile with the last one masked, is
 // K1's own.
 //
-// Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync
-// body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16, never a
-// fallback on failure. ea_flash_fwd_uses_sm90 tells the wrapper which ran.
+// Head dims 16 and 32 (the tiny test preset only) and 88 (V4's
+// HunyuanDiT: self-attention over 36,864 tokens at 512x512x144f, the text
+// cross pass over 77 + 256 tokens, the CLIP cross pass over 16) stay on the
+// mma.sync body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16,
+// never a fallback on failure. ea_flash_fwd_uses_sm90 tells the wrapper
+// which ran. At d 88 the mma.sync body reduces q k^T as five k16 steps and
+// one k8 step, so nothing is padded to 96 in memory; the TMA + wgmma
+// design at d 88 is later work.
 #include "fwd_sm90.cuh"
 
 namespace ea {

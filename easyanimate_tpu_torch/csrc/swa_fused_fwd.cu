@@ -77,9 +77,9 @@ swa_fused_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ gv,
                      __nv_bfloat16* __restrict__ o, int s, int sg,
                      int window) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][D + 8];
+  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][kRow<D>];
+  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][kRow<D>];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
@@ -91,7 +91,7 @@ swa_fused_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   load_tile<D, kBlockQ>(sQ, q + (size_t)bh * s * D, q0, s);
   __syncthreads();
   const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
+  QFrags<D> qa;
   load_q_frags<D>(qa, sQ, r0, g, t);
   const int row_a = q0 + r0 + g;
   const int row_b = row_a + 8;

@@ -13,10 +13,12 @@ directory's scheduler_config.json or the `scheduler` argument, as JAX's
 (:322-342). The block linears may be held quantized (W8A8 int8, or packed
 int4 computing as W4A8 or W4A16; ops/quant.py), as JAX's :268-301. The
 text stacks (load_text_encoders, JAX :154-213): V5.1's Qwen2-VL, V5's Bert
-+ mT5 dual stream and the single T5 / mT5 stream. Not ported, raising
-NotImplementedError with its ROADMAP queue 1 item: VAE chunk modes other
-than `cache_mag` (8). The pipeline gets the TeaCache polynomial of its
-model path, as JAX's does (:349-355).
++ mT5 dual stream and the single T5 / mT5 stream. The VAE's chunk mode is
+`cache_mag` or `slice_mag` (V4's); the others raise NotImplementedError
+with their ROADMAP queue 1 item (8). As JAX's, the loader builds the MMDiT
+only: a V4 transformer is built from its yaml (utils/config.py). The
+pipeline gets the TeaCache polynomial of its model path, as JAX's does
+(:349-355).
 """
 import dataclasses
 import os
@@ -92,17 +94,9 @@ VAE_CHUNK_FLAGS = (("cache_mag_vae", "cache_mag"), ("slice_mag_vae", "slice_mag"
                    ("slice_compression_vae", "slice_compression"))
 
 
-def check_vae_chunk_mode(mode: str) -> None:
-    if mode != "cache_mag":
-        raise NotImplementedError(
-            f"VAE chunk mode {mode!r}: only 'cache_mag' is ported (the other "
-            "chunk modes: ROADMAP queue 1 item 8)")
-
-
 def vae_config_from_json(cfg: dict, dtype: str = "bfloat16") -> MagvitVAEConfig:
     chunk_mode = next((mode for flag, mode in VAE_CHUNK_FLAGS if cfg.get(flag)),
                       "none")
-    check_vae_chunk_mode(chunk_mode)
     return MagvitVAEConfig(
         in_channels=cfg.get("in_channels", 3),
         out_channels=cfg.get("out_channels", 3),
@@ -124,9 +118,12 @@ def vae_config_from_json(cfg: dict, dtype: str = "bfloat16") -> MagvitVAEConfig:
         mini_batch_encoder=cfg.get("mini_batch_encoder", 4),
         mini_batch_decoder=cfg.get("mini_batch_decoder", 1),
         scaling_factor=cfg.get("scaling_factor", 0.7119),
+        chunk_mode=chunk_mode,
         # 4 latent frames per cache_mag decoder pass, JAX's serving default
-        # (the causal caches make the pass size irrelevant to the result)
-        decode_chunk_frames=cfg.get("decode_chunk_frames", 4),
+        # (the causal caches make the pass size irrelevant to the result;
+        # slice_mag's chunk is mini_batch_decoder whatever this is)
+        decode_chunk_frames=cfg.get("decode_chunk_frames",
+                                    4 if chunk_mode == "cache_mag" else None),
         tile_sample_min_size=cfg.get("tile_sample_min_size", 384),
         tile_overlap_factor=cfg.get("tile_overlap_factor", 0.25),
         dtype=dtype,

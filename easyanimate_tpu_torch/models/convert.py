@@ -16,6 +16,7 @@ safetensors reader and writer (utils/safetensors_io.py).
 """
 import json
 import os
+import re
 import warnings
 from typing import Dict, Mapping, Tuple
 
@@ -89,10 +90,24 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def hunyuan_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX's HunyuanTransformer3D params (the Flax tree, with or without its
+    "params" level; arrays or numpy) -> the port's state dict
+    (models/hunyuan.py): state_dict_from_flax's renames (Dense kernels
+    transposed, conv HWIO -> OIHW, the depthwise (2, 2, 1, C) compressions
+    to (C, 1, 2, 2), LayerNorm scale -> weight), `block{i}` -> `blocks.{i}`;
+    the self.param names (norm_q_scale, text_embedding_padding,
+    style_embedder, ...) are kept."""
+    params = params.get("params", params)
+    return {re.sub(r"^block(\d+)\.", r"blocks.\1.", k): v
+            for k, v in state_dict_from_flax(params).items()}
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator` (which must live on
-    the parameters' device): norm weights 1, biases 0, every other tensor
+    the parameters' device): norm weights 1 (a 1-D `weight`, or `*scale`
+    as V4's Flax-named norms are), biases 0, every other tensor
     N(0, 1/fan_in); a scalar (CLIP's logit_scale) keeps its value. Used to
     drive the full-size model with random weights built directly on the
     device, e.g. after `to_empty`."""
@@ -100,7 +115,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         if p.dim() == 0:
             continue
         if p.dim() == 1:
-            is_norm_weight = name.endswith("weight")  # 1-D weights are norms
+            is_norm_weight = name.endswith(("weight", "scale"))
             p.fill_(1.0 if is_norm_weight else 0.0)
         else:
             fan_in = p[0].numel()

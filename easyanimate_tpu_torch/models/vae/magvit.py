@@ -2,11 +2,14 @@
 
 Parity: easyanimate_tpu/models/vae/magvit.py (reference
 autoencoder_magvit.py:59-505, omnigen_enc_dec.py). Encoder + quant_conv and
-post_quant_conv + decoder, with the `cache_mag` chunk protocol (frame 0
-alone, then chunks that carry the causal conv caches: mini_batch_encoder
-pixel frames per encoder pass) and the even-cover spatial tiling, and the
-diagonal Gaussian's mode, sample and KL. The other chunk modes and seam
-smoothing are not ported.
+post_quant_conv + decoder, with two chunk protocols: `cache_mag` (V5,
+V5.1: frame 0 alone, then chunks that carry the causal conv caches,
+mini_batch_encoder pixel frames per encoder pass) and `slice_mag` (V4:
+independent chunks of mini_batch_encoder pixel or mini_batch_decoder latent
+frames, each starting its causal convs afresh); the even-cover spatial
+tiling; `smooth_output`, the slice modes' chunk-seam blend; and the
+diagonal Gaussian's mode, sample and KL. The compression modes and `cog`
+are not ported (ROADMAP queue 1 item 8).
 
 encode_chunk and decode_chunk are differentiable (the VAE trainer,
 training/vae_trainer.py, takes their gradients with cache=None): no layer
@@ -22,6 +25,8 @@ from torch import nn
 from ...device import resolve_device
 from .blocks import DownBlock3D, MidBlock3D, UpBlock3D, _sub
 from .layers import CausalConv3d, Conv1x1x1, GroupNorm
+
+CHUNK_MODES = ("cache_mag", "slice_mag")
 
 _DOWN_KIND = {
     "SpatialDownBlock3D": "spatial",
@@ -67,9 +72,17 @@ class MagvitVAEConfig:
     # mini_batch_decoder
     decode_chunk_frames: Optional[int] = None
     scaling_factor: float = 0.7119
+    # 'cache_mag' (V5, V5.1) or 'slice_mag' (V4); the others raise
+    chunk_mode: str = "cache_mag"
     tile_sample_min_size: int = 384
     tile_overlap_factor: float = 0.25
     dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.chunk_mode not in CHUNK_MODES:
+            raise NotImplementedError(
+                f"VAE chunk mode {self.chunk_mode!r}: only {CHUNK_MODES} are "
+                "ported (the other chunk modes: ROADMAP queue 1 item 8)")
 
     @property
     def temporal_compression(self) -> int:
@@ -184,11 +197,28 @@ def _chunked_apply(apply_fn: Callable, x: torch.Tensor, chunk: int):
     return torch.cat(outs, dim=2)
 
 
+def _slice_apply(apply_fn: Callable, x: torch.Tensor, chunk: int):
+    """slice_mag protocol: independent chunks of `chunk` frames, each a
+    fresh start of the causal convs (replicate-padded)."""
+    return torch.cat([apply_fn(x[:, :, i:i + chunk], None)[0]
+                      for i in range(0, x.shape[2], chunk)], dim=2)
+
+
+def _run_chunks(vae: AutoencoderKLMagvit, apply_fn: Callable,
+                x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """`apply_fn` over x in the VAE's chunk protocol."""
+    if vae.cfg.chunk_mode == "slice_mag":
+        return _slice_apply(apply_fn, x, chunk)
+    return _chunked_apply(apply_fn, x, chunk)
+
+
 def vae_encode(vae: AutoencoderKLMagvit, video: torch.Tensor) -> torch.Tensor:
     """video (B, C, T, H, W) in [-1, 1] -> moments (B, 2 * latent, T', H',
-    W'), mean and logvar concatenated on C; frame 0 alone, then chunks of
-    mini_batch_encoder frames (T = mini_batch_encoder * k + 1)."""
-    return _chunked_apply(vae.encode_chunk, video, vae.cfg.mini_batch_encoder)
+    W'), mean and logvar concatenated on C. cache_mag: frame 0 alone, then
+    chunks of mini_batch_encoder frames (T = mini_batch_encoder * k + 1);
+    slice_mag: independent chunks of mini_batch_encoder frames."""
+    return _run_chunks(vae, vae.encode_chunk, video,
+                       vae.cfg.mini_batch_encoder)
 
 
 def gaussian_mode(moments: torch.Tensor) -> torch.Tensor:
@@ -219,13 +249,18 @@ def gaussian_kl(moments: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_chunk_frames(cfg: MagvitVAEConfig) -> int:
+    """Latent frames per decoder pass: decode_chunk_frames under the cache
+    protocol, where the pass size does not change the result; slice_mag's
+    independent chunks are mini_batch_decoder frames, a size that does."""
+    if cfg.chunk_mode == "slice_mag":
+        return cfg.mini_batch_decoder
     return cfg.decode_chunk_frames or cfg.mini_batch_decoder
 
 
 def vae_decode(vae: AutoencoderKLMagvit, latents: torch.Tensor) -> torch.Tensor:
     """latents (B, C, T, H, W) -> pixels in [-1, 1] (no scaling_factor)."""
-    return _chunked_apply(vae.decode_chunk, latents,
-                          _decode_chunk_frames(vae.cfg))
+    return _run_chunks(vae, vae.decode_chunk, latents,
+                       _decode_chunk_frames(vae.cfg))
 
 
 def _blend_v(a, b, extent):
@@ -308,11 +343,34 @@ def vae_decode_tiled(vae: AutoencoderKLMagvit,
     tile_out = cfg.tile_sample_min_size
     tile_in = tile_out // cfg.spatial_compression
     chunk = _decode_chunk_frames(cfg)
-    return _tiled(lambda z: _chunked_apply(vae.decode_chunk, z, chunk),
+    return _tiled(lambda z: _run_chunks(vae, vae.decode_chunk, z, chunk),
                   latents, tile_in, tile_out, cfg.tile_overlap_factor)
 
 
+def smooth_output(vae: AutoencoderKLMagvit, video: torch.Tensor
+                  ) -> torch.Tensor:
+    """Chunk-seam smoothing of a slice-mode decode (JAX magvit.py:593-614,
+    reference pipeline_easyanimate.py:706-742): the video without its
+    first mini_batch_encoder // 2 and last mini_batch_encoder - that many
+    frames is encoded (mode) and decoded again, so its chunks straddle the
+    first pass's seams, and averaged into those frames. As in JAX the
+    re-decode broadcasts when it comes back one frame long, and a re-decode
+    of another length raises."""
+    mbe = vae.cfg.mini_batch_encoder
+    if video.shape[2] <= mbe:
+        return video
+    before, after = mbe // 2, mbe - mbe // 2
+    middle = video[:, :, before:-after]
+    redec = vae_decode(vae, gaussian_mode(vae_encode(vae, middle)))
+    return torch.cat([video[:, :, :before], (middle + redec) / 2,
+                      video[:, :, -after:]], dim=2)
+
+
 def latent_frame_count(pixel_frames: int, cfg: MagvitVAEConfig) -> int:
-    """cache_mag frame remap (pipeline_easyanimate.py:677-688)."""
+    """The frame remap (pipeline_easyanimate.py:677-688): cache_mag,
+    (f - 1) // mini_batch_encoder * mini_batch_decoder + 1; slice_mag,
+    f // temporal_compression."""
+    if cfg.chunk_mode == "slice_mag":
+        return pixel_frames // cfg.temporal_compression
     return ((pixel_frames - 1) // cfg.mini_batch_encoder
             * cfg.mini_batch_decoder + 1)

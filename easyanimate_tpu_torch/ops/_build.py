@@ -28,6 +28,16 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 HEAD_DIMS = (16, 32, 64)
+# the attention kernels by the names their input checks raise with, and
+# the head dims each has an instance for: K1's forward also takes 88 (V4's
+# HunyuanDiT, on the mma.sync body of csrc/attn_fwd.cuh)
+K1 = "K1 (ea_flash_fwd_bf16)"
+K2 = "K2 (ea_swa_fwd_bf16)"
+K3_K4 = "K3 and K4 (ea_flash_bwd_dq_bf16, ea_flash_bwd_dkv_bf16)"
+K5 = "K5 (ea_swa_fused_fwd_bf16)"
+K6_K7 = "K6 and K7 (ea_swa_bwd_dq_bf16, ea_swa_bwd_dkv_bf16)"
+KERNEL_HEAD_DIMS = {K1: HEAD_DIMS + (88,), K2: HEAD_DIMS, K3_K4: HEAD_DIMS,
+                    K5: HEAD_DIMS, K6_K7: HEAD_DIMS}
 
 # csrc/hopper.cuh::kTensorMapError: an entry point returns it plus the
 # CUresult when cuTensorMapEncodeTiled refuses a tensor map
@@ -202,18 +212,21 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check_kernel_inputs(*tensors: torch.Tensor) -> None:
+def check_kernel_inputs(*tensors: torch.Tensor, kernel: str) -> None:
     """The hand kernels take contiguous, 16-byte aligned bf16 CUDA tensors
-    [bh, S, d] with d in HEAD_DIMS, all on one device; raise otherwise."""
+    [bh, S, d], all on one device, with d in `kernel`'s set of
+    KERNEL_HEAD_DIMS; raise otherwise, naming the kernel."""
+    dims = KERNEL_HEAD_DIMS[kernel]
     dev = tensors[0].device
     for x in tensors:
         if not x.is_cuda or x.device != dev:
             raise ValueError(f"kernel input on {x.device}, expected {dev} (CUDA)")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"kernel input dtype {x.dtype}, expected bfloat16")
-        if x.dim() != 3 or x.shape[-1] not in HEAD_DIMS:
-            raise ValueError(f"kernel input shape {tuple(x.shape)}: expected "
-                             f"[bh, S, d] with d in {HEAD_DIMS}")
+        if x.dim() != 3 or x.shape[-1] not in dims:
+            raise ValueError(f"{kernel} input shape "
+                             f"{tuple(x.shape)}: expected [bh, S, d] with d "
+                             f"in {dims}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("kernel input must be contiguous and 16-byte aligned")
 

@@ -62,16 +62,17 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     """Non-causal attention over pre-scaled q [bh, Sq, d] and k, v
     [bh, Skv, d] -> (o [bh, Sq, d], lse2 [bh, Sq, 1] float32).
 
-    A CUDA tensor launches K1 (bf16, d in 16/32/64, contiguous) or raises; a
-    CPU tensor takes flash_attention_plain. `flash_attention_fwd.launches`
-    counts kernel launches, `.launches_sm90` those that ran the TMA + wgmma
-    kernel (d 64; d 16 and 32 run the mma.sync one)."""
+    A CUDA tensor launches K1 (bf16, d in 16/32/64/88, contiguous) or
+    raises; a CPU tensor takes flash_attention_plain.
+    `flash_attention_fwd.launches` counts kernel launches, `.launches_sm90`
+    those that ran the TMA + wgmma kernel (d 64; d 16, 32 and 88 run the
+    mma.sync one)."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
     if qf.device.type == "cpu":
         return flash_attention_plain(qf, kf, vf, kv_valid)
-    _build.check_kernel_inputs(qf, kf, vf)
+    _build.check_kernel_inputs(qf, kf, vf, kernel=_build.K1)
     if kf.shape != vf.shape or kf.shape[0] != bh or kf.shape[2] != d:
         raise ValueError(f"shapes q {tuple(qf.shape)} k {tuple(kf.shape)} "
                          f"v {tuple(vf.shape)}")
@@ -134,7 +135,8 @@ def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 
     A CUDA tensor launches K3 (dq) then K4 (dk, dv), or raises: every
     tensor contiguous (a caller with a strided do makes it contiguous
-    first), bf16 except the float32 lse. A CPU tensor takes
+    first), bf16 except the float32 lse, d in 16/32/64 (K3 and K4 have no
+    d 88 instance: the JAX package trains no V4). A CPU tensor takes
     flash_attention_bwd_plain. `flash_attention_bwd.launches` counts calls
     that launched the pair, `.launches_sm90` those in which both ran their
     TMA + wgmma kernels (d 64; d 16 and 32 run the mma.sync ones)."""
@@ -143,7 +145,7 @@ def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     kv_valid = _kv_valid(kf, kv_valid)
     if qf.device.type == "cpu":
         return flash_attention_bwd_plain(qf, kf, vf, o, lse, do, kv_valid)
-    _build.check_kernel_inputs(qf, kf, vf, o, do)
+    _build.check_kernel_inputs(qf, kf, vf, o, do, kernel=_build.K3_K4)
     _build.check_row_stats(lse, qf)
     if (kf.shape != vf.shape or kf.shape[0] != bh or kf.shape[2] != d
             or o.shape != qf.shape or do.shape != qf.shape):

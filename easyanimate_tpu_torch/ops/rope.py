@@ -1,7 +1,8 @@
 """Rotary position embeddings for the video tokens.
 
 Parity: easyanimate_tpu/ops/rope.py (diffusers get_3d_rotary_pos_embed as
-used by pipeline_easyanimate.py:998-1019). The tables are built on the host
+used by pipeline_easyanimate.py:998-1019, and get_2d_rotary_pos_embed, V4's
+single-frame tables). The tables are built on the host
 in numpy; `apply_rotary_emb` is the interleaved form -- pairs (x0, x1)
 rotate to (x0 cos - x1 sin, x1 cos + x0 sin) -- on q and k kept in the
 reference feature order.
@@ -40,6 +41,27 @@ def get_1d_rotary_pos_embed(dim: int, pos: np.ndarray, theta: float = 10000.0
     cos = np.repeat(np.cos(angles), 2, axis=1).astype(np.float32)
     sin = np.repeat(np.sin(angles), 2, axis=1).astype(np.float32)
     return cos, sin
+
+
+def get_2d_rotary_pos_embed(embed_dim: int, crops_coords,
+                            grid_size: Tuple[int, int], theta: float = 10000.0
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """2D RoPE over an (h, w) grid, the features split half and half between
+    the axes (h first). Returns (cos, sin), each [h*w, embed_dim] float32."""
+    (top, left), (bottom, right) = crops_coords
+    gh, gw = grid_size
+    grid_h = np.linspace(top, bottom, gh, endpoint=False, dtype=np.float32)
+    grid_w = np.linspace(left, right, gw, endpoint=False, dtype=np.float32)
+    h_cs = get_1d_rotary_pos_embed(embed_dim // 2, grid_h, theta)
+    w_cs = get_1d_rotary_pos_embed(embed_dim // 2, grid_w, theta)
+
+    def combine(hp, wp):
+        return np.concatenate([
+            np.broadcast_to(hp[:, None, :], (gh, gw, hp.shape[-1])),
+            np.broadcast_to(wp[None, :, :], (gh, gw, wp.shape[-1])),
+        ], axis=-1).reshape(gh * gw, -1)
+
+    return combine(h_cs[0], w_cs[0]), combine(h_cs[1], w_cs[1])
 
 
 def get_3d_rotary_pos_embed(embed_dim: int, crops_coords,

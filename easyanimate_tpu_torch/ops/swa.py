@@ -85,7 +85,7 @@ def sliding_window_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
         raise ValueError(f"window {window} < 0")
     if qf.device.type == "cpu":
         return sliding_window_plain(qf, kf, vf, window)
-    _build.check_kernel_inputs(qf, kf, vf)
+    _build.check_kernel_inputs(qf, kf, vf, kernel=_build.K2)
     if not qf.shape == kf.shape == vf.shape:
         raise ValueError(f"shapes q {tuple(qf.shape)} k {tuple(kf.shape)} "
                          f"v {tuple(vf.shape)}")
@@ -154,7 +154,7 @@ def sliding_window_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
         raise ValueError(f"window {window} < 0")
     if qf.device.type == "cpu":
         return sliding_window_bwd_plain(qf, kf, vf, o, lse, do, window)
-    _build.check_kernel_inputs(qf, kf, vf, o, do)
+    _build.check_kernel_inputs(qf, kf, vf, o, do, kernel=_build.K6_K7)
     _build.check_row_stats(lse, qf)
     if not qf.shape == kf.shape == vf.shape == o.shape == do.shape:
         raise ValueError(f"shapes q {tuple(qf.shape)} k {tuple(kf.shape)} "
@@ -243,7 +243,7 @@ def swa_local_global_fwd(qf: torch.Tensor, kf: torch.Tensor,
         raise ValueError(f"window {window} < 0")
     if qf.device.type == "cpu":
         return swa_local_global_plain(qf, kf, vf, gk, gv, window)
-    _build.check_kernel_inputs(qf, kf, vf, gk, gv)
+    _build.check_kernel_inputs(qf, kf, vf, gk, gv, kernel=_build.K5)
     bh, n, d = qf.shape
     if (not qf.shape == kf.shape == vf.shape or gk.shape != gv.shape
             or gk.shape[0] != bh or gk.shape[2] != d or gk.shape[1] < 1):

@@ -15,9 +15,11 @@ pipeline_easyanimate_inpaint.py):
     video latents noised for the sampler (JAX :175-192): flow matching
     (1 - sigma0) video + sigma0 noise, Euler video + sigma0 noise, the
     alpha-space samplers ddim_add_noise at the integer t0;
-  - without a video an inpaint model runs T2V on zero mask and latents.
-The V4 CLIP-image branch (clip_apply_ratio) is not ported: it waits with
-V4 (ROADMAP queue 1 item 11).
+  - without a video an inpaint model runs T2V on zero mask and latents;
+  - V4's CLIP-image branch (JAX :163-173): the CLIP patch states and their
+    mask (ones by default) ride in `cond`, zeros for the unconditional half
+    under CFG, and the loop zeroes both until step (1 - clip_apply_ratio)
+    * n (t2v.py's _denoise, JAX t2v.py:305-315).
 """
 from typing import Optional, Sequence, Tuple
 
@@ -106,6 +108,9 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
                  teacache_threshold: Optional[float] = None,
                  cfg_split: bool = False,
                  cfg_skip_ratio: Optional[float] = None,
+                 clip_encoder_hidden_states: Optional[torch.Tensor] = None,
+                 clip_attention_mask: Optional[torch.Tensor] = None,
+                 clip_apply_ratio: float = 0.40,
                  callback: Callback = None):
         """video (B, 3, T, H, W) in [0, 1] and mask_video (B, 1, T, H, W),
         1 = generate (numpy or tensors, e.g. from
@@ -114,7 +119,9 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
         (unit variance); `generator` draws it and the noise augmentation
         otherwise. The serving knobs and V5's prompt_embeds_t5 are
         EasyAnimatePipeline's (JAX :84-85, :197-214); the CFG-doubled
-        inpaint_latents are halved as the text is."""
+        inpaint_latents are halved as the text is. V4's CLIP states
+        (B, N, 1024) and mask (B, n_query) open at step (1 -
+        clip_apply_ratio) * n."""
         _check_output_type(output_type)
         cfg, vcfg = self.transformer.cfg, self.vae.cfg
         dev = self.device
@@ -168,7 +175,8 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
                                            device=dev)
             elif cfg.resize_inpaint_mask_directly:
                 mask_latents = resize_mask_to_latent(
-                    1.0 - mask_video, shape, True) * vcfg.scaling_factor
+                    1.0 - mask_video, shape, vcfg.chunk_mode == "cache_mag"
+                ) * vcfg.scaling_factor
             else:
                 pix = (2.0 * (1.0 - mask_video) - 1.0).expand(
                     -1, 3, -1, -1, -1).to(vcfg.torch_dtype)
@@ -178,6 +186,17 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
             if guidance_scale > 1.0:
                 inpaint = torch.cat([inpaint, inpaint])
             cond["inpaint_latents"] = inpaint
+        if clip_encoder_hidden_states is not None:
+            clip = torch.as_tensor(clip_encoder_hidden_states, device=dev)
+            cmask = (torch.ones((shape[0], getattr(cfg, "n_query", 16)),
+                                device=dev)
+                     if clip_attention_mask is None else
+                     torch.as_tensor(clip_attention_mask, device=dev))
+            if guidance_scale > 1.0:  # the unconditional half sees none
+                clip = torch.cat([torch.zeros_like(clip), clip])
+                cmask = torch.cat([torch.zeros_like(cmask), cmask])
+            cond["clip_encoder_hidden_states"] = clip.to(cfg.torch_dtype)
+            cond["clip_attention_mask"] = cmask
 
         if is_strength_max or video_latents is None:
             latents = noise * init_noise_sigma(self.scheduler,
@@ -192,5 +211,8 @@ class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
             height, width, num_inference_steps, guidance_scale,
             guidance_rescale, cond=cond, t_start=t_start, callback=callback,
             teacache_threshold=teacache_threshold, cfg_split=cfg_split,
-            cfg_skip_ratio=cfg_skip_ratio, generator=generator)
+            cfg_skip_ratio=cfg_skip_ratio, generator=generator,
+            clip_apply_ratio=(clip_apply_ratio
+                              if clip_encoder_hidden_states is not None
+                              else None))
         return self._output(latents, output_type, decode)

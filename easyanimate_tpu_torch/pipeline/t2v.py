@@ -20,7 +20,11 @@ beside the next chunk (`decode_latents_overlapped`). The loop steps with
 the pipeline's `scheduler`, any of the six samplers (schedulers.py, JAX
 :365-440): Euler's model input is scaled first, PNDM and DPM++ carry their
 state across steps, Euler-A draws its step noise from the request's
-generator. `smooth_output` is not ported (ROADMAP queue 1 item 8).
+generator. The transformer is the MMDiT (V5, V5.1) or V4's HunyuanDiT
+(models/hunyuan.py: its 2D RoPE from build_rope, its learned-sigma half
+dropped from the prediction, no TeaCache polynomial, as in JAX); a
+slice-mode VAE (V4's `slice_mag`) blends its chunk seams with
+`smooth_output` by default (JAX :499-534).
 """
 from typing import Callable, Dict, Optional, Tuple
 
@@ -28,10 +32,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.mmdit import EasyAnimateTransformer3D, MMDiTConfig
+from ..models.mmdit import EasyAnimateTransformer3D
 from ..models.vae.magvit import (AutoencoderKLMagvit, latent_frame_count,
-                                 vae_decode, vae_decode_tiled)
-from ..ops.rope import get_3d_rotary_pos_embed, get_resize_crop_region_for_grid
+                                 smooth_output, vae_decode, vae_decode_tiled)
+from ..ops.rope import (get_2d_rotary_pos_embed, get_3d_rotary_pos_embed,
+                        get_resize_crop_region_for_grid)
 from ..utils.transfer import HostCopy
 from .schedulers import (FlowMatchEulerConfig, SamplerLoop, init_noise_sigma,
                          rescale_noise_cfg)
@@ -86,18 +91,27 @@ def _cfg_half(a, i: int, b: int):
     return a[i * b:(i + 1) * b]
 
 
-def build_rope(cfg: MMDiTConfig, height: int, width: int, latent_frames: int,
+def build_rope(cfg, height: int, width: int, latent_frames: int,
                vae_scale: Optional[int] = None, device=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """3D RoPE tables (cos, sin) [T*h*w, head_dim] float32 for a
-    (height, width, frames) generation (pipeline_easyanimate.py:998-1019),
-    on `device` (the card by default)."""
+    """RoPE tables (cos, sin) float32 for a (height, width, frames)
+    generation (pipeline_easyanimate.py:998-1019), on `device` (the card by
+    default): the MMDiT's 3D tables [T*h*w, head_dim] from the 720x480 base
+    grid, or for V4's `2d_rope` (HunyuanConfig) single-frame tables
+    [h*w, head_dim] from a 512x512 base, which the blocks tile over the
+    frames (JAX t2v.py:117-122)."""
     s = (vae_scale or cfg.vae_scale_factor) * cfg.patch_size
     gh, gw = height // s, width // s
-    crop = get_resize_crop_region_for_grid(
-        (gh, gw), cfg.rope_base_width // s, cfg.rope_base_height // s)
-    cos, sin = get_3d_rotary_pos_embed(cfg.attention_head_dim, crop, (gh, gw),
-                                       latent_frames)
+    if cfg.time_position_encoding_type == "3d_rope":
+        crop = get_resize_crop_region_for_grid(
+            (gh, gw), cfg.rope_base_width // s, cfg.rope_base_height // s)
+        cos, sin = get_3d_rotary_pos_embed(cfg.attention_head_dim, crop,
+                                           (gh, gw), latent_frames)
+    else:
+        base = 512 // s
+        crop = get_resize_crop_region_for_grid((gh, gw), base, base)
+        cos, sin = get_2d_rotary_pos_embed(cfg.attention_head_dim, crop,
+                                           (gh, gw))
     device = resolve_device(device)
     return (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
 
@@ -135,8 +149,12 @@ class EasyAnimatePipeline:
         # any sampler config of schedulers.py (make_scheduler switches it)
         self.scheduler = scheduler
         # the loader sets this from the checkpoint's path
-        # (get_teacache_coefficients); None turns TeaCache off
-        self.teacache_coefficients = TEACACHE_COEFFICIENTS
+        # (get_teacache_coefficients); None turns TeaCache off, as for V4's
+        # HunyuanDiT, which has no polynomial (and no embed / backbone
+        # split to gate)
+        self.teacache_coefficients = (
+            TEACACHE_COEFFICIENTS
+            if isinstance(transformer, EasyAnimateTransformer3D) else None)
         # steps the TeaCache gate skipped in the last run (None without it)
         self.last_teacache_skips: Optional[int] = None
         self._teacache_warned = False
@@ -235,12 +253,15 @@ class EasyAnimatePipeline:
                  teacache_threshold: Optional[float] = None,
                  cfg_split: bool = False,
                  cfg_skip_ratio: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 clip_apply_ratio: Optional[float] = None) -> torch.Tensor:
         """The sampler's loop from step t_start on (JAX _denoise_fn): each
         step runs the transformer on the CFG batch with `cond` (keyword
         arguments of the transformer, already CFG-batched), combines the
         halves and steps the latents with self.scheduler. `generator` draws
-        Euler-A's step noise. callback(i, latents) after each."""
+        Euler-A's step noise. With clip_apply_ratio, cond's CLIP states and
+        mask are zeros before step (1 - ratio) * n (V4's I2V, JAX
+        :305-315). callback(i, latents) after each."""
         do_cfg = guidance_scale > 1.0
         latent_channels = self.vae.cfg.latent_channels
         rope = build_rope(self.transformer.cfg, height, width,
@@ -264,6 +285,10 @@ class EasyAnimatePipeline:
         m = n
         if do_cfg and cfg_skip_ratio:
             m = n - min(n, max(0, int(round(cfg_skip_ratio * n))))
+        # the CLIP gate's first open step, compared in float32 as JAX's
+        # step column is
+        clip_open = (None if clip_apply_ratio is None
+                     else float(np.float32((1.0 - clip_apply_ratio) * n)))
         for i in range(n):
             t, lat_model = sampler.timestep(i), sampler.model_input(i, latents)
             use_cfg = do_cfg and i < m
@@ -272,9 +297,17 @@ class EasyAnimatePipeline:
                 cond = {k: _cfg_half(v, 1, b) for k, v in cond.items()}
                 if tea is not None:
                     tea.keep_cond_half(b)
+            step_cond = cond
+            if (clip_open is not None and i < clip_open
+                    and "clip_encoder_hidden_states" in cond):
+                step_cond = dict(cond, **{
+                    k: torch.zeros_like(cond[k])
+                    for k in ("clip_encoder_hidden_states",
+                              "clip_attention_mask")})
             if tea is not None:
-                pred = self._teacache_forward(lat_model, t, txt, rope, cond,
-                                              use_cfg, tea, i, n, threshold)
+                pred = self._teacache_forward(lat_model, t, txt, rope,
+                                              step_cond, use_cfg, tea, i, n,
+                                              threshold)
             elif use_cfg and cfg_split:
                 # uncond and cond halves one after the other: the same
                 # math at about half the activation peak
@@ -282,14 +315,14 @@ class EasyAnimatePipeline:
                                    device=self.device)
                 pred = torch.cat([self.transformer(
                     lat_model, t_vec, _cfg_half(txt, h, b), rope,
-                    **{k: _cfg_half(v, h, b) for k, v in cond.items()})
+                    **{k: _cfg_half(v, h, b) for k, v in step_cond.items()})
                     for h in (0, 1)])
             else:
                 lat_in = (torch.cat([lat_model, lat_model]) if use_cfg
                           else lat_model)
                 t_vec = torch.full((lat_in.shape[0],), t,
                                    dtype=torch.float32, device=self.device)
-                pred = self.transformer(lat_in, t_vec, txt, rope, **cond)
+                pred = self.transformer(lat_in, t_vec, txt, rope, **step_cond)
             pred = pred[:, :latent_channels]  # drop a learned-sigma half
             if use_cfg:
                 uncond, text = pred.chunk(2)
@@ -339,26 +372,27 @@ class EasyAnimatePipeline:
 
     def smooth_default(self) -> bool:
         """The reference blends chunk seams only for the slice chunk modes
-        (pipeline_easyanimate.py:729-731); `cache_mag`, the port's one
-        mode, carries causal caches across chunks and has no seams."""
-        return False
+        (pipeline_easyanimate.py:729-731): on for `slice_mag`; `cache_mag`
+        carries causal caches across chunks and has no seams."""
+        return self.vae.cfg.chunk_mode == "slice_mag"
 
     def _decode_video(self, latents: torch.Tensor,
                       smooth: Optional[bool]) -> torch.Tensor:
         """latents -> float video (B, C, T, H, W) in [0, 1] on the device.
         Spatial tiling engages when the latent is wider or taller than
-        tile_sample_min_size pixels."""
+        tile_sample_min_size pixels. `smooth` (None: smooth_default) runs
+        smooth_output between two clamps to [-1, 1] when the decode is not
+        tiled and there is more than one latent frame (JAX :515-556)."""
         cfg = self.vae.cfg
         tiled = max(latents.shape[-2:]) > (cfg.tile_sample_min_size
                                            // cfg.spatial_compression)
         if smooth is None:
             smooth = self.smooth_default()
-        if smooth and not tiled and latents.shape[2] > 1:
-            raise NotImplementedError(
-                "smooth=True: smooth_output (chunk seam blending) is not "
-                "ported (ROADMAP queue 1 item 8)")
         lat = (latents.float() / cfg.scaling_factor).to(cfg.torch_dtype)
         video = (vae_decode_tiled if tiled else vae_decode)(self.vae, lat)
+        if smooth and not tiled and latents.shape[2] > 1:
+            video = smooth_output(self.vae, video.clamp(-1.0, 1.0))
+            video = video.clamp(-1.0, 1.0)
         return (video.float() / 2 + 0.5).clamp(0.0, 1.0)
 
     @torch.inference_mode()
@@ -394,8 +428,9 @@ class EasyAnimatePipeline:
         it runs beside the later chunks' decode. Equal to the untiled
         decode (vae_decode) with the same decode_chunk_frames: the causal
         cache threads the exact conv state. Untiled: at the published sizes
-        a chunk's activations fit beside the resident transformer."""
-        if latents.shape[2] == 1:
+        a chunk's activations fit beside the resident transformer. Another
+        chunk mode (or one latent frame) takes decode_latents, as in JAX."""
+        if self.vae.cfg.chunk_mode != "cache_mag" or latents.shape[2] == 1:
             return self.decode_latents(latents, to_uint8=to_uint8)
         cfg = self.vae.cfg
         chunk = cfg.decode_chunk_frames or cfg.mini_batch_decoder

@@ -418,8 +418,9 @@ def _adopt_state(state, transformer, lora: bool) -> None:
 
 def _shape_batch(args, loaded, vae_cfg, rng):
     """Token-length batch shaping (reference train.py:1677-1768): tile
-    small batches, randomly crop frames, equalize token lengths. The port's
-    MagViT is always cache_mag."""
+    small batches, randomly crop frames, equalize token lengths. Frame
+    counts follow the VAE's chunk mode (mini_batch_encoder * k + 1 for
+    cache_mag)."""
     pixels = loaded["pixel_values"]  # (B, C, T, H, W) float in [0,1]
     b, c, t, h, w = pixels.shape
     interval = getattr(vae_cfg, "mini_batch_encoder", 4)

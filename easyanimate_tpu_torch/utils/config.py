@@ -2,18 +2,20 @@
 
 Parity: easyanimate_tpu/utils/config.py (the reference's OmegaConf yamls,
 config/*.yaml, with transformer_additional_kwargs / vae_kwargs consumed at
-train.py:944-1036 and predict_*.py:91-141). The V5 and V5.1 types are
-ported: EasyAnimateTransformer3DModel (V5's yaml sets its two text streams,
-config/easyanimate_video_v5_magvit_multi_text_encoder.yaml:3-8) and
-AutoencoderKLMagvit with the `cache_mag` chunk mode. The legacy
-transformers and the other VAEs raise (ROADMAP queue 1 item 11), as do the
-other chunk modes (item 8). `yaml` is imported inside load_yaml_config
-only.
+train.py:944-1036 and predict_*.py:91-141). Ported: the V5 and V5.1 type
+EasyAnimateTransformer3DModel (V5's yaml sets its two text streams,
+config/easyanimate_video_v5_magvit_multi_text_encoder.yaml:3-8), V4's
+HunyuanTransformer3DModel (config/easyanimate_video_v4_slicevae_multi_
+text_encoder.yaml) and AutoencoderKLMagvit in the `cache_mag` and
+`slice_mag` chunk modes. The V1-V3 transformer and the other VAEs raise
+(ROADMAP queue 1 item 11.b), as do the other chunk modes (item 8). `yaml`
+is imported inside load_yaml_config only.
 """
 import dataclasses
 from typing import Any, Dict
 
-from ..loader import VAE_CHUNK_FLAGS, check_vae_chunk_mode
+from ..loader import VAE_CHUNK_FLAGS
+from ..models.hunyuan import HunyuanConfig, HunyuanTransformer3D
 from ..models.mmdit import EasyAnimateTransformer3D, MMDiTConfig
 from ..models.vae import AutoencoderKLMagvit, MagvitVAEConfig
 
@@ -40,9 +42,12 @@ def build_transformer(config: Dict[str, Any], dtype: str = "bfloat16",
     if t_type == "EasyAnimateTransformer3DModel":
         cfg = MMDiTConfig(dtype=dtype, **_filter_fields(MMDiTConfig, kw))
         return EasyAnimateTransformer3D(cfg, device=device), cfg
-    if t_type in ("HunyuanTransformer3DModel", "Transformer3DModel"):
-        raise NotImplementedError(f"transformer_type {t_type!r} (V1-V4) is "
-                                  "not ported (ROADMAP queue 1 item 11)")
+    if t_type == "HunyuanTransformer3DModel":
+        cfg = HunyuanConfig(dtype=dtype, **_filter_fields(HunyuanConfig, kw))
+        return HunyuanTransformer3D(cfg, device=device), cfg
+    if t_type == "Transformer3DModel":
+        raise NotImplementedError(f"transformer_type {t_type!r} (V1-V3) is "
+                                  "not ported (ROADMAP queue 1 item 11.b)")
     raise ValueError(f"unknown transformer_type {t_type}")
 
 
@@ -59,11 +64,10 @@ def build_vae(config: Dict[str, Any], dtype: str = "float32", device=None,
             if kw.pop(flag, False):
                 kw["chunk_mode"] = mode
     if v_type == "AutoencoderKLMagvit":
-        check_vae_chunk_mode(kw.get("chunk_mode", "cache_mag"))
         cfg = MagvitVAEConfig(dtype=dtype,
                               **_filter_fields(MagvitVAEConfig, kw))
         return AutoencoderKLMagvit(cfg, device=device), cfg
     if v_type in ("AutoencoderKL", "AutoencoderKLCogVideoX"):
         raise NotImplementedError(f"vae_type {v_type!r} is not ported "
-                                  "(ROADMAP queue 1 item 11)")
+                                  "(ROADMAP queue 1 item 11.b)")
     raise ValueError(f"unknown vae_type {v_type}")

@@ -1,6 +1,6 @@
-"""The port's hand-written CUDA kernels (forward K1/K2/K5, backward K3/K4
-and K6/K7, and the quantized linears' Q1-Q3) against their plain PyTorch
-versions, on the card. Every test here needs a CUDA device and nvcc, and
+"""The port's hand-written CUDA kernels (forward K1/K2/K5, K1 also at V4's
+head dim 88, backward K3/K4 and K6/K7, and the quantized linears' Q1-Q3)
+against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
 skips without one; the CPU tests (test_torch_ops.py) hold the plain versions
 against the JAX package.
 
@@ -38,7 +38,13 @@ def cuda_device():
     # exactly one tile; kv_valid inside the last kv tile; kv_valid on a
     # tile boundary with rows past it; one q row; the SWA cross pass cut
     (128, 128, 128, 64), (129, 257, 200, 64), (300, 1100, 1024, 64),
-    (1, 300, 300, 64), (1337, 1027, 1027, 64)])
+    (1, 300, 300, 64), (1337, 1027, 1027, 64),
+    # d 88 (V4) runs the mma.sync body (64 q rows x 64 kv rows a tile,
+    # q k^T as five k16 steps and one k8 step): the text cross pass's 333
+    # keys; kv_valid inside the last kv tile; the CLIP pass's 16 keys, fewer
+    # than one tile; one q row; a self-attention block of 1,000 rows
+    (200, 333, 333, 88), (129, 257, 200, 88), (1000, 16, 16, 88),
+    (1, 100, 100, 88), (1000, 1000, 1000, 88)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(4, n, d, generator=g, device=cuda_device
@@ -105,6 +111,28 @@ def test_swa_kernel_masks_pad_rows_at_deep_scores_on_card(cuda_device):
     o_p, lse_p = tswa.sliding_window_plain(q, k, v, window)
     _close(o.float(), o_p.float(), 2e-2)
     _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_head_dim_88_by_name_on_card(cuda_device):
+    """Only K1's forward has a d 88 instance: K2-K7 refuse it, each naming
+    its kernel, and so does FlashAttention's backward (K3 and K4), while
+    its forward launches K1."""
+    x = torch.zeros(2, 8, 88, dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros(2, 8, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="K2"):
+        tswa.sliding_window_fwd(x, x, x, 4)
+    with pytest.raises(ValueError, match="K5"):
+        tswa.swa_local_global_fwd(x, x, x, x, x, 4)
+    with pytest.raises(ValueError, match="K3 and K4"):
+        tfa.flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(ValueError, match="K6 and K7"):
+        tswa.sliding_window_bwd(x, x, x, x, lse, x, 4)
+    q = torch.randn(1, 2, 8, 88, device=cuda_device).to(torch.bfloat16)
+    q.requires_grad_(True)
+    o = tattn.attention(q, q, q)
+    with pytest.raises(ValueError, match="K3 and K4"):
+        o.sum().backward()
 
 
 @pytest.mark.cuda

@@ -274,9 +274,15 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
     assert loader._scheduler(str(tmp_path), None) == loader.DDIMConfig()
     assert isinstance(load(pipeline_type="inpaint"),
                       loader.EasyAnimateInpaintPipeline)
-    for vae_json in ({}, {"slice_mag_vae": True}):  # JAX: "none", "slice_mag"
+    for vae_json in ({}, {"cache_compression_vae": True},
+                     {"slice_compression_vae": True}):  # JAX: "none", ...
         with pytest.raises(NotImplementedError, match="item 8"):
             loader.vae_config_from_json(vae_json)
+    # V4's slice_mag is ported (tests/test_torch_v4.py): it reaches the
+    # config, with JAX's decode_chunk_frames (none: the chunk is semantic)
+    slice_cfg = loader.vae_config_from_json({"slice_mag_vae": True})
+    assert (slice_cfg.chunk_mode, slice_cfg.decode_chunk_frames) == (
+        "slice_mag", None)
     # V5's two text-stream fields are ported: they reach the config (and
     # the model's text_proj_t5 and pre-norms, tests/test_torch_v5.py)
     v5 = loader.mmdit_config_from_json({"text_embed_dim": 1024,
@@ -290,14 +296,16 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         loader.mmdit_config_from_json(
             {"time_position_encoding_type": "2d_rope"})
-    for t_type in ("HunyuanTransformer3DModel", "Transformer3DModel"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tconfig.build_transformer({"transformer_type": t_type})
+    # V4's HunyuanTransformer3DModel is ported (tests/test_torch_v4.py);
+    # V1-V3's Transformer3DModel is not
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tconfig.build_transformer({"transformer_type": "Transformer3DModel"})
     for v_type in ("AutoencoderKL", "AutoencoderKLCogVideoX"):
         with pytest.raises(NotImplementedError, match="item 11"):
             tconfig.build_vae({"vae_type": v_type})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tconfig.build_vae({"chunk_mode": "slice_mag"})
+    for mode in ("cog", "slice_compression", "cache_compression", "none"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tconfig.build_vae({"chunk_mode": mode})
     # the Bert / T5 stacks are ported (tests/test_torch_v5_text.py loads
     # them): a Bert directory needs its mT5 text_encoder_2, and each tower
     # needs its weights

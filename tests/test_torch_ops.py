@@ -412,7 +412,7 @@ def test_entry_point_signatures_match_the_sources():
 def test_kernel_input_checks_reject_cpu_and_bad_dtype():
     x = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        _build.check_kernel_inputs(x, x, x)
+        _build.check_kernel_inputs(x, x, x, kernel=_build.K1)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(x, x, x, kv_valid=9)
 

@@ -320,9 +320,10 @@ def test_decode_latents_overlapped_equals_the_untiled_decode(vae_pair):
 
 def test_output_types_and_smooth(vae_pair):
     """output_type="device" keeps the float video as a tensor, decode=False
-    returns the latents, smooth=True raises (smooth_output is not ported)
-    where JAX would run it, and is ignored where JAX ignores it."""
-    _, pipe, ins = pair("t2v", None, vae_pair)
+    returns the latents, smooth=True runs smooth_output (here through the
+    cache_mag protocol) where JAX runs it, matching JAX's, and is ignored
+    where JAX ignores it."""
+    jpipe, pipe, ins = pair("t2v", None, vae_pair)
     pos = torch.from_numpy(ins["pos"])
     kw = dict(height=H, width=W, video_length=FRAMES, num_inference_steps=1,
               latents=torch.from_numpy(ins["lat0"]))
@@ -334,9 +335,14 @@ def test_output_types_and_smooth(vae_pair):
     video = pipe(pos, torch.zeros_like(pos), output_type="device", **kw)
     assert torch.is_tensor(video) and video.dtype == torch.float32
     np.testing.assert_array_equal(video.numpy(), pipe.decode_latents(lat))
-    assert not pipe.smooth_default()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pipe.decode_latents(lat, smooth=True)
-    pipe.decode_latents(lat[:, :, :1], smooth=True)  # one frame: no seams
+    assert not pipe.smooth_default() and not jpipe.smooth_default()
+    smoothed = pipe.decode_latents(lat, smooth=True)
+    np.testing.assert_allclose(
+        smoothed, jpipe.decode_latents(jnp.asarray(lat.numpy()), smooth=True),
+        atol=LATENT_TOL, rtol=LATENT_TOL)
+    assert np.abs(smoothed - video.numpy()).max() > 1e-3
+    np.testing.assert_array_equal(  # one frame: no seams
+        pipe.decode_latents(lat[:, :, :1], smooth=True),
+        pipe.decode_latents(lat[:, :, :1]))
     with pytest.raises(ValueError, match="output_type"):
         pipe(pos, torch.zeros_like(pos), output_type="mp4", **kw)
