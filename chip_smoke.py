@@ -6,18 +6,18 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             the TMA + wgmma kernels (K1, K2, K5, K3's and K6's dq and K4's
-             and K7's dk/dv kernels)
+             the TMA + wgmma kernels (K1 at d 64 and at d 88, K2, K5, K3's
+             and K6's dq and K4's and K7's dk/dv kernels)
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes (K1 also at the
              serve phase's one-CFG-half and 45-frame-window shapes and at
              the V5 12B's joint length, 77 + 256 + 13,104 = 13,437), with
              kernel / plain / library (yardstick only) times and each
-             kernel's bound; then K1 at head dim 88 (K1@88, the mma.sync
-             body) at V4's three shapes: self attention [32, 36,864, 88],
-             the text cross pass (kv 333) and the CLIP pass (kv 16), and
-             on 12 ragged heads
+             kernel's bound; then K1 at head dim 88 (K1@88, its TMA +
+             wgmma kernel) at V4's three shapes: self attention [32,
+             36,864, 88], the text cross pass (kv 333) and the CLIP pass
+             (kv 16), and on 12 ragged heads
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
              against their plain versions at the training step's shapes,
              with SDPA's backward at the dense and cross shapes (yardsticks)
@@ -157,10 +157,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              the start frame and its mask VAE-encoded, random CLIP states
              [1, 256, 1024], the gate shut at step 0 and open at step 1):
              s/step, encode and decode s, peak; K1 80 (T2V) and 120
-             (I2V) launches per CFG evaluation, none on the sm90 kernel
+             (I2V) launches per CFG evaluation, all on its d 88 kernel
 Each main-path phase sets the kernels' launch counts to 0 just before it
-and checks them just after, and that every launch of K1-K7 at d 64 ran
-its TMA + wgmma kernel (V4's, at d 88, none did); Q1-Q3 launch on the
+and checks them just after, and that every launch of K1-K7 (at d 64, and
+K1's at d 88 in V4's) ran its TMA + wgmma kernel; Q1-Q3 launch on the
 quantized paths only. Then the per-kernel JSON line (K1@88 its own row)
 and, last, the device line.
 """
@@ -314,6 +314,7 @@ PEAK_BYTES = 3.35e12
 # video tokens (window = one frame), the 256 + 771 global rows
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
+K1_D88_SM90 = "flash_fwd_d88_sm90"  # K1's at head dim 88 (the same file)
 K2_SM90 = "swa_fwd_sm90"  # K2's (csrc/swa_fwd.cu)
 K5_SM90 = "swa_fused_fwd_sm90"  # K5's (csrc/swa_fused_fwd.cu)
 K3_SM90 = "flash_bwd_dq_sm90"  # K3's (csrc/flash_bwd.cu)
@@ -435,9 +436,9 @@ def phase_build():
     _build.load_library()
     seconds = time.perf_counter() - t0
     out, report = {}, {}
-    for key, kernel in (("K1", K1_SM90), ("K2", K2_SM90), ("K3", K3_SM90),
-                        ("K4", K4_SM90), ("K5", K5_SM90), ("K6", K6_SM90),
-                        ("K7", K7_SM90)):
+    for key, kernel in (("K1", K1_SM90), ("K1@88", K1_D88_SM90),
+                        ("K2", K2_SM90), ("K3", K3_SM90), ("K4", K4_SM90),
+                        ("K5", K5_SM90), ("K6", K6_SM90), ("K7", K7_SM90)):
         ptxas = _build.ptxas_report(kernel)
         sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
                                            "USETMAXREG", "STL", "LDL"))
@@ -448,15 +449,10 @@ def phase_build():
                                            "EXIT"))
         out[key] = {"ptxas": ptxas, "sass": sass}
         report[kernel] = {"ptxas": ptxas, "sass": sass, "sass_sites": sites}
-    # K1's d 88 instance on the mma.sync body: registers and spills only
-    # (it issues no wgmma or TMA)
-    out["K1@88"] = {"ptxas": _build.ptxas_report(K1_D88)}
-    report[K1_D88] = out["K1@88"]
     emit({"phase": "build", "library": lib.name, "seconds": seconds,
           **report})
     for kernel, r in report.items():
-        if kernel != K1_D88 and not (r["sass"]["HGMMA"]
-                                     and r["sass"]["UTMALDG"]):
+        if not (r["sass"]["HGMMA"] and r["sass"]["UTMALDG"]):
             raise AssertionError(f"{kernel} issues no wgmma or no TMA load: "
                                  f"{r['sass']}")
     return out
@@ -522,7 +518,6 @@ V4_CLIP_N, V4_CLIP_DIM, V4_CLIP_RATIO = 256, 1024, 0.5
 # K1 launches per CFG evaluation: each layer's attn1 and attn2, and for
 # I2V its attn_clip (which runs with the gate shut too, on zero states)
 V4_K1_T2V, V4_K1_I2V = 2 * V4_LAYERS, 3 * V4_LAYERS
-K1_D88 = "attn_fwd_kernelILi88ELb0E"  # K1's d 88 mma.sync instance
 
 
 def k1_bound(bh, sq, skv, d):
@@ -534,9 +529,10 @@ def k1_bound(bh, sq, skv, d):
 
 
 def phase_kernels_v4(gen):
-    """K1 at head dim 88 (the mma.sync body, csrc/attn_fwd.cuh) against its
-    plain version at V4's three shapes and on 12 ragged heads, with its
-    kernel / plain / SDPA (yardstick) times and bounds at each shape."""
+    """K1 at head dim 88 (its TMA + wgmma kernel, csrc/flash_fwd.cu on
+    fwd88_sm90.cuh) against its plain version at V4's three shapes and on
+    12 ragged heads, with its kernel / plain / SDPA (yardstick) times and
+    bounds at each shape."""
     dev = DEVICE
 
     def rand(*shape, scale=1.0):
@@ -568,8 +564,10 @@ def phase_kernels_v4(gen):
         shapes[name]["share_of_bound"] = bms / shapes[name]["ms"]
         del k, v, q4, k4, v4
     del q, k_self, v_self
-    # 12 heads of 1001 rows (not a multiple of the 64-row tiles), each head
-    # offset by its own mean: a tile read across a head's end would show
+    # 12 heads of 1001 rows (not a multiple of the 192-row q blocks or the
+    # 96-row kv tiles), each head offset by its own mean: a tile read
+    # across a head's end, or columns 88-95 read from the next row, would
+    # show
     shift = torch.arange(12, device=dev).view(12, 1, 1) % 3 - 1.0
     qh = rand(12, 1001, d, scale=d ** -0.5 * LOG2E)
     kh, vh = ((rand(12, 1001, d).float() + shift).to(torch.bfloat16)
@@ -579,7 +577,7 @@ def phase_kernels_v4(gen):
     stats = {"shapes": shapes, "max_abs_err": max(e[0] for e in errs),
              "max_rel_err": max(e[1] for e in errs)}
     emit({"phase": "kernels", "case": "K1@88 times", **stats,
-          "note": "mma.sync body (no sm90 kernel at d 88); sdpa_ms is a "
+          "note": "TMA + wgmma kernel flash_fwd_d88_sm90; sdpa_ms is a "
                   "yardstick, not on the path"})
     torch.cuda.empty_cache()
     return stats
@@ -3485,11 +3483,11 @@ def main():
 
     totals_q = dict.fromkeys(QCOUNTERS, 0)
 
-    def path_run(phase, fn, expect=None, expect_q=None, sm90=True):
+    def path_run(phase, fn, expect=None, expect_q=None):
         """One main-path run: counts set to 0 just before, read just after;
-        every launch of K1-K7 ran its TMA + wgmma kernel (d 64), or with
-        sm90=False (V4, d 88) none did; Q1-Q3 launched `expect_q` times
-        (none on a float model's path)."""
+        every launch of K1-K7 ran its TMA + wgmma kernel (d 64; K1 also at
+        V4's d 88); Q1-Q3 launched `expect_q` times (none on a float
+        model's path)."""
         reset_counts()
         result = fn()
         got = read_counts()
@@ -3501,7 +3499,7 @@ def main():
         for k, n in got_q.items():
             totals_q[k] += n
         for key, (counter, kernel) in sm90_counters.items():
-            if counter.launches_sm90 != (got[key] if sm90 else 0):
+            if counter.launches_sm90 != got[key]:
                 raise AssertionError(f"{phase}: {counter.launches_sm90} of "
                                      f"{got[key]} {key} launches ran {kernel}")
             totals_sm90[key] += counter.launches_sm90
@@ -3633,14 +3631,14 @@ def main():
              dict.fromkeys(COUNTERS, 0))
     torch.cuda.empty_cache()
     # V4 (EasyAnimateV4): the HunyuanDiT at full width and depth, K1 on its
-    # d 88 mma.sync body (no launch on the TMA + wgmma kernel); a T2V
-    # request, then an I2V one on the InP variant with the CLIP branch
+    # d 88 TMA + wgmma kernel; a T2V request, then an I2V one on the InP
+    # variant with the CLIP branch
     v4_model, v4_vae = v4_models(args.seed + 94)
     pipe = EasyAnimatePipeline(v4_model, v4_vae, scheduler=DDIMConfig())
     expect_v4_t2v = dict(serve, K1=V4_K1_T2V * new_steps)
+    sm90_before_v4 = totals_sm90["K1"]
     path_run("v4_t2v", lambda: v4_request("v4_t2v", pipe, args.seed + 95,
-                                          new_steps), expect_v4_t2v,
-             sm90=False)
+                                          new_steps), expect_v4_t2v)
     pipe = EasyAnimateInpaintPipeline(
         v4_inpaint_variant(v4_model, args.seed + 96), v4_vae,
         scheduler=DDIMConfig())
@@ -3655,8 +3653,8 @@ def main():
                   clip_apply_ratio=V4_CLIP_RATIO)
     expect_v4_i2v = dict(serve, K1=V4_K1_I2V * new_steps)
     path_run("v4_i2v", lambda: v4_request("v4_i2v", pipe, args.seed + 98,
-                                          new_steps, **v4_i2v), expect_v4_i2v,
-             sm90=False)
+                                          new_steps, **v4_i2v), expect_v4_i2v)
+    v4_sm90 = totals_sm90["K1"] - sm90_before_v4
     del pipe, v4_model, v4_vae, v4_i2v, video, mask
     torch.cuda.empty_cache()
     v4_k1 = expect_v4_t2v["K1"] + expect_v4_i2v["K1"]
@@ -3748,21 +3746,23 @@ def main():
     band = 2 * BH * band_columns(S_VID, WINDOW) * HEAD_DIM
     glob = 2 * BH * S_VID * S_GLOBAL * HEAD_DIM  # one global-pass product
 
-    # K1 at d 88 (V4): its own row, launched on the mma.sync body only;
-    # K1's row keeps its d 64 launches
+    # K1 at d 88 (V4): its own row, its own TMA + wgmma kernel; K1's row
+    # keeps its d 64 launches
     k1_row = sm90_row(row("K1", "flash_attention_fwd", "flash_fwd.cu",
                           "easyanimate_tpu/ops/flash_attention.py:92"),
                       "K1", ("flash_fwd.cu", "fwd_sm90.cuh"), 2 * dense,
                       "cross_sdpa_ms")
     k1_row["launches"] -= v4_k1
+    k1_row["launches_sm90"] -= v4_sm90
     self88, ptxas88 = v4_stats["shapes"]["self"], build["K1@88"]["ptxas"]
     k1_88_row = {
         "name": "K1@88 flash_attention_fwd (d 88, V4)", "route": "cuda",
-        "source": "easyanimate_tpu_torch/csrc/attn_fwd.cuh",
+        "source": "easyanimate_tpu_torch/csrc/flash_fwd.cu",
         "sources": ["easyanimate_tpu_torch/csrc/flash_fwd.cu",
-                    "easyanimate_tpu_torch/csrc/attn_fwd.cuh"],
+                    "easyanimate_tpu_torch/csrc/fwd88_sm90.cuh",
+                    "easyanimate_tpu_torch/csrc/hopper.cuh"],
         "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
-        "launches": v4_k1, "launches_sm90": 0, "kernel": K1_D88,
+        "launches": v4_k1, "launches_sm90": v4_sm90, "kernel": K1_D88_SM90,
         "max_abs_err": v4_stats["max_abs_err"],
         "max_rel_err": v4_stats["max_rel_err"], "ms": self88["ms"],
         "plain_ms": self88["plain_ms"], "bound_ms": self88["bound_ms"],
@@ -3772,10 +3772,12 @@ def main():
         "shapes": v4_stats["shapes"],
         "registers": ptxas88.get("registers"),
         "spill_bytes": (ptxas88.get("spill_store_bytes", 0)
-                        + ptxas88.get("spill_load_bytes", 0))}
-    if k1_row["launches"] != k1_row["launches_sm90"]:
-        raise AssertionError(f"K1 d 64 launches {k1_row['launches']} != "
-                             f"sm90 {k1_row['launches_sm90']}")
+                        + ptxas88.get("spill_load_bytes", 0)),
+        "sass": build["K1@88"]["sass"]}
+    for r in (k1_row, k1_88_row):
+        if r["launches"] != r["launches_sm90"]:
+            raise AssertionError(f"{r['name']} launches {r['launches']} != "
+                                 f"sm90 {r['launches_sm90']}")
 
     emit({"kernels": [
         k1_row | {"v5_ms": stats["K1"]["v5_ms"],
@@ -3814,8 +3816,8 @@ def main():
                "= SDPA (its backward for K3/K4); K2's, "
                "K5's, K6's and K7's tflops count the band's visible pairs; "
                "every path launch of K1-K7 at d 64 ran their TMA + wgmma "
-               "kernels (launches_sm90); K1@88 (V4's head dim) runs the "
-               "mma.sync body: ms, plain_ms, library_ms (SDPA) and bound at "
+               "kernels (launches_sm90); K1@88 (V4's head dim, its own TMA + "
+               "wgmma kernel): ms, plain_ms, library_ms (SDPA) and bound at "
                "V4's self attention [32, 36864, 88], shapes[] also at its "
                "text (333) and CLIP (16) cross passes. K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "

@@ -1,7 +1,7 @@
 // The mma.sync forward-attention body of K1 (flash_fwd.cu: dense), K2
 // (swa_fwd.cu: banded) and K5 (swa_fused_fwd.cu: banded + global) at head
-// dims 16 and 32, and of K1 alone at 88 (V4's HunyuanDiT, 16 heads x 88);
-// at d 64 all three are TMA + wgmma kernels on fwd_sm90.cuh.
+// dims 16 and 32 (the tiny test preset); at d 64 all three are TMA + wgmma
+// kernels on fwd_sm90.cuh, and so is K1 at d 88 (fwd88_sm90.cuh).
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -19,10 +19,6 @@
 //     fragment of q k^T is re-packed in registers as the A operand of p v
 //     (the usual register-level FA2 layout trick), so p never touches
 //     shared memory;
-//   - a head dim that is 8 past a multiple of 16 (88) reduces q k^T over
-//     its last 8 columns with one mma.sync.m16n8k8, so no column is padded
-//     (88 = five k16 steps and one k8 step; p v runs as eleven n8 tiles and
-//     a row of 176 bytes loads as eleven 16-byte chunks);
 //   - running max / sum in f32, rows reduced across the 4 threads of a quad
 //     with shuffles;
 //   - the ragged edge is masked by column index (s = -inf), so no padded
@@ -31,12 +27,12 @@
 // What bounds it on an H100: at head_dim 64 each kv element loaded from
 // shared memory feeds 64 q rows, and the mma.sync path reaches a fraction
 // of the wgmma peak; with no load/compute overlap the tensor cores idle
-// during every tile load. hopper.cuh and fwd_sm90.cuh hold the TMA + wgmma
-// + producer warpgroup pieces K1, K2 and K5 moved onto; their d 16 and 32
-// calls (the tiny test preset) and K1's d 88 calls (V4) still run this
-// body. At d 88 a q tile's two products are 4 * 64 * 88 operations per kv
-// row against 2 * 176 bytes of k and v from shared memory: the same
-// starved-tensor-core shape as at d 64 before the wgmma redesign.
+// during every tile load. hopper.cuh, fwd_sm90.cuh and fwd88_sm90.cuh hold
+// the TMA + wgmma + producer warpgroup pieces K1, K2 and K5 moved onto;
+// only their d 16 and 32 calls (the tiny test preset) still run this body.
+// At d 88 this body ran V4's self attention [32, 36864, 88] in 101.95 ms
+// on an NVIDIA H100 80GB HBM3 at 700 W, 15% of its 15.48 ms bound and 2.9x
+// SDPA's time there: the reason K1 took the TMA + wgmma design at 88 too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,11 +48,9 @@ constexpr int kBlockKV = 64;
 // Shared-memory row length of a [rows, D] bf16 tile: rows 16-byte aligned
 // (each is loaded as 16-byte chunks), and a row stride of 4 words past a
 // multiple of 8, so that the 8 rows (g) one fragment load touches fall in 8
-// distinct groups of 4 banks: D + 8 for d 16, 32 and 64 (12, 20 and 36
-// words), D itself for 88 (44 words; 96 would put every other row in the
-// same banks, a 4-way conflict on each load).
+// distinct groups of 4 banks: D + 8 for d 16 and 32 (12 and 20 words).
 template <int D>
-constexpr int kRow = D + ((D / 2) % 8 == 0 ? 8 : 0);
+constexpr int kRow = D + 8;
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = kWarps * 32;
 
@@ -67,16 +61,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The k8 step of q k^T for a head dim 8 past a multiple of 16.
-__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[2],
-                                         uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -142,15 +126,12 @@ struct SoftmaxState {
   }
 };
 
-// One warp's 16 q rows as bf16 A fragments: one per 16 columns of d, and
-// at a d 8 past a multiple of 16 the last 8 columns as a k8 fragment.
+// One warp's 16 q rows as bf16 A fragments, one per 16 columns of d.
 template <int D>
 struct QFrags {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  static constexpr int kSteps = D / 16;       // m16n8k16 steps
-  static constexpr bool kTail = D % 16 != 0;  // and one m16n8k8 step
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static constexpr int kSteps = D / 16;  // m16n8k16 steps
   uint32_t a[kSteps][4];
-  uint32_t tail[2];
 };
 
 // Load this warp's 16 q rows of sQ as bf16 A fragments.
@@ -164,11 +145,6 @@ __device__ __forceinline__ void load_q_frags(QFrags<D>& qa,
     qa.a[kk][1] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t]);
     qa.a[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 2 * t + 8]);
     qa.a[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t + 8]);
-  }
-  if constexpr (QFrags<D>::kTail) {
-    constexpr int c = QFrags<D>::kSteps * 16;
-    qa.tail[0] = ld32(&sQ[r0 + g][c + 2 * t]);
-    qa.tail[1] = ld32(&sQ[r0 + g + 8][c + 2 * t]);
   }
 }
 
@@ -198,10 +174,6 @@ __device__ __forceinline__ void attend_tiles(
         b[0] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t]);
         b[1] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t + 8]);
         mma_16816(s[nt], qa.a[kk], b);
-      }
-      if constexpr (QFrags<D>::kTail) {
-        constexpr int c = QFrags<D>::kSteps * 16;
-        mma_1688(s[nt], qa.tail, ld32(&sK[nt * 8 + g][c + 2 * t]));
       }
     }
 
@@ -277,8 +249,8 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16,
-// 32 and 88).
+// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16
+// and 32).
 // kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
 template <int D, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
@@ -365,14 +337,8 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
       attn_fwd_kernel<32, kWindowed><<<grid, block, 0, st>>>(
           qp, kp, vp, op, lp, sq, skv, kv_len, window);
       break;
-    case 88:
-      // K1 only (V4's HunyuanDiT); K2 takes no d 88 (ops/_build.py)
-      if constexpr (kWindowed) return static_cast<int>(cudaErrorInvalidValue);
-      else attn_fwd_kernel<88, false><<<grid, block, 0, st>>>(
-          qp, kp, vp, op, lp, sq, skv, kv_len, window);
-      break;
-    // d 64 runs the TMA + wgmma kernels (flash_fwd.cu, swa_fwd.cu): no
-    // instance here
+    // d 64 runs the TMA + wgmma kernels (flash_fwd.cu, swa_fwd.cu), and so
+    // does K1's d 88: no instance here
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -53,14 +53,33 @@
 // the consumer loop below, over every kv tile with the last one masked, is
 // K1's own.
 //
-// Head dims 16 and 32 (the tiny test preset only) and 88 (V4's
-// HunyuanDiT: self-attention over 36,864 tokens at 512x512x144f, the text
-// cross pass over 77 + 256 tokens, the CLIP cross pass over 16) stay on the
-// mma.sync body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16,
-// never a fallback on failure. ea_flash_fwd_uses_sm90 tells the wrapper
-// which ran. At d 88 the mma.sync body reduces q k^T as five k16 steps and
-// one k8 step, so nothing is padded to 96 in memory; the TMA + wgmma
-// design at d 88 is later work.
+// Design at head_dim 88 (V4's HunyuanDiT: self attention over 36,864
+// tokens at 512x512x144f, the text cross pass over 77 + 256 tokens, the
+// CLIP cross pass over 16), flash_fwd_d88_sm90 below on fwd88_sm90.cuh:
+// the same block, producer and consumer loop, with each row of 176 bytes
+// loaded as two TMA boxes (columns 0-63, 128-byte swizzle; columns 64-95,
+// 64-byte swizzle, TMA filling 88-95 with zeros); q k^T as six k16 steps
+// of m64n96k16, p v as m64n64k16 + m64n24k16 a k step; kv tiles of 96
+// rows through a ring of 4 stages, so that o (44 f32), the scores (48)
+// and p (24) fit the launch's 128 registers a thread; o's rescale skipped
+// when neither of a thread's rows' max moved; p v issued in two halves, the
+// second half's exponentials running while the first half's product is
+// on the tensor cores. Bound on the H100: V4's
+// self attention [32, 36,864, 88] does 4 * 32 * 36864^2 * 88 = 15.3 TFLOP,
+// 15.48 ms at 989 TFLOP/s (q k^T over 96 columns costs 4.5% more); the
+// text pass 0.140 ms (operations), the CLIP pass 0.125 ms (bytes: q and o).
+// Tried on the card and dropped: 128-row kv tiles (they spill); 2 or 3
+// stages; p v at n32 over the zero columns; the consumers taking turns on
+// named barriers to issue their q k^T, or their p v and the next q k^T
+// (no faster, or spilling: the second holds p and the next scores at
+// once). Not tried: two consumers of 128 q rows at 240 registers (a third
+// more k/v traffic from L2 per q row, one consumer fewer to fill the
+// others' softmax gaps, and ptxas sizes consumers by the launch's 168).
+//
+// Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync
+// body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16, never a
+// fallback on failure. ea_flash_fwd_uses_sm90 tells the wrapper which ran.
+#include "fwd88_sm90.cuh"
 #include "fwd_sm90.cuh"
 
 namespace ea {
@@ -144,19 +163,96 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One consumer warpgroup at d 88: K1's consume on fwd88_sm90.cuh's pieces.
+__device__ __forceinline__ void consume_d88(fwd88::Smem& sm,
+                                            const fwd88::Maps& m,
+                                            float* __restrict__ lse, int c,
+                                            int bh, int q0, int sq,
+                                            int kv_valid, int n_tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g;  // this thread's two rows in the 64
+  const int r_b = r_a + 8;
+  const fwd88::QDesc dq{
+      sm90::desc_sw128(sm.q_lo + c * 64 * fwd88::kLoCols, 16, 1024),
+      sm90::desc_sw64(sm.q_hi + c * 64 * fwd88::kHiCols, 16, 512)};
+
+  float o_lo[32], o_hi[fwd88::kHiOut / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_lo[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < fwd88::kHiOut / 2; ++i) o_hi[i] = 0.f;
+  fwd90::RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
+
+  sm90::mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % fwd88::kStages;
+    sm90::mbar_wait(&sm.full[s], (j / fwd88::kStages) & 1);
+    float sc[48];
+    sm90::wgmma_fence();
+    fwd88::issue_qk(sc, dq, sm.k_lo[s], sm.k_hi[s]);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    fwd88::mask_tail(sc, j * fwd88::kBlockN, kv_valid, t);
+    fwd88::softmax_pv(sc, o_lo, o_hi, st, sm, s, lane);
+  }
+  fwd88::store_o_lse(o_lo, o_hi, st, sm, m, lse, c, bh, q0, sq, tid, t, r_a,
+                     r_b);
+}
+
+__global__ void __launch_bounds__(fwd88::kThreads, 1)
+flash_fwd_d88_sm90(const __grid_constant__ fwd88::Maps m,
+                   float* __restrict__ lse, int sq, int kv_valid) {
+  fwd88::Smem& sm = fwd88::init_smem();
+  const int warpgroup = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * fwd88::kBlockM;
+  const int n_tiles = (kv_valid + fwd88::kBlockN - 1) / fwd88::kBlockN;
+  if (warpgroup == 0) {
+    fwd88::produce(sm, m, q0, bh, n_tiles);
+  } else {
+    sm90::setmaxnreg_inc<fwd88::kConsumerRegs>();
+    consume_d88(sm, m, lse, warpgroup - 1, bh, q0, sq, kv_valid, n_tiles);
+  }
+}
+
+// Refuses the launch (cudaErrorInvalidConfiguration) unless ptxas gave the
+// kernel the 128 registers its setmaxnreg balance assumes.
+int launch_d88(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bh, int sq, int skv, int kv_valid,
+               cudaStream_t stream) {
+  fwd88::Maps m;
+  int err = fwd88::encode_maps(m, q, k, v, o, bh, sq, skv, kv_valid);
+  if (err) return err;
+  err = sm90::check_launch_regs(flash_fwd_d88_sm90, fwd88::kLaunchRegs);
+  if (err) return err;
+  cudaError_t st = cudaFuncSetAttribute(
+      flash_fwd_d88_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(fwd88::kSmemBytes));
+  if (st != cudaSuccess) return static_cast<int>(st);
+  const dim3 grid((sq + fwd88::kBlockM - 1) / fwd88::kBlockM, bh);
+  flash_fwd_d88_sm90<<<grid, fwd88::kThreads, fwd88::kSmemBytes, stream>>>(
+      m, static_cast<float*>(lse), sq, kv_valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace k1
 }  // namespace ea
 
 extern "C" int ea_flash_fwd_uses_sm90(int head_dim) {
-  return head_dim == ea::fwd90::kD;
+  return head_dim == ea::fwd90::kD || head_dim == ea::fwd88::kD;
 }
 
 extern "C" int ea_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int bh, int sq, int skv,
                                  int kv_valid, int head_dim, void* stream) {
-  if (ea_flash_fwd_uses_sm90(head_dim)) {
-    return ea::k1::launch(q, k, v, o, lse, bh, sq, skv, kv_valid,
-                          reinterpret_cast<cudaStream_t>(stream));
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (head_dim == ea::fwd90::kD) {
+    return ea::k1::launch(q, k, v, o, lse, bh, sq, skv, kv_valid, st);
+  }
+  if (head_dim == ea::fwd88::kD) {
+    return ea::k1::launch_d88(q, k, v, o, lse, bh, sq, skv, kv_valid, st);
   }
   return ea::launch_attn_fwd<false>(q, k, v, o, lse, bh, sq, skv, kv_valid,
                                     /*window=*/0, head_dim, stream);

@@ -4,9 +4,10 @@
 // sliding-window + global forward (flash_fwd.cu, swa_fwd.cu and
 // swa_fused_fwd.cu on fwd_sm90.cuh), and K3/K4 and K6/K7, the dense and the
 // sliding-window backward's dq and dk/dv kernels (flash_bwd.cu and
-// swa_bwd.cu on bwd_sm90.cuh), all at head_dim 64 and all bound by
-// operations at the flagship shapes ([96, 13360, 64] bf16; the banded ones
-// [96, 13104, 64] banded to 1,008). Their common shape: one producer warpgroup keeps
+// swa_bwd.cu on bwd_sm90.cuh), all at head_dim 64, and K1 at head_dim 88
+// (flash_fwd.cu on fwd88_sm90.cuh), all bound by operations at the
+// flagship shapes ([96, 13360, 64] bf16; the banded ones [96, 13104, 64]
+// banded to 1,008; V4's [32, 36864, 88]). Their common shape: one producer warpgroup keeps
 // TMA loads in flight through a ring of shared-memory stages guarded by
 // full/empty mbarriers, and consumer warpgroups run the products on the
 // tensor cores with wgmma (score-like products with both operands in
@@ -15,7 +16,10 @@
 // Conventions the pieces rely on:
 //   - Tiles are bf16 rows of 64 elements (128 bytes), loaded by TMA with
 //     CU_TENSOR_MAP_SWIZZLE_128B into shared memory that starts 1024-byte
-//     aligned: 8 rows form one 1024-byte swizzle atom.
+//     aligned: 8 rows form one 1024-byte swizzle atom. At d 88 a row is
+//     two such tiles: columns 0-63 as above and columns 64-95 as rows of
+//     64 bytes with CU_TENSOR_MAP_SWIZZLE_64B (desc_sw64), 8 rows a
+//     512-byte atom.
 //   - A "K-major" operand (q or k: the reduction dimension d is contiguous)
 //     and an "MN-major" one (v in p v: the output dimension d is contiguous)
 //     both use desc_sw128 with a stride of 1024 bytes between 8-row groups.
@@ -147,6 +151,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile,
   return d;
 }
 
+// The same, 64-byte swizzle (layout 2): rows of 32 bf16, 8 rows a 512-byte
+// atom, so the stride between 8-row groups of a dense tile is 512 bytes.
+// A 16-deep k step advances a K-major descriptor by 32 bytes, as at 128.
+__device__ __forceinline__ uint64_t desc_sw64(const void* tile,
+                                              uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(2) << 62;
+  return d;
+}
+
 // Before a wgmma that reads registers or shared memory written since the
 // last one (the rescaled accumulator, p).
 __device__ __forceinline__ void wgmma_fence() {
@@ -268,6 +285,58 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "r"(scale_d));
 }
 
+// d[64x96] (+)= A[64x16] B[16x96], both from shared memory, both K-major
+// (K1's scores at head dim 88: a kv tile of 96 rows).
+__device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64x24] (+)= A[64x16] B[16x24]: A from registers, B from shared memory
+// MN-major, as wgmma_m64n64k16_rs_tb (K1's p v over head-dim columns 64-87
+// at d 88).
+__device__ __forceinline__ void wgmma_m64n24k16_rs_tb(float (&d)[12],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // 2^x on the MUFU unit (about 2 ulp; exp2(-inf) = 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -334,27 +403,39 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map (d, rows, heads) over bf16 [heads, *, d] rows of d = 64
-// (128 bytes), head `h` starting head_stride_bytes * h after `base`; boxes
-// of box_rows x 64, 128-byte swizzle. Rows at or past `rows` read as zeros
-// and are not written. Returns 0, or kTensorMapError + the CUresult.
-inline int encode_rows_sw128(CUtensorMap* map, const void* base, int rows,
-                             int heads, uint64_t head_stride_bytes,
-                             int box_rows) {
+// A 3-D map (d, rows, heads) over bf16 [heads, *, d] rows of `cols`
+// elements, head `h` starting head_stride_bytes * h after `base`; boxes of
+// box_rows x box_cols, `swizzle` (box_cols * 2 bytes at most its span).
+// Columns at or past `cols` and rows at or past `rows` read as zeros and
+// are not written. Returns 0, or kTensorMapError + the CUresult.
+inline int encode_rows(CUtensorMap* map, const void* base, int cols,
+                       int rows, int heads, uint64_t head_stride_bytes,
+                       int box_cols, int box_rows,
+                       CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {64 * sizeof(__nv_bfloat16), head_stride_bytes};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {cols * sizeof(__nv_bfloat16),
+                                 head_stride_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// Rows of d = 64 (128 bytes) in boxes of box_rows x 64, 128-byte swizzle.
+inline int encode_rows_sw128(CUtensorMap* map, const void* base, int rows,
+                             int heads, uint64_t head_stride_bytes,
+                             int box_rows) {
+  return encode_rows(map, base, 64, rows, heads, head_stride_bytes, 64,
+                     box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -27,9 +27,10 @@ half's self-attention k and v with a depthwise 2x2 stride-2 conv and
 resizes k's RoPE tables bilinearly.
 
 Attention routing, as in JAX: attn1, attn2 and attn_clip go through
-ops.attention.attention (K1 on a CUDA tensor, at head dim 88 the mma.sync
-body of csrc/attn_fwd.cuh; its plain version on the CPU); AttentionPool and
-the Resampler run the plain attention, as JAX's impl="xla" does.
+ops.attention.attention (K1 on a CUDA tensor, at head dim 88 the TMA +
+wgmma kernel csrc/flash_fwd.cu::flash_fwd_d88_sm90; its plain version on
+the CPU); AttentionPool and the Resampler run the plain attention, as
+JAX's impl="xla" does.
 
 Parameter names are the Flax module's paths (block{i} as blocks.{i}), so
 models/convert.py::hunyuan_state_dict_from_jax carries JAX's params across;

@@ -30,7 +30,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 HEAD_DIMS = (16, 32, 64)
 # the attention kernels by the names their input checks raise with, and
 # the head dims each has an instance for: K1's forward also takes 88 (V4's
-# HunyuanDiT, on the mma.sync body of csrc/attn_fwd.cuh)
+# HunyuanDiT, csrc/flash_fwd.cu::flash_fwd_d88_sm90)
 K1 = "K1 (ea_flash_fwd_bf16)"
 K2 = "K2 (ea_swa_fwd_bf16)"
 K3_K4 = "K3 and K4 (ea_flash_bwd_dq_bf16, ea_flash_bwd_dkv_bf16)"

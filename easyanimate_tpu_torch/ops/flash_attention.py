@@ -65,7 +65,7 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     A CUDA tensor launches K1 (bf16, d in 16/32/64/88, contiguous) or
     raises; a CPU tensor takes flash_attention_plain.
     `flash_attention_fwd.launches` counts kernel launches, `.launches_sm90`
-    those that ran the TMA + wgmma kernel (d 64; d 16, 32 and 88 run the
+    those that ran a TMA + wgmma kernel (d 64 and 88; d 16 and 32 run the
     mma.sync one)."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]

@@ -39,12 +39,17 @@ def cuda_device():
     # tile boundary with rows past it; one q row; the SWA cross pass cut
     (128, 128, 128, 64), (129, 257, 200, 64), (300, 1100, 1024, 64),
     (1, 300, 300, 64), (1337, 1027, 1027, 64),
-    # d 88 (V4) runs the mma.sync body (64 q rows x 64 kv rows a tile,
-    # q k^T as five k16 steps and one k8 step): the text cross pass's 333
-    # keys; kv_valid inside the last kv tile; the CLIP pass's 16 keys, fewer
-    # than one tile; one q row; a self-attention block of 1,000 rows
+    # d 88 (V4) runs the TMA + wgmma kernel too (192 q rows a block, 96 kv
+    # rows a tile, each row loaded as columns 0-63 and 64-95 with TMA's
+    # zeros in 88-95): the text cross pass's 333 keys; kv_valid inside the
+    # last kv tile; the CLIP pass's 16 keys, fewer than one tile; one q
+    # row; a self-attention block of 1,000 rows; exactly one q block and
+    # one kv tile; one q row past a block; kv_valid inside the last tile
+    # with rows past it; kv on a tile boundary, alone and with rows past it
     (200, 333, 333, 88), (129, 257, 200, 88), (1000, 16, 16, 88),
-    (1, 100, 100, 88), (1000, 1000, 1000, 88)])
+    (1, 100, 100, 88), (1000, 1000, 1000, 88), (192, 96, 96, 88),
+    (193, 500, 500, 88), (400, 777, 700, 88), (300, 288, 288, 88),
+    (300, 500, 384, 88)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(4, n, d, generator=g, device=cuda_device
@@ -54,9 +59,57 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
-    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (d == 64)
+    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (d in (64, 88))
     o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
     # bf16 output and the kernel's bf16 p before p @ v
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_d88_ragged_heads_on_card(cuda_device):
+    """K1 at d 88 on 12 heads of 1,001 rows (not a multiple of the 192-row
+    q block or the 96-row kv tile), each head's k and v offset by its own
+    mean: a tile read across a head's end would carry another head's
+    values, and columns 88-95 read from the next row would add its first
+    8 values to every score."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    bh, s, d = 12, 1001, 88
+    shift = torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 3 - 1.0
+    q = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+         * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    k, v = ((torch.randn(bh, s, d, generator=g, device=cuda_device) + shift)
+            .to(torch.bfloat16) for _ in range(2))
+    before_sm90 = tfa.flash_attention_fwd.launches_sm90
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + 1
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v)
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv,kv_valid", [(200, 200), (300, 250), (96, 40)])
+def test_flash_kernel_d88_masks_pad_columns_at_deep_scores_on_card(
+        cuda_device, skv, kv_valid):
+    """Every visible score of a row near -352 (q all +2, k near -2, d 88):
+    the zero k rows past kv_valid that TMA fills into the last kv tile
+    score 0, and would take the row max (and all of p) unless K1 hides
+    columns j >= kv_valid. k carries a little noise, so o depends on which
+    columns were kept."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    d = 88
+    q = torch.full((4, 300, d), 2.0, device=cuda_device).to(torch.bfloat16)
+    k = (-2.0 + 0.25 * torch.randn(4, skv, d, generator=g, device=cuda_device)
+         ).to(torch.bfloat16)
+    v = torch.randn(4, skv, d, generator=g, device=cuda_device
+                    ).to(torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
+    torch.cuda.synchronize()
+    assert lse.max().item() < -300, lse.max().item()
+    assert torch.isfinite(o.float()).all()
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
     _close(o.float(), o_p.float(), 2e-2)
     _close(lse, lse_p, 1e-3)
 

@@ -10,12 +10,14 @@ subprocess; both libraries are then loaded into this process, and each
 kernel's C entry point is timed by CUDA events on the same inputs in the
 turns A B B A A B B A ..., `iters` launches a turn: K1, K3 and K4 at the
 dense flagship [96, 13360, 64]; K2, K5, K6 and K7 at the banded one [96,
-13104, 64], window 1008, K5 with the 1,027 global rows. K5 is timed in the
+13104, 64], window 1008, K5 with the 1,027 global rows; K1 at V4's head
+dim 88 over q [32, 36864, 88] with kv 36,864 (self attention), 333 (the
+text cross pass) and 16 (the CLIP pass). K5 is timed in the
 same turns beside its yardstick, B's unfused pair (K2 + the K1 cross pass
 over the global rows). The inputs are random bf16 q, k, v, do (q
 pre-scaled as the wrappers do) with the lse of B's own forward kernel and
 di = rowsum(o * do). Prints the card's name and power limit; one JSON line
-per TMA + wgmma kernel (K1, K2, K5; K3, K4, K6, K7) with each build's
+per TMA + wgmma kernel (K1 at d 64 and 88, K2, K5; K3, K4, K6, K7) with each build's
 ptxas registers and spills, its SASS opcode counts and whether the two
 builds' SASS is the same instruction for instruction (a kernel that a
 build lacks is null there); then one JSON line per kernel: every turn's
@@ -36,11 +38,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from easyanimate_tpu_torch.ops._build import _SIGNATURES  # noqa: E402
 
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, D = 96, 13360, 13104, 1008, 1027, 64
+# V4: the CFG batch's 2 x 16 heads of 88 over 36,864 tokens; kv lengths of
+# its self attention, text cross pass (77 + 256) and CLIP pass
+BH88, S88, D88 = 32, 36864, 88
+KV88 = {"self": S88, "text": 333, "clip": 16}
 LOG2E = 1.4426950408889634
-# the TMA + wgmma kernels: K1, K2, K5; K3, K4, K6, K7
-SM90_KERNELS = ("flash_fwd_sm90", "swa_fwd_sm90", "swa_fused_fwd_sm90",
-                "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "swa_bwd_dq_sm90",
-                "swa_bwd_dkv_sm90")
+# the TMA + wgmma kernels: K1 (d 64, d 88), K2, K5; K3, K4, K6, K7
+SM90_KERNELS = ("flash_fwd_sm90", "flash_fwd_d88_sm90", "swa_fwd_sm90",
+                "swa_fused_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+                "swa_bwd_dq_sm90", "swa_bwd_dkv_sm90")
 # run in each tree: build its library, then print the library's path and,
 # for each kernel it holds, ptxas's report and its SASS instructions
 _BUILD_AND_REPORT = '''
@@ -135,6 +141,26 @@ def turn_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def k1_d88_calls(libs, gen):
+    """For each of V4's three kv lengths, each library's K1 call at d 88 on
+    the same q [32, 36864, 88] and k, v, into fresh outputs."""
+    dev = torch.device("cuda")
+    q = (torch.randn(BH88, S88, D88, generator=gen, device=dev)
+         * D88 ** -0.5 * LOG2E).to(torch.bfloat16)
+    o = torch.empty_like(q)
+    lse = torch.empty(BH88, S88, 1, dtype=torch.float32, device=dev)
+    out = {}
+    for name, kv in KV88.items():
+        k, v = (torch.randn(BH88, kv, D88, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        ptrs = [x.data_ptr() for x in (q, k, v, o, lse)]
+        out[f"K1@88 {name}"] = (
+            {side: (lambda lib=lib, ptrs=ptrs, kv=kv: call(
+                lib, "ea_flash_fwd_bf16", *ptrs, BH88, S88, kv, kv, D88))
+             for side, lib in libs.items()}, (k, v))
+    return out, (q, o, lse)
+
+
 def entry_calls(lib, key, ins, glob):
     """The C entry point call(s) of kernel `key` on `ins` (q, k, v, do,
     lse, di of its shape; glob: the global gk, gv), into fresh outputs."""
@@ -190,10 +216,14 @@ def main():
     gk, gv = (torch.randn(BH, S_GLOBAL, D, generator=gen, device="cuda")
               .to(torch.bfloat16) for _ in range(2))
     glob = (gk.data_ptr(), gv.data_ptr())
-    for key in ("K1", "K2", "K5", "K3", "K4", "K6", "K7"):
-        ins = dense if key in ("K1", "K3", "K4") else band
-        fns = {side: entry_calls(lib, key, ins, glob)
-               for side, lib in libs.items()}
+    d88, _keep = k1_d88_calls(libs, gen)
+    for key in ("K1", "K2", "K5", "K3", "K4", "K6", "K7", *d88):
+        if key in d88:
+            fns = d88[key][0]
+        else:
+            ins = dense if key in ("K1", "K3", "K4") else band
+            fns = {side: entry_calls(lib, key, ins, glob)
+                   for side, lib in libs.items()}
         if key == "K5":  # its yardstick, in the same turns
             fns["b pair"] = entry_calls(libs["b"], "K5 pair", ins, glob)
         for fn in fns.values():  # warm-up
