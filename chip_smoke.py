@@ -6,8 +6,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             the TMA + wgmma kernels (K1 at d 64 and at d 88, K2, K5, K3's
-             and K6's dq and K4's and K7's dk/dv kernels)
+             the TMA + wgmma kernels (K1 at d 64, 88 and 72, K2, K5, K3's
+             and K6's dq and K4's and K7's dk/dv kernels), and of K1's
+             mma.sync body at d 72 and 144
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes (K1 also at the
@@ -17,7 +18,14 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              kernel's bound; then K1 at head dim 88 (K1@88, its TMA +
              wgmma kernel) at V4's three shapes: self attention [32,
              36,864, 88], the text cross pass (kv 333) and the CLIP pass
-             (kv 16), and on 12 ragged heads
+             (kv 16), and on 12 ragged heads; then K1 at head dims 72
+             (K1@72: its TMA + wgmma kernel past 64 q rows, the mma.sync
+             body below) and 144 (K1@144, the mma.sync body) at the V1-V3
+             shapes: V3's Global_Self [32, 36,864, 72], the spatial [1,152,
+             1,024, 72], text (kv 120) and temporal [32,768, 36, 72]
+             passes, V2's temporal [16,384, 36, 144] and V1's grid [4,096,
+             64, 144]; at b*h 73,728 (V3's temporal pass at 768 x 768, past
+             gridDim.y's 65,535) and on 12 ragged heads
   kernels_bwd  K3+K4 (dense backward) and K6+K7 (sliding-window backward)
              against their plain versions at the training step's shapes,
              with SDPA's backward at the dense and cross shapes (yardsticks)
@@ -33,9 +41,12 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              mT5 towers' two streams into a tiny dual-stream MMDiT, DDIM)
              and a tiny V4 run (the same streams into a 2 x 88-head,
              4-layer HunyuanDiT, DDIM, the slice_mag MagViT decoding
-             untiled with smooth_output) on the card (bf16, kernels)
+             untiled with smooth_output) and a tiny V1-V3 run (a 2 x
+             72-head Transformer3D with motion modules of 1 x 144 and 2 x
+             72 heads, DDIM, 128 x 128 x 5f) on the card (bf16, kernels)
              against the same weights on the CPU (float32, plain
-             versions); V5 and V4 also against the CPU's bf16 floor
+             versions); V5, V4 and V1-V3 also against the CPU's bf16
+             floor
   train_reference  a tiny LoRA step and a tiny SFT step, the same way;
              then a tiny LCM step, a tiny reward step (a tiny CLIP scorer)
              and a tiny MagViT ae_step and disc_step (float32 on both,
@@ -158,11 +169,30 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              [1, 256, 1024], the gate shut at step 0 and open at step 1):
              s/step, encode and decode s, peak; K1 80 (T2V) and 120
              (I2V) launches per CFG evaluation, all on its d 88 kernel
+  v3_t2v, v2_t2v, v1_t2v, pixart  V1-V3 (EasyAnimateV1-V3) and PixArt at
+             full width and depth: the Transformer3D (28 layers, 16 x 72
+             heads, caption width 4,096; random bf16 weights) from each
+             yaml's fields through utils/config.py (LEGACY_YAML: V3's
+             global motion modules at 16 heads, V2's at 8, V1's
+             VanillaGrid at 8 over 2 x 2 cells), DDIM, CFG 6.0,
+             NEW_PHASE_STEPS steps on random T5 embeddings [2, 120, 4096]
+             (the T5-XXL tower cut): V3 and V2 at 512x512x144f through
+             their slice_mag MagViT (mini_batch 8 / 2 and 9 / 3,
+             latent_channels 4; decoded tiled), V1 at 512x512x16f (the
+             smoke's frame count) through its 2D VAE, PixArt
+             (Transformer2D over V3's fields) one 512x512 image through
+             V3's MagViT in the cache_mag protocol (slice_mag maps one
+             frame to 0 latents, in JAX too): s/step, decode s, peak; K1
+             per CFG evaluation by head dim (LEGACY_K1): V3 112 at d 72
+             (42 of them, the temporal passes over 36 frames, on the
+             mma.sync body), V2 and V1 56 at d 72 and 56 at d 144 (all on
+             the mma.sync body), PixArt 56 at d 72
 Each main-path phase sets the kernels' launch counts to 0 just before it
 and checks them just after, and that every launch of K1-K7 (at d 64, and
-K1's at d 88 in V4's) ran its TMA + wgmma kernel; Q1-Q3 launch on the
-quantized paths only. Then the per-kernel JSON line (K1@88 its own row)
-and, last, the device line.
+K1's at d 88 in V4's, at d 72 past 64 q rows in V1-V3's) ran its TMA +
+wgmma kernel, the rest of V1-V3's K1 launches the mma.sync body; Q1-Q3
+launch on the quantized paths only. Then the per-kernel JSON line (K1@88,
+K1@72 and K1@144 their own rows) and, last, the device line.
 """
 import argparse
 import contextlib
@@ -189,6 +219,8 @@ from easyanimate_tpu_torch.models.convert import (init_random_,
 from easyanimate_tpu_torch.models.hunyuan import (HunyuanConfig,
                                                   HunyuanTransformer3D)
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
+from easyanimate_tpu_torch.models.transformer3d_legacy import (
+    MotionModuleConfig, Transformer2D, Transformer3D, Transformer3DConfig)
 from easyanimate_tpu_torch.models.text import (TINY_BERT, TINY_T5, BertConfig,
                                                BertModel, BertTextEncoder,
                                                MT5EncoderModel, MT5TextEncoder,
@@ -210,6 +242,7 @@ from easyanimate_tpu_torch.ops.swa import (
 from easyanimate_tpu_torch.pipeline import (EasyAnimateControlPipeline,
                                             EasyAnimateInpaintPipeline,
                                             EasyAnimatePipeline,
+                                            PixArtMagvitPipeline,
                                             make_scheduler)
 from easyanimate_tpu_torch.pipeline import control as control_module
 from easyanimate_tpu_torch.pipeline.schedulers import DDIMConfig
@@ -235,6 +268,7 @@ from easyanimate_tpu_torch.training.checkpoints import (CheckpointManager,
                                                         flatten_state)
 from easyanimate_tpu_torch.ui import controller as controller_module
 from easyanimate_tpu_torch.ui.controller import EasyAnimateController
+from easyanimate_tpu_torch.utils import config as tconfig
 from easyanimate_tpu_torch.utils.fp8 import fp8_byte_share
 from easyanimate_tpu_torch.utils.media import (YUV420Video,
                                                get_image_to_video_latent,
@@ -264,7 +298,7 @@ REF_BOUND = 0.25
 # the tiny V5 request (DDIM, whose x0 steps take random-weight latents to
 # ~15): max |card - CPU| over max |CPU latents|. The plain versions in
 # bf16 on the CPU read 1.9% (0.291 of 15.1), the card 2.0% (NVIDIA H100
-# 80GB HBM3, 700 W); tools/v5_reference_rehearsal.py reads the card with
+# 80GB HBM3, 700 W); tools/reference_rehearsal.py reads the card with
 # K1 broken (each row handed its neighbour's output). The bound leaves a
 # 2.5x margin over the card
 REF_V5_REL_BOUND = 5e-2
@@ -279,6 +313,13 @@ REF_V5_FLOOR_MULT = 1.5
 # `kernels`
 REF_V4_REL_BOUND = 5e-2
 REF_V4_FLOOR_MULT = 1.5
+# the tiny V1-V3 request (2 heads x 72, motion modules at 1 head of 144 and
+# 2 of 72, DDIM), held as the V4 case is, with V4's bounds. On an NVIDIA
+# H100 80GB HBM3 (700 W) tools/reference_rehearsal.py --kind legacy reads
+# the card 2.09% (1.30x its 1.60% floor), the plain attention on the card
+# 1.97% (1.23x), K1 broken at d 72 54% (34x) and at d 144 31% (19x)
+REF_LEGACY_REL_BOUND = 5e-2
+REF_LEGACY_FLOOR_MULT = 1.5
 # tiny training step, bf16 on the card vs float32 on the CPU: loss relative
 # 1e-2, gradients 5e-2 of the largest |gradient|. bf16 weights and
 # activations alone (the plain versions in bf16 on the CPU) move the
@@ -315,6 +356,10 @@ PEAK_BYTES = 3.35e12
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
 K1_D88_SM90 = "flash_fwd_d88_sm90"  # K1's at head dim 88 (the same file)
+K1_D72_SM90 = "flash_fwd_d72_sm90"  # K1's at head dim 72 past 64 q rows
+# K1's mma.sync body at d 144 (csrc/attn_fwd.cuh; d 72's short passes run
+# its d 72 instance)
+K1_MMA = {72: "attn_fwd_kernelILi72ELb0", 144: "attn_fwd_kernelILi144ELb0"}
 K2_SM90 = "swa_fwd_sm90"  # K2's (csrc/swa_fwd.cu)
 K5_SM90 = "swa_fused_fwd_sm90"  # K5's (csrc/swa_fused_fwd.cu)
 K3_SM90 = "flash_bwd_dq_sm90"  # K3's (csrc/flash_bwd.cu)
@@ -437,7 +482,7 @@ def phase_build():
     seconds = time.perf_counter() - t0
     out, report = {}, {}
     for key, kernel in (("K1", K1_SM90), ("K1@88", K1_D88_SM90),
-                        ("K2", K2_SM90), ("K3", K3_SM90), ("K4", K4_SM90),
+                        ("K1@72", K1_D72_SM90), ("K2", K2_SM90), ("K3", K3_SM90), ("K4", K4_SM90),
                         ("K5", K5_SM90), ("K6", K6_SM90), ("K7", K7_SM90)):
         ptxas = _build.ptxas_report(kernel)
         sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
@@ -449,8 +494,13 @@ def phase_build():
                                            "EXIT"))
         out[key] = {"ptxas": ptxas, "sass": sass}
         report[kernel] = {"ptxas": ptxas, "sass": sass, "sass_sites": sites}
+    for d, kernel in K1_MMA.items():
+        out[f"K1@{d} mma"] = {"ptxas": _build.ptxas_report(kernel),
+                              "sass": _build.sass_counts(
+                                  kernel, ("HMMA", "STL", "LDL"))}
     emit({"phase": "build", "library": lib.name, "seconds": seconds,
-          **report})
+          **report, "mma_sync": {k: v for k, v in out.items()
+                                 if k.endswith("mma")}})
     for kernel, r in report.items():
         if not (r["sass"]["HGMMA"] and r["sass"]["UTMALDG"]):
             raise AssertionError(f"{kernel} issues no wgmma or no TMA load: "
@@ -530,9 +580,9 @@ def k1_bound(bh, sq, skv, d):
 
 def phase_kernels_v4(gen):
     """K1 at head dim 88 (its TMA + wgmma kernel, csrc/flash_fwd.cu on
-    fwd88_sm90.cuh) against its plain version at V4's three shapes and on
-    12 ragged heads, with its kernel / plain / SDPA (yardstick) times and
-    bounds at each shape."""
+    fwd_split_sm90.cuh) against its plain version at V4's three shapes and
+    on 12 ragged heads, with its kernel / plain / SDPA (yardstick) times
+    and bounds at each shape."""
     dev = DEVICE
 
     def rand(*shape, scale=1.0):
@@ -935,13 +985,19 @@ def reference_runs(kind, runs):
     V4_REF_FRAMES through the slice_mag MagViT), once per (name, device,
     dtype) of `runs`. Returns {name: float32 latents on the CPU} and the
     decoded uint8 video of the run named "card" (None without one); for
-    V4 also the card's decode without smoothing."""
+    V4 also the card's decode without smoothing. "legacy": the tiny V1-V3
+    Transformer3D (_tiny_legacy_models) at 128 x 128 x 5f, DDIM."""
     gen = torch.Generator().manual_seed(11)
-    v4 = kind == "v4"
-    lat0 = torch.randn(1, 4, V4_REF_FRAMES // 4 if v4 else 2, 8, 8,
-                       generator=gen)
+    v4, legacy = kind == "v4", kind == "legacy"
+    # the legacy request at 128 x 128: 64 tokens a frame, so that the text
+    # and Global_Self passes (2 frames) run past 64 q rows on K1's d 72
+    # TMA + wgmma kernel and the spatial and temporal ones on its mma.sync
+    # body
+    px = 128 if legacy else 64
+    lat0 = torch.randn(1, 4, V4_REF_FRAMES // 4 if v4 else 2, px // 8,
+                       px // 8, generator=gen)
     pos = torch.randn(1, 6, 24, generator=gen)
-    kw = dict(height=64, width=64, video_length=V4_REF_FRAMES if v4 else 5,
+    kw = dict(height=px, width=px, video_length=V4_REF_FRAMES if v4 else 5,
               num_inference_steps=3, guidance_scale=6.0, latents=lat0,
               output_type="latent")
     inpaint, v5 = kind == "i2v", kind in ("v5", "v4")
@@ -955,12 +1011,16 @@ def reference_runs(kind, runs):
     outs, decoded = {}, None
     for name, device, dtype in runs:
         models = (_tiny_v4_models(dtype) if v4
+                  else _tiny_legacy_models(dtype) if legacy
                   else _tiny_models(dtype, inpaint, v5))
         model, vae = (m.to(device) for m in models)
         pipe = pipe_cls(model, vae, device)
         if v5:  # V5's and V4's scheduler (the yamls' ddim), two streams
             pipe.scheduler = DDIMConfig()
             out = pipe(**_tiny_v5_prompts(device), **kw)
+        elif legacy:  # V1-V3's ddim, one T5 stream
+            pipe.scheduler = DDIMConfig()
+            out = pipe(pos, torch.zeros_like(pos), **kw)
         else:
             out = pipe(pos, torch.zeros_like(pos), **kw)
         outs[name] = out.float().cpu()
@@ -974,19 +1034,21 @@ def reference_runs(kind, runs):
 
 def phase_reference(kind):
     """The tiny request of `kind` (reference_runs) on the card (bf16,
-    kernels) against the CPU (float32, plain versions); V5 and V4 also
-    against their bf16 floor. V4's decode must smooth (its middle frames
-    differ from the unsmoothed decode's)."""
+    kernels) against the CPU (float32, plain versions); V5, V4 and V1-V3
+    ("legacy") also against their bf16 floor. V4's decode must smooth (its
+    middle frames differ from the unsmoothed decode's)."""
     rel = {"v5": (REF_V5_REL_BOUND, REF_V5_FLOOR_MULT),
-           "v4": (REF_V4_REL_BOUND, REF_V4_FLOOR_MULT)}.get(kind)
+           "v4": (REF_V4_REL_BOUND, REF_V4_FLOOR_MULT),
+           "legacy": (REF_LEGACY_REL_BOUND, REF_LEGACY_FLOOR_MULT)}.get(kind)
     runs = [("cpu", "cpu", "float32"), ("card", "cuda", "bfloat16")]
     if rel:  # the bf16 floor: the plain versions in bf16 on the CPU
         runs.append(("cpu_bf16", "cpu", "bfloat16"))
     outs, video = reference_runs(kind, runs)
     frames, want_frames = (V4_REF_FRAMES, 10) if kind == "v4" else (5, 5)
+    px = 128 if kind == "legacy" else 64
     diff = (outs["card"] - outs["cpu"]).abs()
     err = diff.max().item()
-    row = {"phase": "reference", "what": f"tiny {kind.upper()} 64x64x"
+    row = {"phase": "reference", "what": f"tiny {kind.upper()} {px}x{px}x"
            f"{frames}f, 3 steps: card bf16 kernels vs CPU float32 plain",
            "max_abs_err_latents": err,
            "mean_abs_err_latents": diff.mean().item()}
@@ -1000,7 +1062,7 @@ def phase_reference(kind):
         ok = True
     if rel:
         # DDIM's x0 steps take random-weight latents far from N(0, 1), so
-        # the V5 and V4 cases are held relative to their scale
+        # the V5, V4 and V1-V3 cases are held relative to their scale
         scale = outs["cpu"].abs().max().item()
         floor = (outs["cpu_bf16"] - outs["cpu"]).abs().max().item()
         row.update(latents_abs_max=scale, rel_err_latents=err / scale,
@@ -1010,7 +1072,7 @@ def phase_reference(kind):
     else:
         row["bound"] = REF_BOUND
         ok = err <= REF_BOUND
-    ok = (ok and video.shape == (1, 3, want_frames, 64, 64)
+    ok = (ok and video.shape == (1, 3, want_frames, px, px)
           and video.dtype.name == "uint8")
     emit({**row, "video_shape": list(video.shape), "ok": ok})
     if not ok:
@@ -1880,6 +1942,277 @@ def v4_request(phase, pipe, seed, steps, **inputs):
     emit({**row, "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: output or CLIP gate wrong: {row}")
+
+
+# V1-V3 (EasyAnimateV1-V3's Transformer3D: 28 layers of 16 heads x 72, the
+# T5-XXL caption width 4,096, learned sigma) at 512x512 on random T5
+# embeddings [2, LEGACY_TEXT_LEN, 4096] (the tower is cut): V2 and V3 take
+# 144 frames through slice_mag (36 latents of 32 x 32 patches, 36,864
+# tokens); V1 16 frames (the smoke's choice) through its 2D VAE, one latent
+# a frame; PixArt one 512x512 image
+LEGACY_H = LEGACY_W = 512
+LEGACY_TEXT_LEN, LEGACY_CAPTION = 120, 4096
+LEGACY_FRAMES = {"v3": 144, "v2": 144, "v1": 16, "pixart": 1}
+LEGACY_HEADS, LEGACY_HEAD_DIM = 16, 72
+LEGACY_TOKENS = 36 * (LEGACY_H // 16) * (LEGACY_W // 16)
+_TS, _GS = "Temporal_Self", "Global_Self"
+_MM = dict(num_transformer_block=1, temporal_position_encoding=True)
+# the yamls' transformer_additional_kwargs and vae_kwargs
+# (config/easyanimate_video_v{1,2,3}_*.yaml; the card has no yaml reader,
+# so they are written here and go through utils/config.py's builders)
+LEGACY_YAML = {
+    "v1": ({"transformer_type": "Transformer3DModel",
+            "basic_block_type": "motionmodule",
+            "motion_module_type": "VanillaGrid",
+            "motion_module_kwargs": dict(
+                _MM, num_attention_heads=8, attention_block_types=[_TS, _TS],
+                block_size=2)},
+           {"vae_type": "AutoencoderKL"}),
+    "v2": ({"transformer_type": "Transformer3DModel",
+            "basic_block_type": "motionmodule", "enable_uvit": True,
+            "motion_module_type": "Vanilla",
+            "motion_module_kwargs": dict(
+                _MM, num_attention_heads=8, attention_block_types=[_TS, _TS],
+                block_size=1)},
+           {"vae_type": "AutoencoderKLMagvit", "chunk_mode": "slice_mag",
+            "mini_batch_encoder": 9, "mini_batch_decoder": 3}),
+    "v3": ({"transformer_type": "Transformer3DModel",
+            "basic_block_type": "global_motionmodule", "enable_uvit": True,
+            "motion_module_type": "Vanilla",
+            "motion_module_kwargs_even": dict(
+                _MM, num_attention_heads=16, attention_block_types=[_TS, _TS]),
+            "motion_module_kwargs_odd": dict(
+                _MM, num_attention_heads=16, attention_block_types=[_TS, _GS])},
+           {"vae_type": "AutoencoderKLMagvit", "mini_batch_encoder": 8,
+            "mini_batch_decoder": 2, "chunk_mode": "slice_mag"}),
+}
+# K1 launches per CFG evaluation by head dim, and how many of them attend
+# over at most 64 q rows (the mma.sync body): each layer's spatial and text
+# passes (d 72, 1,024 and 36,864 or 16,384 q rows); V3's motion modules at
+# 16 heads (d 72): 2 Temporal_Self passes over 36 frames on even layers,
+# Temporal_Self + Global_Self (36,864 q rows) on odd ones; V2's at 8 heads
+# (d 144): 2 Temporal_Self passes over 36 frames; V1's the same over a 2 x
+# 2 cell's 4 x 16 = 64 tokens; PixArt's basic blocks none
+LEGACY_K1 = {"v3": ({72: 112}, 42), "v2": ({72: 56, 144: 56}, 56),
+             "v1": ({72: 56, 144: 56}, 56), "pixart": ({72: 56}, 0)}
+# K1's V1-V3 shapes, each over the CFG batch: (name, d, b*h, sq, skv)
+LEGACY_K1_CASES = (
+    ("K1@72 Global_Self", 72, 2 * LEGACY_HEADS, LEGACY_TOKENS, LEGACY_TOKENS),
+    ("K1@72 spatial", 72, 2 * 36 * LEGACY_HEADS, 1024, 1024),
+    ("K1@72 text", 72, 2 * LEGACY_HEADS, LEGACY_TOKENS, LEGACY_TEXT_LEN),
+    ("K1@72 temporal", 72, 2 * 1024 * LEGACY_HEADS, 36, 36),
+    ("K1@144 V2 temporal", 144, 2 * 1024 * 8, 36, 36),
+    ("K1@144 V1 grid", 144, 2 * 256 * 8, 64, 64))
+# V3's temporal pass at its published 768 x 768: b*h = 2 * 48^2 * 16, past
+# gridDim.y's 65,535
+LEGACY_BIG_BH = 2 * 48 * 48 * LEGACY_HEADS
+
+
+def phase_kernels_legacy(gen):
+    """K1 at head dims 72 (csrc/flash_fwd.cu::flash_fwd_d72_sm90 on
+    fwd_split_sm90.cuh past 64 q rows, the mma.sync body of attn_fwd.cuh
+    at most 64) and 144 (the mma.sync body) against its plain version at
+    the V1-V3 shapes of LEGACY_K1_CASES, with kernel / plain / SDPA
+    (yardstick) times and bounds; then at b*h = LEGACY_BIG_BH and on 12
+    ragged heads. Returns the K1@72 and K1@144 stats."""
+    dev = DEVICE
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    stats = {72: {"shapes": {}, "errs": []}, 144: {"shapes": {}, "errs": []}}
+    for name, d, bh, sq, skv in LEGACY_K1_CASES:
+        q = rand(bh, sq, d, scale=d ** -0.5 * LOG2E)
+        k, v = rand(bh, skv, d), rand(bh, skv, d)
+        st = stats[d]
+        st["errs"].append(_compare(f"{name} {list(q.shape)} x {skv}",
+                                   flash_attention_fwd, flash_attention_plain,
+                                   (q, k, v, skv)))
+        heads = LEGACY_HEADS if d == 72 else 8
+        q4, k4, v4 = (x.view(bh // heads, heads, -1, d) for x in (q, k, v))
+        bms, by = k1_bound(bh, sq, skv, d)
+        long = sq * skv > 1e8
+        sdpa, sdpa_error = library_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4),
+            5 if long else 20)
+        row = {"shape": [[bh, sq, d], [bh, skv, d]],
+               "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v),
+                             5 if long else 20),
+               "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
+               "sdpa_ms": sdpa, "bound_ms": bms, "bound_by": by,
+               "sm90": bool(_build.load_library().ea_flash_fwd_uses_sm90(
+                   d, sq))}
+        if sdpa_error:
+            row["sdpa_error"] = sdpa_error
+        row["share_of_bound"] = bms / row["ms"]
+        st["shapes"][name] = row
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    # b*h past 65,535 (the q blocks and b*h folded into blockIdx.x), each
+    # head offset by its own mean: a block that read or wrote another
+    # head's rows would show
+    shift = torch.arange(LEGACY_BIG_BH, device=dev).view(-1, 1, 1) % 5 - 2.0
+    q = rand(LEGACY_BIG_BH, 36, 72, scale=72 ** -0.5 * LOG2E)
+    k, v = ((rand(LEGACY_BIG_BH, 36, 72).float() + shift).to(torch.bfloat16)
+            for _ in range(2))
+    stats[72]["errs"].append(_compare(f"K1@72 b*h {LEGACY_BIG_BH}",
+                                      flash_attention_fwd,
+                                      flash_attention_plain, (q, k, v, 36)))
+    stats[72]["big_bh_ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v), 20)
+    del q, k, v, shift
+    # 12 heads of 1001 rows (not a multiple of the 192-row q blocks or the
+    # 96-row kv tiles), each head offset by its own mean: columns 72-79
+    # read from the next row would show
+    shift = torch.arange(12, device=dev).view(12, 1, 1) % 3 - 1.0
+    for d in (72, 144):
+        qh = rand(12, 1001, d, scale=d ** -0.5 * LOG2E)
+        kh, vh = ((rand(12, 1001, d).float() + shift).to(torch.bfloat16)
+                  for _ in range(2))
+        stats[d]["errs"].append(_compare(f"K1@{d} ragged heads 1001",
+                                         flash_attention_fwd,
+                                         flash_attention_plain,
+                                         (qh, kh, vh, 1001)))
+    for d, st in stats.items():
+        errs = st.pop("errs")
+        st.update(max_abs_err=max(e[0] for e in errs),
+                  max_rel_err=max(e[1] for e in errs))
+        emit({"phase": "kernels", "case": f"K1@{d} times", **st,
+              "note": "sdpa_ms is a yardstick, not on the path; sm90: the "
+                      "shape ran flash_fwd_d72_sm90, else the mma.sync "
+                      "body"})
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _tiny_legacy_models(dtype):
+    """Tiny V1-V3 Transformer3D at the kernels' new head dims (2 heads x
+    72; global motion modules, 1 head of 144 on the even layer and 2 of 72
+    on the odd one; caption width 24) and the reference's 4-block MagViT,
+    random float32 weights from a fixed seed, cast to dtype."""
+    cfg = Transformer3DConfig(
+        num_attention_heads=2, attention_head_dim=72, num_layers=2,
+        caption_channels=24, dtype="float32",
+        motion_module_even=MotionModuleConfig(num_attention_heads=1),
+        motion_module_odd=MotionModuleConfig(
+            num_attention_heads=2, attention_block_types=(_TS, _GS)))
+    vae_cfg = MagvitVAEConfig(latent_channels=4,
+                              block_out_channels=(32, 64, 128, 128),
+                              norm_num_groups=8, decode_chunk_frames=4)
+    gen = torch.Generator().manual_seed(7)
+    models = (init_random_(Transformer3D(cfg, device="cpu"), gen),
+              init_random_(AutoencoderKLMagvit(vae_cfg, device="cpu"), gen))
+    if dtype == "float32":
+        return models
+    cast = (Transformer3D(dataclasses.replace(cfg, dtype=dtype), device="cpu"),
+            AutoencoderKLMagvit(dataclasses.replace(vae_cfg, dtype=dtype),
+                                device="cpu"))
+    for dst, src in zip(cast, models):
+        dst.load_state_dict(src.state_dict())
+    return cast
+
+
+def legacy_models(edition, seed):
+    """The V1-V3 (or PixArt's) model at full width and depth from its yaml's
+    fields (LEGACY_YAML) through build_transformer and build_vae, random
+    bf16 weights built on meta and filled on the card. V2's and V3's
+    MagViT take latent_channels 4, the transformer's in_channels (the
+    yamls leave it unset and MagvitVAEConfig's 16 is V5's). PixArt:
+    Transformer2D over the V3 yaml's fields, and the V3 yaml's MagViT in
+    the cache_mag protocol: slice_mag maps one frame to 0 latents (as in
+    JAX), and JAX's PixArt runs over a cache_mag MagViT."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    t_kw, v_kw = LEGACY_YAML["v3" if edition == "pixart" else edition]
+    model, cfg = tconfig.build_transformer(t_kw, dtype="bfloat16",
+                                           device="meta")
+    if edition == "pixart":
+        model = Transformer2D(cfg, device="meta")
+        v_kw = dict(v_kw, chunk_mode="cache_mag")
+    extra = {} if v_kw["vae_type"] == "AutoencoderKL" else {"latent_channels": 4}
+    vae, _ = tconfig.build_vae(v_kw, dtype="bfloat16", device="meta", **extra)
+    model = init_random_(model.to_empty(device=DEVICE), gen)
+    vae = init_random_(vae.to_empty(device=DEVICE), gen)
+    torch.cuda.synchronize()
+    emit({"phase": f"{edition}_build", "params": sum(
+        p.numel() for p in model.parameters()),
+          "bytes": sum(p.numel() * p.element_size()
+                       for p in model.parameters()),
+          "vae": type(vae).__name__, "vae_chunk_mode": vae.cfg.chunk_mode,
+          "vae_params": sum(p.numel() for p in vae.parameters()),
+          "seconds": time.perf_counter() - t0})
+    return model, vae
+
+
+def legacy_request(phase, pipe, seed, steps, frames):
+    """One V1-V3 T2V (or PixArt T2I) request at LEGACY_H x LEGACY_W, CFG
+    6.0, DDIM, on random T5 embeddings [2, LEGACY_TEXT_LEN, 4096] (the
+    T5-XXL tower is cut), decoded to uint8: s/step, decode s, peak; checks
+    each step's latents and the output's shape."""
+    dev = pipe.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn(2, LEGACY_TEXT_LEN, LEGACY_CAPTION, generator=gen,
+                      device=dev)
+    image = isinstance(pipe, PixArtMagvitPipeline)
+    shape = pipe.latent_shape(1, frames, LEGACY_H, LEGACY_W)
+    lat0 = torch.randn(shape, generator=gen, device=dev)
+    stamps, calls = [], []
+    prev = [lat0.to(pipe.transformer.cfg.torch_dtype)]
+
+    def pre_hook(module, args):
+        if not calls:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        calls.append(1)
+
+    def check_step(i, lat):
+        if not bool(torch.isfinite(lat).all()):  # syncs: stamps are real
+            raise AssertionError(f"{phase}: non-finite latents at step {i}")
+        if torch.equal(prev[0], lat):
+            raise AssertionError(f"{phase}: latents unchanged at step {i}")
+        prev[0] = lat.clone()
+        stamps.append(time.perf_counter())
+
+    hook = pipe.transformer.register_forward_pre_hook(pre_hook)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = pipe(emb[:1], emb[1:], height=LEGACY_H, width=LEGACY_W,
+                   **({} if image else {"video_length": frames}),
+                   num_inference_steps=steps, guidance_scale=6.0,
+                   latents=lat0, generator=gen, output_type="uint8",
+                   callback=check_step)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    t_end = time.perf_counter()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    p = pipe.transformer.cfg.patch_size
+    vcfg = pipe.vae.cfg
+    if image:
+        want = (1, 3, LEGACY_H, LEGACY_W)
+    elif vcfg.chunk_mode == "slice_mag":  # 1 + (n - 1) * tc frames a chunk
+        n, t = vcfg.mini_batch_decoder, shape[2]
+        want = (1, 3, sum(1 + (min(n, t - i) - 1) * vcfg.temporal_compression
+                          for i in range(0, t, n)), LEGACY_H, LEGACY_W)
+    else:  # V1's 2D VAE: one frame a latent
+        want = (1, 3, frames, LEGACY_H, LEGACY_W)
+    row = {"phase": phase, "seed": seed, "steps": steps,
+           "latent_shape": list(shape),
+           "tokens": shape[2] * (shape[3] // p) * (shape[4] // p),
+           "evaluations": len(calls), "before_denoise_s": stamps[0] - t0,
+           "denoise_s_per_step": sum(step_s) / steps, "step_s": step_s,
+           "vae_decode_s": t_end - stamps[-1], "request_s": t_end - t0,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "vae": type(pipe.vae).__name__,
+           "output_shape": list(out.shape), "output_dtype": str(out.dtype)}
+    ok = tuple(out.shape) == want and out.dtype.name == "uint8"
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: output {out.shape} {out.dtype}, "
+                             f"expected {want} uint8")
 
 
 # the control and samplers phases' steps (PNDM's: min(--steps, 4)); with
@@ -2851,9 +3184,11 @@ COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
 
 def reset_counts():
     """The main path's run starts here. K3 and K4 share one counter (each
-    flash_attention_bwd call launches both), as do K6 and K7."""
+    flash_attention_bwd call launches both), as do K6 and K7; K1 also
+    counts its launches by head dim."""
     for fn in (*COUNTERS.values(), *QCOUNTERS.values()):
         fn.launches = 0
+    flash_attention_fwd.launches_by_dim = {}
     flash_attention_fwd.launches_sm90 = 0
     sliding_window_fwd.launches_sm90 = 0
     swa_local_global_fwd.launches_sm90 = 0
@@ -3456,6 +3791,9 @@ def main():
     v4_stats = phase_kernels_v4(
         torch.Generator(device="cuda").manual_seed(args.seed + 300))
     torch.cuda.synchronize()
+    legacy_stats = phase_kernels_legacy(
+        torch.Generator(device="cuda").manual_seed(args.seed + 400))
+    torch.cuda.synchronize()
     stats.update(phase_kernels_bwd(
         torch.Generator(device="cuda").manual_seed(args.seed + 100)))
     torch.cuda.synchronize()
@@ -3466,6 +3804,7 @@ def main():
     phase_reference("i2v")
     phase_reference("v5")
     phase_reference("v4")
+    phase_reference("legacy")
     torch.cuda.synchronize()
     phase_train_reference()
     torch.cuda.synchronize()
@@ -3482,26 +3821,39 @@ def main():
                      "K7": (sliding_window_bwd, K7_SM90)}
 
     totals_q = dict.fromkeys(QCOUNTERS, 0)
+    totals_by_dim = {}  # K1's launches over the path runs by head dim
 
-    def path_run(phase, fn, expect=None, expect_q=None):
+    def path_run(phase, fn, expect=None, expect_q=None, k1_dims=None,
+                 k1_short=0):
         """One main-path run: counts set to 0 just before, read just after;
         every launch of K1-K7 ran its TMA + wgmma kernel (d 64; K1 also at
-        V4's d 88); Q1-Q3 launched `expect_q` times (none on a float
+        V4's d 88 and V1-V3's d 72), but for the `k1_short` K1 launches
+        that the mma.sync body takes (V1-V3's d 144, and their d 72 passes
+        over at most 64 q rows); K1's launches by head dim are `k1_dims`
+        (when given); Q1-Q3 launched `expect_q` times (none on a float
         model's path)."""
         reset_counts()
         result = fn()
         got = read_counts()
         if expect is not None and got != expect:
             raise AssertionError(f"{phase} launches {got} != {expect}")
+        by_dim = dict(flash_attention_fwd.launches_by_dim)
+        if k1_dims is not None and by_dim != k1_dims:
+            raise AssertionError(f"{phase} K1 launches by head dim {by_dim} "
+                                 f"!= {k1_dims}")
+        for d, n in by_dim.items():
+            totals_by_dim[d] = totals_by_dim.get(d, 0) + n
         got_q = {k: f.launches for k, f in QCOUNTERS.items()}
         if got_q != (expect_q or dict.fromkeys(QCOUNTERS, 0)):
             raise AssertionError(f"{phase} Q launches {got_q} != {expect_q}")
         for k, n in got_q.items():
             totals_q[k] += n
         for key, (counter, kernel) in sm90_counters.items():
-            if counter.launches_sm90 != got[key]:
+            short = k1_short if key == "K1" else 0
+            if counter.launches_sm90 != got[key] - short:
                 raise AssertionError(f"{phase}: {counter.launches_sm90} of "
-                                     f"{got[key]} {key} launches ran {kernel}")
+                                     f"{got[key]} {key} launches ran {kernel}"
+                                     f" ({short} expected on mma.sync)")
             totals_sm90[key] += counter.launches_sm90
         for k, n in got.items():
             totals[k] += n
@@ -3658,6 +4010,29 @@ def main():
     del pipe, v4_model, v4_vae, v4_i2v, video, mask
     torch.cuda.empty_cache()
     v4_k1 = expect_v4_t2v["K1"] + expect_v4_i2v["K1"]
+    # V1-V3 (EasyAnimateV1-V3) and PixArt: the Transformer3D at full width
+    # and depth from each yaml's fields, DDIM; K1 at d 72 (its TMA + wgmma
+    # kernel past 64 q rows, the mma.sync body for V3's temporal passes)
+    # and d 144 (V1's and V2's motion modules, the mma.sync body)
+    expect_legacy, legacy_sm90 = {}, 0
+    for i, edition in enumerate(("v3", "v2", "v1", "pixart")):
+        model_l, vae_l = legacy_models(edition, args.seed + 110 + 2 * i)
+        pipe = (PixArtMagvitPipeline if edition == "pixart"
+                else EasyAnimatePipeline)(model_l, vae_l,
+                                          scheduler=DDIMConfig())
+        per_eval, short = LEGACY_K1[edition]
+        dims = {d: n * new_steps for d, n in per_eval.items()}
+        expect_legacy[edition] = dict(serve, K1=sum(dims.values()))
+        phase = "pixart" if edition == "pixart" else f"{edition}_t2v"
+        sm90_before = totals_sm90["K1"]
+        path_run(phase, lambda: legacy_request(
+            phase, pipe, args.seed + 111 + 2 * i, new_steps,
+            LEGACY_FRAMES[edition]), expect_legacy[edition], k1_dims=dims,
+            k1_short=short * new_steps)
+        legacy_sm90 += totals_sm90["K1"] - sm90_before
+        del pipe, model_l, vae_l
+        torch.cuda.empty_cache()
+    legacy_k1 = sum(e["K1"] for e in expect_legacy.values())
     n_sft = sum(steps for _, _, steps in SFT_VARIANTS)
     expect_train = {k: n * (lora_dense[k] + lora_swa[k])
                     + n_sft * SFT_LAUNCHES[k] + expect_driver[k]
@@ -3670,6 +4045,7 @@ def main():
             + expect_requests.get(k, 0) + expect_control[k]
             + expect_samplers[k] + expect_quant[k] + expect_v5[k]
             + expect_lora_v5[k] + expect_v4_t2v[k] + expect_v4_i2v[k]
+            + sum(e[k] for e in expect_legacy.values())
             for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")
@@ -3752,14 +4128,14 @@ def main():
                           "easyanimate_tpu/ops/flash_attention.py:92"),
                       "K1", ("flash_fwd.cu", "fwd_sm90.cuh"), 2 * dense,
                       "cross_sdpa_ms")
-    k1_row["launches"] -= v4_k1
-    k1_row["launches_sm90"] -= v4_sm90
+    k1_row["launches"] -= v4_k1 + legacy_k1
+    k1_row["launches_sm90"] -= v4_sm90 + legacy_sm90
     self88, ptxas88 = v4_stats["shapes"]["self"], build["K1@88"]["ptxas"]
     k1_88_row = {
         "name": "K1@88 flash_attention_fwd (d 88, V4)", "route": "cuda",
         "source": "easyanimate_tpu_torch/csrc/flash_fwd.cu",
         "sources": ["easyanimate_tpu_torch/csrc/flash_fwd.cu",
-                    "easyanimate_tpu_torch/csrc/fwd88_sm90.cuh",
+                    "easyanimate_tpu_torch/csrc/fwd_split_sm90.cuh",
                     "easyanimate_tpu_torch/csrc/hopper.cuh"],
         "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
         "launches": v4_k1, "launches_sm90": v4_sm90, "kernel": K1_D88_SM90,
@@ -3774,15 +4150,56 @@ def main():
         "spill_bytes": (ptxas88.get("spill_store_bytes", 0)
                         + ptxas88.get("spill_load_bytes", 0)),
         "sass": build["K1@88"]["sass"]}
+
+    def legacy_row(d, case, kernel, sources, launches_sm90):
+        """K1 at the V1-V3 head dim d: its path launches (those that ran
+        `kernel`, the rest the mma.sync body), ms, plain, SDPA and bound at
+        `case`'s shape, every shape's in `shapes`."""
+        st, main_case = legacy_stats[d], legacy_stats[d]["shapes"][case]
+        ptxas = build[f"K1@{d}" if launches_sm90 else f"K1@{d} mma"]["ptxas"]
+        return {
+            "name": f"K1@{d} flash_attention_fwd (d {d}, V1-V3)",
+            "route": "cuda",
+            "source": "easyanimate_tpu_torch/csrc/flash_fwd.cu",
+            "sources": [f"easyanimate_tpu_torch/csrc/{f}" for f in sources],
+            "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
+            "launches": totals_by_dim.get(d, 0),
+            "launches_sm90": launches_sm90,
+            "launches_mma_sync": totals_by_dim.get(d, 0) - launches_sm90,
+            "kernel": kernel, "max_abs_err": st["max_abs_err"],
+            "max_rel_err": st["max_rel_err"], "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["sdpa_ms"], "shape": main_case["shape"],
+            "share_of_bound": main_case["share_of_bound"],
+            "shapes": st["shapes"], "registers": ptxas.get("registers"),
+            "spill_bytes": (ptxas.get("spill_store_bytes", 0)
+                            + ptxas.get("spill_load_bytes", 0))}
+
+    k1_72_row = legacy_row(
+        72, "K1@72 Global_Self", f"{K1_D72_SM90} (+ {K1_MMA[72]})",
+        ("flash_fwd.cu", "fwd_split_sm90.cuh", "attn_fwd.cuh", "hopper.cuh"),
+        legacy_sm90)
+    k1_72_row["big_bh_ms"] = legacy_stats[72]["big_bh_ms"]
+    k1_144_row = legacy_row(144, "K1@144 V2 temporal", K1_MMA[144],
+                            ("flash_fwd.cu", "attn_fwd.cuh"), 0)
     for r in (k1_row, k1_88_row):
         if r["launches"] != r["launches_sm90"]:
             raise AssertionError(f"{r['name']} launches {r['launches']} != "
                                  f"sm90 {r['launches_sm90']}")
+    if (totals_by_dim.get(64, 0) != k1_row["launches"]
+            or totals_by_dim.get(88, 0) != k1_88_row["launches"]
+            or k1_72_row["launches"] + k1_144_row["launches"] != legacy_k1
+            or not k1_72_row["launches_sm90"]
+            or not k1_72_row["launches_mma_sync"]
+            or not k1_144_row["launches"]):
+        raise AssertionError(f"K1 launches by head dim {totals_by_dim}")
 
     emit({"kernels": [
         k1_row | {"v5_ms": stats["K1"]["v5_ms"],
                   "v5_shape": stats["K1"]["v5_shape"]},
-        k1_88_row,
+        k1_88_row, k1_72_row, k1_144_row,
         sm90_row(row("K2", "sliding_window_fwd", "swa_fwd.cu",
                      "easyanimate_tpu/ops/swa.py:32"),
                  "K2", ("swa_fwd.cu", "fwd_sm90.cuh"), 2 * band),
@@ -3819,7 +4236,14 @@ def main():
                "kernels (launches_sm90); K1@88 (V4's head dim, its own TMA + "
                "wgmma kernel): ms, plain_ms, library_ms (SDPA) and bound at "
                "V4's self attention [32, 36864, 88], shapes[] also at its "
-               "text (333) and CLIP (16) cross passes. K3/K4 and K6/K7 "
+               "text (333) and CLIP (16) cross passes. K1@72 (V1-V3's head "
+               "dim; its TMA + wgmma kernel past 64 q rows, the mma.sync "
+               "body for the temporal passes over 36 frames): ms, plain, "
+               "SDPA and bound at V3's Global_Self [32, 36864, 72], shapes[] "
+               "also at the spatial, text and temporal passes; big_bh_ms at "
+               "b*h 73728. K1@144 (V1's and V2's motion modules, the "
+               "mma.sync body): at V2's temporal pass [16384, 36, 144], "
+               "shapes[] also at V1's grid [4096, 64, 144]. K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "
                "kernels' gradients. K2 library_ms: SDPA with the band mask. "

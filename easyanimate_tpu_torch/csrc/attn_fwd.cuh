@@ -1,7 +1,10 @@
 // The mma.sync forward-attention body of K1 (flash_fwd.cu: dense), K2
 // (swa_fwd.cu: banded) and K5 (swa_fused_fwd.cu: banded + global) at head
-// dims 16 and 32 (the tiny test preset); at d 64 all three are TMA + wgmma
-// kernels on fwd_sm90.cuh, and so is K1 at d 88 (fwd88_sm90.cuh).
+// dims 16 and 32 (the tiny test preset), and of K1 at head dim 144 (V1's
+// and V2's motion modules) and at 72 for at most 64 q rows (V3's temporal
+// passes over 36 latent frames); at d 64 all three are TMA + wgmma kernels
+// on fwd_sm90.cuh, and so is K1 at d 88 and at d 72 past 64 q rows
+// (fwd_split_sm90.cuh).
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -9,16 +12,21 @@
 // [bh, S, d] row-major, o is bf16 [bh, Sq, d], lse is f32 [bh, Sq].
 //
 // Design (a simple kernel that is right first):
-//   - one block of 4 warps per (q tile of 64 rows, b*h); each warp owns 16
-//     q rows and keeps their bf16 A fragments in registers for the whole
-//     kv loop;
+//   - one block of 4 warps per (q tile of 64 rows, b*h), both folded into
+//     blockIdx.x (the q tiles of a head adjacent), so b*h may pass
+//     gridDim.y's 65,535 (V3's temporal pass at 768x768: 73,728); each warp
+//     owns 16 q rows and keeps their bf16 A fragments in registers for the
+//     whole kv loop;
 //   - kv streams through shared memory in tiles of 64 rows (k and v), with
 //     a __syncthreads fence around each load (no double buffering); rows
-//     padded to kRow<D> so fragment loads do not conflict in the banks;
+//     padded to kRow<D> so fragment loads do not conflict in the banks. The
+//     tiles are dynamic shared memory: at d 144 the q, k and v tiles take
+//     57 KB, past the 48 KB a static allocation may hold;
 //   - both products are mma.sync.m16n8k16 bf16 -> f32; the f32 score
 //     fragment of q k^T is re-packed in registers as the A operand of p v
 //     (the usual register-level FA2 layout trick), so p never touches
-//     shared memory;
+//     shared memory. At d 72 (not a multiple of 16) q k^T ends with one
+//     m16n8k8 step over columns 64-71;
 //   - running max / sum in f32, rows reduced across the 4 threads of a quad
 //     with shuffles;
 //   - the ragged edge is masked by column index (s = -inf), so no padded
@@ -27,12 +35,14 @@
 // What bounds it on an H100: at head_dim 64 each kv element loaded from
 // shared memory feeds 64 q rows, and the mma.sync path reaches a fraction
 // of the wgmma peak; with no load/compute overlap the tensor cores idle
-// during every tile load. hopper.cuh, fwd_sm90.cuh and fwd88_sm90.cuh hold
-// the TMA + wgmma + producer warpgroup pieces K1, K2 and K5 moved onto;
-// only their d 16 and 32 calls (the tiny test preset) still run this body.
-// At d 88 this body ran V4's self attention [32, 36864, 88] in 101.95 ms
-// on an NVIDIA H100 80GB HBM3 at 700 W, 15% of its 15.48 ms bound and 2.9x
-// SDPA's time there: the reason K1 took the TMA + wgmma design at 88 too.
+// during every tile load. hopper.cuh, fwd_sm90.cuh and fwd_split_sm90.cuh
+// hold the TMA + wgmma + producer warpgroup pieces K1, K2 and K5 moved
+// onto. At d 88 this body ran V4's self attention [32, 36864, 88] in
+// 101.95 ms on an NVIDIA H100 80GB HBM3 at 700 W, 15% of its 15.48 ms
+// bound and 2.9x SDPA's time there: the reason K1 took the TMA + wgmma
+// design at 88 and 72. The passes it keeps at 72 and 144 attend over 36 or
+// 64 tokens, and are bound by their bytes: each block reads its q, k and v
+// rows once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,9 +58,12 @@ constexpr int kBlockKV = 64;
 // Shared-memory row length of a [rows, D] bf16 tile: rows 16-byte aligned
 // (each is loaded as 16-byte chunks), and a row stride of 4 words past a
 // multiple of 8, so that the 8 rows (g) one fragment load touches fall in 8
-// distinct groups of 4 banks: D + 8 for d 16 and 32 (12 and 20 words).
+// distinct groups of 4 banks: D + 8 for d 16, 32 and 144 (12, 20 and 76
+// words); at d 72, D + 8 would be 40 words, so the rows stay 72 long (36).
 template <int D>
 constexpr int kRow = D + 8;
+template <>
+constexpr int kRow<72> = 72;
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = kWarps * 32;
 
@@ -61,6 +74,18 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The m16n8k8 step: c[16x8] += a[16x8] b[8x8] (K1's last 8 columns of q
+// k^T at d 72). a is the m16n8k16 A fragment's first half (rows g and g +
+// 8, columns 2t and 2t + 1), b its B fragment's first register.
+__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[2],
+                                         uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -126,12 +151,15 @@ struct SoftmaxState {
   }
 };
 
-// One warp's 16 q rows as bf16 A fragments, one per 16 columns of d.
+// One warp's 16 q rows as bf16 A fragments, one per 16 columns of d, and
+// at d 72 one m16n8k8 fragment for columns 64-71.
 template <int D>
 struct QFrags {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
   static constexpr int kSteps = D / 16;  // m16n8k16 steps
+  static constexpr bool kTail = D % 16 != 0;  // one m16n8k8 step after them
   uint32_t a[kSteps][4];
+  uint32_t tail[2];
 };
 
 // Load this warp's 16 q rows of sQ as bf16 A fragments.
@@ -145,6 +173,11 @@ __device__ __forceinline__ void load_q_frags(QFrags<D>& qa,
     qa.a[kk][1] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t]);
     qa.a[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 2 * t + 8]);
     qa.a[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t + 8]);
+  }
+  if constexpr (QFrags<D>::kTail) {
+    constexpr int c = QFrags<D>::kSteps * 16;
+    qa.tail[0] = ld32(&sQ[r0 + g][c + 2 * t]);
+    qa.tail[1] = ld32(&sQ[r0 + g + 8][c + 2 * t]);
   }
 }
 
@@ -174,6 +207,10 @@ __device__ __forceinline__ void attend_tiles(
         b[0] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t]);
         b[1] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t + 8]);
         mma_16816(s[nt], qa.a[kk], b);
+      }
+      if constexpr (QFrags<D>::kTail) {
+        mma_1688(s[nt], qa.tail,
+                 ld32(&sK[nt * 8 + g][QFrags<D>::kSteps * 16 + 2 * t]));
       }
     }
 
@@ -249,8 +286,12 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16
-// and 32).
+// The q, k and v tiles' bytes (dynamic shared memory).
+template <int D>
+constexpr int kFwdSmemBytes = (kBlockQ + 2 * kBlockKV) * kRow<D> * 2;
+
+// kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16,
+// 32 and 144, and at 72 over at most 64 q rows).
 // kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
 template <int D, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
@@ -259,12 +300,14 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int sq, int skv, int kv_len, int window) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kRow<D>];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockKV][kRow<D>];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockKV][kRow<D>];
+  extern __shared__ __align__(16) uint8_t attn_fwd_smem[];
+  auto* sQ = reinterpret_cast<__nv_bfloat16 (*)[kRow<D>]>(attn_fwd_smem);
+  auto* sK = sQ + kBlockQ;
+  auto* sV = sK + kBlockKV;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int n_qt = (sq + kBlockQ - 1) / kBlockQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - bh * n_qt) * kBlockQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // row within the 8-row half of the fragment
@@ -316,12 +359,28 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int D, bool kWindowed>
+int launch_attn_fwd_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                      const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                      int bh, int sq, int skv, int kv_len, int window,
+                      cudaStream_t st) {
+  constexpr int bytes = kFwdSmemBytes<D>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_fwd_kernel<D, kWindowed>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((sq + kBlockQ - 1) / kBlockQ) * bh);
+  attn_fwd_kernel<D, kWindowed><<<grid, kThreads, bytes, st>>>(
+      q, k, v, o, lse, sq, skv, kv_len, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kWindowed>
 int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
                     void* lse, int bh, int sq, int skv, int kv_len,
                     int window, int head_dim, void* stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
-  const dim3 block(kThreads);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
@@ -330,19 +389,30 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
   auto* lp = static_cast<float*>(lse);
   switch (head_dim) {
     case 16:
-      attn_fwd_kernel<16, kWindowed><<<grid, block, 0, st>>>(
-          qp, kp, vp, op, lp, sq, skv, kv_len, window);
-      break;
+      return launch_attn_fwd_d<16, kWindowed>(qp, kp, vp, op, lp, bh, sq,
+                                              skv, kv_len, window, st);
     case 32:
-      attn_fwd_kernel<32, kWindowed><<<grid, block, 0, st>>>(
-          qp, kp, vp, op, lp, sq, skv, kv_len, window);
+      return launch_attn_fwd_d<32, kWindowed>(qp, kp, vp, op, lp, bh, sq,
+                                              skv, kv_len, window, st);
+    // K1 only: its wrapper refuses 72 and 144 for K2 (KERNEL_HEAD_DIMS)
+    case 72:
+      if constexpr (!kWindowed) {
+        return launch_attn_fwd_d<72, false>(qp, kp, vp, op, lp, bh, sq, skv,
+                                            kv_len, window, st);
+      }
+      break;
+    case 144:
+      if constexpr (!kWindowed) {
+        return launch_attn_fwd_d<144, false>(qp, kp, vp, op, lp, bh, sq, skv,
+                                             kv_len, window, st);
+      }
       break;
     // d 64 runs the TMA + wgmma kernels (flash_fwd.cu, swa_fwd.cu), and so
     // does K1's d 88: no instance here
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace ea

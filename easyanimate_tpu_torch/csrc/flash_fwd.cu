@@ -53,33 +53,49 @@
 // the consumer loop below, over every kv tile with the last one masked, is
 // K1's own.
 //
-// Design at head_dim 88 (V4's HunyuanDiT: self attention over 36,864
-// tokens at 512x512x144f, the text cross pass over 77 + 256 tokens, the
-// CLIP cross pass over 16), flash_fwd_d88_sm90 below on fwd88_sm90.cuh:
-// the same block, producer and consumer loop, with each row of 176 bytes
-// loaded as two TMA boxes (columns 0-63, 128-byte swizzle; columns 64-95,
-// 64-byte swizzle, TMA filling 88-95 with zeros); q k^T as six k16 steps
-// of m64n96k16, p v as m64n64k16 + m64n24k16 a k step; kv tiles of 96
-// rows through a ring of 4 stages, so that o (44 f32), the scores (48)
-// and p (24) fit the launch's 128 registers a thread; o's rescale skipped
-// when neither of a thread's rows' max moved; p v issued in two halves, the
-// second half's exponentials running while the first half's product is
-// on the tensor cores. Bound on the H100: V4's
-// self attention [32, 36,864, 88] does 4 * 32 * 36864^2 * 88 = 15.3 TFLOP,
+// Design at head_dims 88 and 72, flash_fwd_d88_sm90 and flash_fwd_d72_sm90
+// below on fwd_split_sm90.cuh. At 88: V4's HunyuanDiT (self attention
+// over 36,864 tokens at 512x512x144f, the text cross pass over 77 + 256
+// tokens, the CLIP cross pass over 16). At 72: the V1-V3 Transformer3D
+// (the spatial self attention over one frame's 1,024 tokens, the text
+// cross pass over 120, V3's Global_Self over 36,864). The same block,
+// producer and consumer loop as at 64, with each row loaded as two TMA
+// boxes: columns 0-63, 128-byte swizzle, and a hi box of the columns past
+// 64 (at 88 columns 64-95, 64-byte swizzle, TMA filling 88-95 with zeros;
+// at 72 columns 64-79, 32-byte swizzle, 72-79 zeros); q k^T as four k16
+// steps of m64n96k16 over lo and two (88) or one (72) over hi, p v as
+// m64n64k16 + m64n24k16 (88) or + m64n8k16 (72) a k step; kv tiles of 96
+// rows through a ring of 4 stages, so that o (44 f32 at 88, 36 at 72),
+// the scores (48) and p (24) fit the launch's 128 registers a thread; o's
+// rescale skipped when neither of a thread's rows' max moved; p v issued
+// in two halves, the second half's exponentials running while the first
+// half's product is on the tensor cores. Bound on the H100: V4's self
+// attention [32, 36,864, 88] does 4 * 32 * 36864^2 * 88 = 15.3 TFLOP,
 // 15.48 ms at 989 TFLOP/s (q k^T over 96 columns costs 4.5% more); the
-// text pass 0.140 ms (operations), the CLIP pass 0.125 ms (bytes: q and o).
-// Tried on the card and dropped: 128-row kv tiles (they spill); 2 or 3
+// text pass 0.140 ms (operations), the CLIP pass 0.125 ms (bytes: q and
+// o). V3's Global_Self [32, 36,864, 72]: 12.66 ms (operations; q k^T over
+// 80 columns costs 11% more). Tried on the card at 88 and dropped: 128-row
+// kv tiles (they spill; at 72 they take a 256-byte stack frame); 2 or 3
 // stages; p v at n32 over the zero columns; the consumers taking turns on
-// named barriers to issue their q k^T, or their p v and the next q k^T
-// (no faster, or spilling: the second holds p and the next scores at
-// once). Not tried: two consumers of 128 q rows at 240 registers (a third
-// more k/v traffic from L2 per q row, one consumer fewer to fill the
-// others' softmax gaps, and ptxas sizes consumers by the launch's 168).
+// named barriers to issue their q k^T, or their p v and the next q k^T (no
+// faster, or spilling: the second holds p and the next scores at once).
+// Not tried: two consumers of 128 q rows at 240 registers (a third more
+// k/v traffic from L2 per q row, one consumer fewer to fill the others'
+// softmax gaps, and ptxas sizes consumers by the launch's 168).
 //
-// Head dims 16 and 32 (the tiny test preset only) stay on the mma.sync
+// Every launch of these three kernels folds the q block and b*h into
+// blockIdx.x (the q blocks of one head adjacent, so the blocks resident
+// at once share their heads' k and v in L2, as with q blocks on x and
+// b*h on y), so b*h may pass gridDim.y's 65,535: V3's temporal pass at
+// 768x768 has b*h = 73,728.
+//
+// Head dims 16 and 32 (the tiny test preset), 144 (V1's and V2's motion
+// modules: short temporal passes over f or 4f tokens) and 72 at sq <=
+// kShortRows (V3's temporal passes over f = 36 latent frames, where a
+// 192-row q block would idle more than 80% of its rows) run the mma.sync
 // body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16, never a
 // fallback on failure. ea_flash_fwd_uses_sm90 tells the wrapper which ran.
-#include "fwd88_sm90.cuh"
+#include "fwd_split_sm90.cuh"
 #include "fwd_sm90.cuh"
 
 namespace ea {
@@ -137,8 +153,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                float* __restrict__ lse, int sq, int kv_valid) {
   Smem& sm = fwd90::init_smem();
   const int warpgroup = threadIdx.x / 128;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
+  const int n_qb = (sq + kBlockM - 1) / kBlockM;
+  const int bh = blockIdx.x / n_qb;
+  const int q0 = (blockIdx.x - bh * n_qb) * kBlockM;
   const int n_tiles = (kv_valid + kBlockN - 1) / kBlockN;
   if (warpgroup == 0) {
     fwd90::produce(sm, &tm_q, &tm_k, &tm_v, q0, bh, 0, n_tiles);
@@ -157,82 +174,103 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       flash_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (st != cudaSuccess) return static_cast<int>(st);
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
+  const dim3 grid(static_cast<unsigned>((sq + kBlockM - 1) / kBlockM) * bh);
   flash_fwd_sm90<<<grid, kThreads, kSmemBytes, stream>>>(
       m.q, m.k, m.v, m.o, static_cast<float*>(lse), sq, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One consumer warpgroup at d 88: K1's consume on fwd88_sm90.cuh's pieces.
-__device__ __forceinline__ void consume_d88(fwd88::Smem& sm,
-                                            const fwd88::Maps& m,
-                                            float* __restrict__ lse, int c,
-                                            int bh, int q0, int sq,
-                                            int kv_valid, int n_tiles) {
+// One consumer warpgroup at d 88 or 72: K1's consume on
+// fwd_split_sm90.cuh's pieces.
+template <int D>
+__device__ __forceinline__ void consume_split(fwdsplit::Smem<D>& sm,
+                                              const fwdsplit::Maps<D>& m,
+                                              float* __restrict__ lse, int c,
+                                              int bh, int q0, int sq,
+                                              int kv_valid, int n_tiles) {
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int r_a = warp * 16 + g;  // this thread's two rows in the 64
   const int r_b = r_a + 8;
-  const fwd88::QDesc dq{
-      sm90::desc_sw128(sm.q_lo + c * 64 * fwd88::kLoCols, 16, 1024),
-      sm90::desc_sw64(sm.q_hi + c * 64 * fwd88::kHiCols, 16, 512)};
+  const fwdsplit::QDesc dq{
+      sm90::desc_sw128(sm.q_lo + c * 64 * fwdsplit::kLoCols, 16, 1024),
+      fwdsplit::desc_hi<D>(sm.q_hi + c * 64 * fwdsplit::kHiCols<D>, 16,
+                           8 * fwdsplit::kHiRowBytes<D>)};
 
-  float o_lo[32], o_hi[fwd88::kHiOut / 2];
+  float o_lo[32], o_hi[fwdsplit::kHiOut<D> / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o_lo[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < fwd88::kHiOut / 2; ++i) o_hi[i] = 0.f;
+  for (int i = 0; i < fwdsplit::kHiOut<D> / 2; ++i) o_hi[i] = 0.f;
   fwd90::RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
 
   sm90::mbar_wait(&sm.q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % fwd88::kStages;
-    sm90::mbar_wait(&sm.full[s], (j / fwd88::kStages) & 1);
+    const int s = j % fwdsplit::kStages;
+    sm90::mbar_wait(&sm.full[s], (j / fwdsplit::kStages) & 1);
     float sc[48];
     sm90::wgmma_fence();
-    fwd88::issue_qk(sc, dq, sm.k_lo[s], sm.k_hi[s]);
+    fwdsplit::issue_qk<D>(sc, dq, sm.k_lo[s], sm.k_hi[s]);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
-    fwd88::mask_tail(sc, j * fwd88::kBlockN, kv_valid, t);
-    fwd88::softmax_pv(sc, o_lo, o_hi, st, sm, s, lane);
+    fwdsplit::mask_tail(sc, j * fwdsplit::kBlockN, kv_valid, t);
+    fwdsplit::softmax_pv<D>(sc, o_lo, o_hi, st, sm, s, lane);
   }
-  fwd88::store_o_lse(o_lo, o_hi, st, sm, m, lse, c, bh, q0, sq, tid, t, r_a,
-                     r_b);
+  fwdsplit::store_o_lse<D>(o_lo, o_hi, st, sm, m, lse, c, bh, q0, sq, tid, t,
+                           r_a, r_b);
 }
 
-__global__ void __launch_bounds__(fwd88::kThreads, 1)
-flash_fwd_d88_sm90(const __grid_constant__ fwd88::Maps m,
-                   float* __restrict__ lse, int sq, int kv_valid) {
-  fwd88::Smem& sm = fwd88::init_smem();
+// The block at d 88 or 72: the producer warpgroup, then three consumers.
+template <int D>
+__device__ __forceinline__ void split_block(const fwdsplit::Maps<D>& m,
+                                            float* __restrict__ lse, int sq,
+                                            int kv_valid) {
+  fwdsplit::Smem<D>& sm = fwdsplit::init_smem<D>();
   const int warpgroup = threadIdx.x / 128;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * fwd88::kBlockM;
-  const int n_tiles = (kv_valid + fwd88::kBlockN - 1) / fwd88::kBlockN;
+  const int n_qb = (sq + fwdsplit::kBlockM - 1) / fwdsplit::kBlockM;
+  const int bh = blockIdx.x / n_qb;
+  const int q0 = (blockIdx.x - bh * n_qb) * fwdsplit::kBlockM;
+  const int n_tiles = (kv_valid + fwdsplit::kBlockN - 1) / fwdsplit::kBlockN;
   if (warpgroup == 0) {
-    fwd88::produce(sm, m, q0, bh, n_tiles);
+    fwdsplit::produce<D>(sm, m, q0, bh, n_tiles);
   } else {
-    sm90::setmaxnreg_inc<fwd88::kConsumerRegs>();
-    consume_d88(sm, m, lse, warpgroup - 1, bh, q0, sq, kv_valid, n_tiles);
+    sm90::setmaxnreg_inc<fwdsplit::kConsumerRegs>();
+    consume_split<D>(sm, m, lse, warpgroup - 1, bh, q0, sq, kv_valid,
+                     n_tiles);
   }
+}
+
+__global__ void __launch_bounds__(fwdsplit::kThreads, 1)
+flash_fwd_d88_sm90(const __grid_constant__ fwdsplit::Maps<88> m,
+                   float* __restrict__ lse, int sq, int kv_valid) {
+  split_block<88>(m, lse, sq, kv_valid);
+}
+
+__global__ void __launch_bounds__(fwdsplit::kThreads, 1)
+flash_fwd_d72_sm90(const __grid_constant__ fwdsplit::Maps<72> m,
+                   float* __restrict__ lse, int sq, int kv_valid) {
+  split_block<72>(m, lse, sq, kv_valid);
 }
 
 // Refuses the launch (cudaErrorInvalidConfiguration) unless ptxas gave the
 // kernel the 128 registers its setmaxnreg balance assumes.
-int launch_d88(const void* q, const void* k, const void* v, void* o,
-               void* lse, int bh, int sq, int skv, int kv_valid,
-               cudaStream_t stream) {
-  fwd88::Maps m;
-  int err = fwd88::encode_maps(m, q, k, v, o, bh, sq, skv, kv_valid);
+template <int D, typename Kernel>
+int launch_split(Kernel* kernel, const void* q, const void* k, const void* v,
+                 void* o, void* lse, int bh, int sq, int skv, int kv_valid,
+                 cudaStream_t stream) {
+  fwdsplit::Maps<D> m;
+  int err = fwdsplit::encode_maps<D>(m, q, k, v, o, bh, sq, skv, kv_valid);
   if (err) return err;
-  err = sm90::check_launch_regs(flash_fwd_d88_sm90, fwd88::kLaunchRegs);
+  err = sm90::check_launch_regs(kernel, fwdsplit::kLaunchRegs);
   if (err) return err;
   cudaError_t st = cudaFuncSetAttribute(
-      flash_fwd_d88_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(fwd88::kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(fwdsplit::kSmemBytes<D>));
   if (st != cudaSuccess) return static_cast<int>(st);
-  const dim3 grid((sq + fwd88::kBlockM - 1) / fwd88::kBlockM, bh);
-  flash_fwd_d88_sm90<<<grid, fwd88::kThreads, fwd88::kSmemBytes, stream>>>(
+  const dim3 grid(static_cast<unsigned>(
+      (sq + fwdsplit::kBlockM - 1) / fwdsplit::kBlockM) * bh);
+  kernel<<<grid, fwdsplit::kThreads, fwdsplit::kSmemBytes<D>, stream>>>(
       m, static_cast<float*>(lse), sq, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
@@ -240,8 +278,16 @@ int launch_d88(const void* q, const void* k, const void* v, void* o,
 }  // namespace k1
 }  // namespace ea
 
-extern "C" int ea_flash_fwd_uses_sm90(int head_dim) {
-  return head_dim == ea::fwd90::kD || head_dim == ea::fwd88::kD;
+// q rows at or below which d 72 runs the mma.sync body (V3's temporal
+// passes over 36 latent frames): on an H100 80GB HBM3 (700 W) the body
+// takes 0.451 / 0.310 ms at 36 / 64 rows against flash_fwd_d72_sm90's
+// 1.084 / 0.635, which leads from 96 rows (0.452 against 0.542) at the
+// same 1.18 M q rows (tools/k1_d72_crossover.py)
+constexpr int kShortRows = 64;
+
+extern "C" int ea_flash_fwd_uses_sm90(int head_dim, int sq) {
+  return head_dim == ea::fwd90::kD || head_dim == 88 ||
+         (head_dim == 72 && sq > kShortRows);
 }
 
 extern "C" int ea_flash_fwd_bf16(const void* q, const void* k, const void* v,
@@ -251,8 +297,15 @@ extern "C" int ea_flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (head_dim == ea::fwd90::kD) {
     return ea::k1::launch(q, k, v, o, lse, bh, sq, skv, kv_valid, st);
   }
-  if (head_dim == ea::fwd88::kD) {
-    return ea::k1::launch_d88(q, k, v, o, lse, bh, sq, skv, kv_valid, st);
+  if (head_dim == 88) {
+    return ea::k1::launch_split<88>(ea::k1::flash_fwd_d88_sm90, q, k, v, o,
+                                    lse, bh, sq, skv, kv_valid, st);
+  }
+  // past d 64 and 88 the predicate holds for d 72's long passes only; the
+  // wrappers' launches_sm90 count reads the same predicate
+  if (ea_flash_fwd_uses_sm90(head_dim, sq)) {
+    return ea::k1::launch_split<72>(ea::k1::flash_fwd_d72_sm90, q, k, v, o,
+                                    lse, bh, sq, skv, kv_valid, st);
   }
   return ea::launch_attn_fwd<false>(q, k, v, o, lse, bh, sq, skv, kv_valid,
                                     /*window=*/0, head_dim, stream);

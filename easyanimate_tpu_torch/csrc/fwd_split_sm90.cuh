@@ -1,39 +1,51 @@
-// The pieces of K1's TMA + wgmma forward-attention block at head_dim 88
-// (V4's HunyuanDiT; flash_fwd.cu's note gives the design): the tile shape
-// and register split, the shared-memory layout, the producer's loads, the
-// two products, the online base-2 softmax of one tile, the tail mask and
-// the epilogue. It is fwd_sm90.cuh's block (K1 at d 64) with each row cut
-// in two, kept apart from that header so that K1, K2 and K5 at d 64
-// compile as they did.
+// The pieces of K1's TMA + wgmma forward-attention block at head dims 88
+// (V4's HunyuanDiT) and 72 (the V1-V3 Transformer3D; flash_fwd.cu's note
+// gives the design): the tile shape and register split, the shared-memory
+// layout, the producer's loads, the two products, the online base-2
+// softmax of one tile, the tail mask and the epilogue. It is fwd_sm90.cuh's
+// block (K1 at d 64) with each row cut in two, kept apart from that header
+// so that K1, K2 and K5 at d 64 compile as they did.
 //
-// A row of 88 bf16 is 176 bytes, more than one 128-byte swizzle span. Every
-// q, k, v and o tile is therefore two TMA boxes over the same [bh, S, 88]
-// tensor, whose maps take 88 as the column extent:
+// A row of D bf16 is more than 128 bytes, one 128-byte swizzle span. Every
+// q, k, v and o tile is therefore two TMA boxes over the same [bh, S, D]
+// tensor, whose maps take D as the column extent:
 //   - "lo": columns 0-63, rows of 128 bytes, 128-byte swizzle (as at d 64);
-//   - "hi": columns 64-95, rows of 64 bytes, 64-byte swizzle; TMA fills
-//     columns 88-95 with zeros in shared memory (they lie past the map's
-//     extent), so nothing is padded in global memory, and a store clips
-//     them. A map declared 96 columns wide would read the next row's first
-//     8 values there instead.
-// q k^T takes four k16 steps over lo and two over hi (the zero columns add
-// nothing); p v one n64 product over lo's columns and one n24 over the
-// first 24 of hi's, so no product runs over columns 88-95.
-//
-// Head dim 72 (V1-V3) is the same block with a 16-column hi part (rows of
-// 32 bytes, 32-byte swizzle, one k16 step of q k^T, an n8 p v): the hi
-// constants below and one more wgmma wrapper.
+//   - "hi": the next Split<D>::kHiCols columns, the smallest swizzle span
+//     that holds D - 64 of them: at d 88 columns 64-95 (rows of 64 bytes,
+//     64-byte swizzle), at d 72 columns 64-79 (rows of 32 bytes, 32-byte
+//     swizzle). TMA fills the columns past D with zeros in shared memory
+//     (they lie past the map's extent), so nothing is padded in global
+//     memory, and a store clips them. A map declared wider than D would read
+//     the next row's first values there instead.
+// q k^T takes four k16 steps over lo and kHiCols / 16 over hi (the zero
+// columns add nothing); p v one n64 product over lo's columns and one of n
+// = D - 64 over the first columns of hi (n24 at 88, n8 at 72), so no
+// product runs over the zero columns.
 #pragma once
 
 #include "fwd_sm90.cuh"
 #include "hopper.cuh"
 
 namespace ea {
-namespace fwd88 {
+namespace fwdsplit {
 
-constexpr int kD = 88;                       // head_dim of the block
+// The hi box of a row of D columns: its width and its swizzle.
+template <int D>
+struct Split;
+
+template <>
+struct Split<88> {
+  static constexpr int kHiCols = 32;  // columns 64-95 (88-95 zero)
+  static constexpr CUtensorMapSwizzle kHiSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+template <>
+struct Split<72> {
+  static constexpr int kHiCols = 16;  // columns 64-79 (72-79 zero)
+  static constexpr CUtensorMapSwizzle kHiSwizzle = CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
 constexpr int kLoCols = 64;                  // columns 0-63
-constexpr int kHiCols = 32;                  // columns 64-95 (88-95 zero)
-constexpr int kHiOut = kD - kLoCols;         // p v's columns 64-87
 constexpr int kConsumers = 3;                // consumer warpgroups
 constexpr int kBlockM = 64 * kConsumers;     // q rows per block
 constexpr int kBlockN = 96;                  // kv rows per stage
@@ -41,38 +53,76 @@ constexpr int kStages = 4;
 constexpr int kThreads = 128 * (kConsumers + 1);
 // registers a thread, as at d 64: the launch gives 65536 / 512 = 128; the
 // producer's 128 x (128 - 32) given back are the consumers' 384 x (160 -
-// 128). ptxas fits the consumers into the launch's 128: o (32 + 12), the
-// scores (48) and p (24) of a 96-row kv tile
+// 128). ptxas fits the consumers into the launch's 128: at d 88 o (32 +
+// 12), the scores (48) and p (24) of a 96-row kv tile; at d 72 o takes 32 +
+// 4
 constexpr int kLaunchRegs = 128;
 constexpr int kProducerRegs = 32;
 constexpr int kConsumerRegs = 160;
 constexpr int kLoRowBytes = kLoCols * 2;     // 128
-constexpr int kHiRowBytes = kHiCols * 2;     // 64
-constexpr uint32_t kQBytes = kBlockM * (kLoRowBytes + kHiRowBytes);
-constexpr uint32_t kTileBytes = kBlockN * (kLoRowBytes + kHiRowBytes);
+
+template <int D>
+constexpr int kHiCols = Split<D>::kHiCols;
+template <int D>
+constexpr int kHiOut = D - kLoCols;          // p v's columns 64..D-1
+template <int D>
+constexpr int kHiRowBytes = kHiCols<D> * 2;  // 64 at d 88, 32 at d 72
+template <int D>
+constexpr uint32_t kQBytes = kBlockM * (kLoRowBytes + kHiRowBytes<D>);
+template <int D>
+constexpr uint32_t kTileBytes = kBlockN * (kLoRowBytes + kHiRowBytes<D>);
 
 // Every array starts 1024-byte aligned (each is a multiple of 1024 bytes):
-// the 128-byte swizzle's atom, and twice the 64-byte swizzle's.
+// the 128-byte swizzle's atom, and a multiple of the narrower ones'.
+template <int D>
 struct Smem {
   __nv_bfloat16 q_lo[kBlockM * kLoCols];
-  __nv_bfloat16 q_hi[kBlockM * kHiCols];
+  __nv_bfloat16 q_hi[kBlockM * kHiCols<D>];
   __nv_bfloat16 k_lo[kStages][kBlockN * kLoCols];
-  __nv_bfloat16 k_hi[kStages][kBlockN * kHiCols];
+  __nv_bfloat16 k_hi[kStages][kBlockN * kHiCols<D>];
   __nv_bfloat16 v_lo[kStages][kBlockN * kLoCols];
-  __nv_bfloat16 v_hi[kStages][kBlockN * kHiCols];
+  __nv_bfloat16 v_hi[kStages][kBlockN * kHiCols<D>];
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t q_full;
 };
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+template <int D>
+constexpr size_t kSmemBytes = sizeof(Smem<D>) + 1024;  // + alignment slack
 
 using fwd90::RowStats;
 using sm90::fast_exp2;
 
-__device__ __forceinline__ Smem& init_smem() {
+// A descriptor of a hi tile (swizzled as its map loads it): rows of 64
+// bytes at d 88, of 32 at d 72.
+template <int D>
+__device__ __forceinline__ uint64_t desc_hi(const void* tile,
+                                            uint32_t lbo_bytes,
+                                            uint32_t sbo_bytes) {
+  if constexpr (kHiCols<D> == 32) {
+    return sm90::desc_sw64(tile, lbo_bytes, sbo_bytes);
+  } else {
+    return sm90::desc_sw32(tile, lbo_bytes, sbo_bytes);
+  }
+}
+
+// Where the 16-byte chunk i of hi row r sits in its swizzled row: the
+// swizzle XORs the chunk index with the address bits 7 and up, which a
+// row of 64 bytes reaches at r / 2 and one of 32 bytes at r / 4.
+template <int D>
+__device__ __forceinline__ int hi_chunk(int i, int r) {
+  if constexpr (kHiCols<D> == 32) {
+    return i ^ ((r >> 1) & 3);
+  } else {
+    return i ^ ((r >> 2) & 1);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ Smem<D>& init_smem() {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = sm90::smem_u32(smem_raw);
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
+      smem_raw + (((base + 1023) & ~1023u) - base));
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
@@ -90,40 +140,47 @@ __device__ __forceinline__ Smem& init_smem() {
 // rows, in boxes of the block's rows and a consumer's 64; k and v over
 // kv_rows rows (rows at or past it read as zeros, so no tile reads another
 // head's rows), in boxes of kBlockN.
+template <int D>
 struct Maps {
   CUtensorMap q_lo, q_hi, k_lo, k_hi, v_lo, v_hi, o_lo, o_hi;
 };
 
-// One tensor's two maps over [bh, *, 88] with head_rows rows a head, of
+// One tensor's two maps over [bh, *, D] with head_rows rows a head, of
 // which the first `rows` are read (rows past them arrive as zeros).
+template <int D>
 inline int encode_pair(CUtensorMap* lo, CUtensorMap* hi, const void* base,
                        int rows, int head_rows, int bh, int box_rows) {
-  const uint64_t head = (uint64_t)head_rows * kD * 2;
-  int err = sm90::encode_rows(lo, base, kD, rows, bh, head, kLoCols, box_rows,
+  const uint64_t head = (uint64_t)head_rows * D * 2;
+  int err = sm90::encode_rows(lo, base, D, rows, bh, head, kLoCols, box_rows,
                               CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!err) err = sm90::encode_rows(hi, base, kD, rows, bh, head, kHiCols,
-                                    box_rows, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!err) err = sm90::encode_rows(hi, base, D, rows, bh, head, kHiCols<D>,
+                                    box_rows, Split<D>::kHiSwizzle);
   return err;
 }
 
-inline int encode_maps(Maps& m, const void* q, const void* k, const void* v,
-                       void* o, int bh, int sq, int skv, int kv_rows) {
-  int err = encode_pair(&m.q_lo, &m.q_hi, q, sq, sq, bh, kBlockM);
-  if (!err) err = encode_pair(&m.k_lo, &m.k_hi, k, kv_rows, skv, bh, kBlockN);
-  if (!err) err = encode_pair(&m.v_lo, &m.v_hi, v, kv_rows, skv, bh, kBlockN);
-  if (!err) err = encode_pair(&m.o_lo, &m.o_hi, o, sq, sq, bh, 64);
+template <int D>
+inline int encode_maps(Maps<D>& m, const void* q, const void* k,
+                       const void* v, void* o, int bh, int sq, int skv,
+                       int kv_rows) {
+  int err = encode_pair<D>(&m.q_lo, &m.q_hi, q, sq, sq, bh, kBlockM);
+  if (!err) err = encode_pair<D>(&m.k_lo, &m.k_hi, k, kv_rows, skv, bh,
+                                 kBlockN);
+  if (!err) err = encode_pair<D>(&m.v_lo, &m.v_hi, v, kv_rows, skv, bh,
+                                 kBlockN);
+  if (!err) err = encode_pair<D>(&m.o_lo, &m.o_hi, o, sq, sq, bh, 64);
   return err;
 }
 
 // The producer warpgroup: one thread loads the block's q rows once, then
 // n_tiles k and v tiles of kBlockN rows through the ring. Each stage's
 // transaction count is the four boxes' full bytes, TMA's zero-filled
-// columns 88-95 included.
-__device__ __forceinline__ void produce(Smem& sm, const Maps& m, int q0,
+// columns past D included.
+template <int D>
+__device__ __forceinline__ void produce(Smem<D>& sm, const Maps<D>& m, int q0,
                                         int bh, int n_tiles) {
   sm90::setmaxnreg_dec<kProducerRegs>();
   if (threadIdx.x == 0) {
-    sm90::mbar_arrive_expect_tx(&sm.q_full, kQBytes);
+    sm90::mbar_arrive_expect_tx(&sm.q_full, kQBytes<D>);
     sm90::tma_load_3d(sm.q_lo, &m.q_lo, &sm.q_full, 0, q0, bh);
     sm90::tma_load_3d(sm.q_hi, &m.q_hi, &sm.q_full, kLoCols, q0, bh);
     for (int j = 0; j < n_tiles; ++j) {
@@ -131,7 +188,7 @@ __device__ __forceinline__ void produce(Smem& sm, const Maps& m, int q0,
       const int row = j * kBlockN;
       // the first pass over the ring finds every stage free
       sm90::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
-      sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
+      sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes<D>);
       sm90::tma_load_3d(sm.k_lo[s], &m.k_lo, &sm.full[s], 0, row, bh);
       sm90::tma_load_3d(sm.k_hi[s], &m.k_hi, &sm.full[s], kLoCols, row, bh);
       sm90::tma_load_3d(sm.v_lo[s], &m.v_lo, &sm.full[s], 0, row, bh);
@@ -141,49 +198,63 @@ __device__ __forceinline__ void produce(Smem& sm, const Maps& m, int q0,
 }
 
 // A consumer's q descriptors: its 64 rows of q_lo (128-byte swizzle, 8-row
-// groups 1024 bytes apart) and of q_hi (64-byte swizzle, 512 bytes apart).
+// groups 1024 bytes apart) and of q_hi (8-row groups 8 hi rows apart).
 struct QDesc {
   uint64_t lo, hi;
 };
 
-// s = q k^T for one kv tile: four k steps of 16 over columns 0-63 and two
-// over 64-95 (32 bytes along the rows of both operands each), committed as
-// one group.
+// s = q k^T for one kv tile: four k steps of 16 over columns 0-63 and
+// kHiCols / 16 over the hi columns (32 bytes along the rows of both
+// operands each), committed as one group.
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[48], const QDesc& dq,
                                          const __nv_bfloat16* k_lo,
                                          const __nv_bfloat16* k_hi) {
   const uint64_t dk_lo = sm90::desc_sw128(k_lo, 16, 1024);
-  const uint64_t dk_hi = sm90::desc_sw64(k_hi, 16, 512);
+  const uint64_t dk_hi = desc_hi<D>(k_hi, 16, 8 * kHiRowBytes<D>);
 #pragma unroll
   for (int kk = 0; kk < kLoCols / 16; ++kk) {
     sm90::wgmma_m64n96k16_ss(sc, dq.lo + 2 * kk, dk_lo + 2 * kk, kk);
   }
 #pragma unroll
-  for (int kk = 0; kk < kHiCols / 16; ++kk) {
+  for (int kk = 0; kk < kHiCols<D> / 16; ++kk) {
     sm90::wgmma_m64n96k16_ss(sc, dq.hi + 2 * kk, dk_hi + 2 * kk, 1);
   }
   sm90::wgmma_commit();
 }
 
+// o_hi += p v over one k step: the first kHiOut columns of v_hi's swizzled
+// rows (n24 at d 88, n8 at d 72).
+template <int D>
+__device__ __forceinline__ void wgmma_pv_hi(float (&o_hi)[kHiOut<D> / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (kHiOut<D> == 24) {
+    sm90::wgmma_m64n24k16_rs_tb(o_hi, a, desc_b, 1);
+  } else {
+    sm90::wgmma_m64n8k16_rs_tb(o_hi, a, desc_b, 1);
+  }
+}
+
 // o += p v over half a kv tile: k steps ks0..ks0+2 take p's columns
 // 16ks..16ks+15 from registers and v's rows 16ks..16ks+15, MN-major (2048
-// bytes further on in v_lo, 1024 in v_hi), into o_lo (columns 0-63) and
-// o_hi (64-87: an n24 product reads the first 24 columns of v_hi's
-// 32-column swizzled rows), committed as one group.
+// bytes further on in v_lo, 16 hi rows in v_hi), into o_lo (columns 0-63)
+// and o_hi (64..D-1), committed as one group.
+template <int D>
 __device__ __forceinline__ void issue_pv_half(float (&o_lo)[32],
-                                              float (&o_hi)[kHiOut / 2],
+                                              float (&o_hi)[kHiOut<D> / 2],
                                               const uint32_t (&pa)[kBlockN / 16][4],
                                               int ks0,
                                               const __nv_bfloat16* v_lo,
                                               const __nv_bfloat16* v_hi) {
   const uint64_t dv_lo = sm90::desc_sw128(v_lo, 1024, 1024);
-  const uint64_t dv_hi = sm90::desc_sw64(v_hi, 512, 512);
+  const uint64_t dv_hi = desc_hi<D>(v_hi, 8 * kHiRowBytes<D>,
+                                    8 * kHiRowBytes<D>);
 #pragma unroll
   for (int ks = ks0; ks < ks0 + kBlockN / 32; ++ks) {
     sm90::wgmma_m64n64k16_rs_tb(o_lo, pa[ks],
                                 dv_lo + ks * (16 * kLoRowBytes >> 4), 1);
-    sm90::wgmma_m64n24k16_rs_tb(o_hi, pa[ks],
-                                dv_hi + ks * (16 * kHiRowBytes >> 4), 1);
+    wgmma_pv_hi<D>(o_hi, pa[ks], dv_hi + ks * (16 * kHiRowBytes<D> >> 4));
   }
   sm90::wgmma_commit();
 }
@@ -215,9 +286,11 @@ __device__ __forceinline__ void mask_tail(float (&sc)[48], int col0,
 // the second half's exponentials run while the first half's product is on
 // the tensor cores; the stage released (its empty barrier) once
 // wgmma.wait_group shows both complete.
+template <int D>
 __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
-                                           float (&o_hi)[kHiOut / 2], RowStats& st,
-                                           Smem& sm, int s, int lane) {
+                                           float (&o_hi)[kHiOut<D> / 2],
+                                           RowStats& st, Smem<D>& sm, int s,
+                                           int lane) {
   float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
   for (int i = 0; i < kBlockN / 8; ++i) {
@@ -242,7 +315,7 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
       o_lo[4 * i + 3] *= alpha_b;
     }
 #pragma unroll
-    for (int i = 0; i < kHiOut / 8; ++i) {
+    for (int i = 0; i < kHiOut<D> / 8; ++i) {
       o_hi[4 * i] *= alpha_a;
       o_hi[4 * i + 1] *= alpha_a;
       o_hi[4 * i + 2] *= alpha_b;
@@ -276,7 +349,8 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
       for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[ks][e]) :: "memory");
     }
     sm90::wgmma_fence();
-    issue_pv_half(o_lo, o_hi, pa, h * kBlockN / 32, sm.v_lo[s], sm.v_hi[s]);
+    issue_pv_half<D>(o_lo, o_hi, pa, h * kBlockN / 32, sm.v_lo[s],
+                     sm.v_hi[s]);
   }
   st.l_a = st.l_a * alpha_a + sum_a;
   st.l_b = st.l_b * alpha_b + sum_b;
@@ -291,13 +365,14 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
 // A consumer's epilogue: o * (1 / l) in bf16 written into its own q rows
 // (all its q k^T products are done) in the swizzled layouts the o maps
 // store from, then two TMA stores of its 64 rows from q0 + 64 c: columns
-// 0-63 and 64-95 (the store clips columns >= 88 and rows >= sq); lse = m +
-// log2(l) for rows below sq. tid, t, r_a and r_b are the consumer thread's
-// index in its warpgroup, in its quad, and its two rows in the 64.
+// 0-63 and the hi box (the store clips columns >= D and rows >= sq); lse =
+// m + log2(l) for rows below sq. tid, t, r_a and r_b are the consumer
+// thread's index in its warpgroup, in its quad, and its two rows in the 64.
+template <int D>
 __device__ __forceinline__ void store_o_lse(const float (&o_lo)[32],
-                                            const float (&o_hi)[kHiOut / 2],
-                                            const RowStats& st, Smem& sm,
-                                            const Maps& m,
+                                            const float (&o_hi)[kHiOut<D> / 2],
+                                            const RowStats& st, Smem<D>& sm,
+                                            const Maps<D>& m,
                                             float* __restrict__ lse, int c,
                                             int bh, int q0, int sq, int tid,
                                             int t, int r_a, int r_b) {
@@ -307,7 +382,7 @@ __device__ __forceinline__ void store_o_lse(const float (&o_lo)[32],
   const float inv_a = l_sum_a <= 0.f ? 1.f : 1.f / l_sum_a;
   const float inv_b = l_sum_b <= 0.f ? 1.f : 1.f / l_sum_b;
   uint8_t* so_lo = reinterpret_cast<uint8_t*>(sm.q_lo + c * 64 * kLoCols);
-  uint8_t* so_hi = reinterpret_cast<uint8_t*>(sm.q_hi + c * 64 * kHiCols);
+  uint8_t* so_hi = reinterpret_cast<uint8_t*>(sm.q_hi + c * 64 * kHiCols<D>);
   sm90::named_barrier_sync(1 + c, 128);
   // lo: the 16-byte chunk i of row r sits at chunk i ^ (r % 8);
   // r_b % 8 == r_a % 8
@@ -319,14 +394,14 @@ __device__ __forceinline__ void store_o_lse(const float (&o_lo)[32],
     *reinterpret_cast<uint32_t*>(so_lo + r_b * kLoRowBytes + off) =
         pack_f32(o_lo[4 * i + 2] * inv_b, o_lo[4 * i + 3] * inv_b);
   }
-  // hi: chunk i of row r sits at chunk i ^ ((r / 2) % 4); (r_b / 2) % 4 ==
-  // (r_a / 2) % 4. Chunk 3 (columns 88-95) is clipped by the store
+  // hi: chunk i of row r sits at hi_chunk(i, r), the same for r_a and r_b
+  // (8 rows apart). The chunks past column D - 1 are clipped by the store
 #pragma unroll
-  for (int i = 0; i < kHiOut / 8; ++i) {
-    const int off = ((i ^ ((r_a >> 1) & 3)) << 4) + 4 * t;
-    *reinterpret_cast<uint32_t*>(so_hi + r_a * kHiRowBytes + off) =
+  for (int i = 0; i < kHiOut<D> / 8; ++i) {
+    const int off = (hi_chunk<D>(i, r_a) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(so_hi + r_a * kHiRowBytes<D> + off) =
         pack_f32(o_hi[4 * i] * inv_a, o_hi[4 * i + 1] * inv_a);
-    *reinterpret_cast<uint32_t*>(so_hi + r_b * kHiRowBytes + off) =
+    *reinterpret_cast<uint32_t*>(so_hi + r_b * kHiRowBytes<D> + off) =
         pack_f32(o_hi[4 * i + 2] * inv_b, o_hi[4 * i + 3] * inv_b);
   }
   sm90::fence_proxy_async();
@@ -344,5 +419,5 @@ __device__ __forceinline__ void store_o_lse(const float (&o_lo)[32],
   }
 }
 
-}  // namespace fwd88
+}  // namespace fwdsplit
 }  // namespace ea

@@ -5,13 +5,14 @@
 // swa_fused_fwd.cu on fwd_sm90.cuh), and K3/K4 and K6/K7, the dense and the
 // sliding-window backward's dq and dk/dv kernels (flash_bwd.cu and
 // swa_bwd.cu on bwd_sm90.cuh), all at head_dim 64, and K1 at head_dim 88
-// (flash_fwd.cu on fwd88_sm90.cuh), all bound by operations at the
-// flagship shapes ([96, 13360, 64] bf16; the banded ones [96, 13104, 64]
-// banded to 1,008; V4's [32, 36864, 88]). Their common shape: one producer warpgroup keeps
-// TMA loads in flight through a ring of shared-memory stages guarded by
-// full/empty mbarriers, and consumer warpgroups run the products on the
-// tensor cores with wgmma (score-like products with both operands in
-// shared memory, products with a probability-like operand from registers).
+// and 72 (flash_fwd.cu on fwd_split_sm90.cuh), all bound by operations at
+// the flagship shapes ([96, 13360, 64] bf16; the banded ones [96, 13104,
+// 64] banded to 1,008; V4's [32, 36864, 88]; V3's [32, 36864, 72]).
+// Their common shape: one producer warpgroup keeps TMA loads in flight
+// through a ring of shared-memory stages guarded by full/empty mbarriers,
+// and consumer warpgroups run the products on the tensor cores with wgmma
+// (score-like products with both operands in shared memory, products with
+// a probability-like operand from registers).
 //
 // Conventions the pieces rely on:
 //   - Tiles are bf16 rows of 64 elements (128 bytes), loaded by TMA with
@@ -19,7 +20,8 @@
 //     aligned: 8 rows form one 1024-byte swizzle atom. At d 88 a row is
 //     two such tiles: columns 0-63 as above and columns 64-95 as rows of
 //     64 bytes with CU_TENSOR_MAP_SWIZZLE_64B (desc_sw64), 8 rows a
-//     512-byte atom.
+//     512-byte atom; at d 72 the second is columns 64-79, rows of 32
+//     bytes with CU_TENSOR_MAP_SWIZZLE_32B (desc_sw32), 8 rows 256 bytes.
 //   - A "K-major" operand (q or k: the reduction dimension d is contiguous)
 //     and an "MN-major" one (v in p v: the output dimension d is contiguous)
 //     both use desc_sw128 with a stride of 1024 bytes between 8-row groups.
@@ -161,6 +163,18 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* tile,
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(2) << 62;
+  return d;
+}
+
+// The same, 32-byte swizzle (layout 3): rows of 16 bf16, 8 rows a 256-byte
+// atom. A 16-deep k step is one whole row.
+__device__ __forceinline__ uint64_t desc_sw32(const void* tile,
+                                              uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(3) << 62;
   return d;
 }
 
@@ -333,6 +347,26 @@ __device__ __forceinline__ void wgmma_m64n24k16_rs_tb(float (&d)[12],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d[64x8] (+)= A[64x16] B[16x8]: A from registers, B from shared memory
+// MN-major, as wgmma_m64n64k16_rs_tb (K1's p v over head-dim columns 64-71
+// at d 72).
+__device__ __forceinline__ void wgmma_m64n8k16_rs_tb(float (&d)[4],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }

@@ -103,6 +103,55 @@ def hunyuan_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             for k, v in state_dict_from_flax(params).items()}
 
 
+def transformer3d_state_dict_from_jax(params: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX's Transformer3D params (V1-V3, and Transformer2D's; the Flax
+    tree, with or without its "params" level) -> the port's state dict
+    (models/transformer3d_legacy.py): state_dict_from_flax's renames, the
+    3D patchify's (tp, p, p, in, out) kernel to (out, in, tp, p, p) (the
+    Conv1d kernels' (k, in, out) to (out, in, k) is its transpose already),
+    `block{i}` -> `blocks.{i}`; the self.param names (scale_shift_table,
+    the motion modules' b{blk}_a{ai}_norm_scale, ...) are kept."""
+    params = params.get("params", params)
+    out = {}
+    for k, v in state_dict_from_flax(params).items():
+        if v.dim() == 5:  # reversed by state_dict_from_flax's transpose
+            v = v.permute(0, 1, 4, 3, 2).contiguous()
+        out[re.sub(r"^block(\d+)\.", r"blocks.\1.", k)] = v
+    return out
+
+
+# Flax module paths of JAX's AutoencoderKL -> diffusers' keys (the inverse
+# of JAX's convert_kl2d_state_dict)
+_KL2D_RENAMES = (
+    (r"^(encoder|decoder)\.mid_res_(\d)\.", r"\1.mid_block.resnets.\2."),
+    (r"^(encoder|decoder)\.mid_attn\.to_out\.",
+     r"\1.mid_block.attentions.0.to_out.0."),
+    (r"^(encoder|decoder)\.mid_attn\.", r"\1.mid_block.attentions.0."),
+    (r"^encoder\.down_(\d+)_res_(\d+)\.",
+     r"encoder.down_blocks.\1.resnets.\2."),
+    (r"^encoder\.down_(\d+)_downsample\.",
+     r"encoder.down_blocks.\1.downsamplers.0.conv."),
+    (r"^decoder\.up_(\d+)_res_(\d+)\.",
+     r"decoder.up_blocks.\1.resnets.\2."),
+    (r"^decoder\.up_(\d+)_upsample\.",
+     r"decoder.up_blocks.\1.upsamplers.0.conv."),
+)
+
+
+def kl2d_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX's AutoencoderKL params (the Flax tree, with or without its
+    "params" level) -> diffusers' AutoencoderKL state dict, which the
+    port's models/vae/kl2d.py loads with strict=True."""
+    params = params.get("params", params)
+    out = {}
+    for k, v in state_dict_from_flax(params).items():
+        for pattern, repl in _KL2D_RENAMES:
+            k = re.sub(pattern, repl, k)
+        out[k] = v
+    return out
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator` (which must live on

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.attention import attention
+from ..ops.attention import attention, biased_attention, check_attn_impl
 from ..ops.norms import fp32_layer_norm
 from ..ops.rope import apply_rotary_emb
 from .embeddings import (PatchEmbed2D, TimestepEmbedding,
@@ -103,6 +103,7 @@ class HunyuanConfig:
                 "ops/ssd.py) is not ported (ROADMAP queue 1 item 11.b)")
         if self.basic_block_type not in ("basic", "kvcompression_basic"):
             raise NotImplementedError(self.basic_block_type)
+        check_attn_impl(self.attn_impl)
 
     @property
     def inner_dim(self) -> int:
@@ -327,11 +328,8 @@ class HunyuanAttention(nn.Module):
             q = apply_rotary_emb(q, *rope)
             if not is_cross:
                 k = apply_rotary_emb(k, *k_rope)
-        if bias is not None:  # plain float32 matmuls, as JAX's einsums
-            scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-            scores = scores * self.head_dim ** -0.5 + bias[:, None].float()
-            p = torch.softmax(scores, dim=-1)
-            o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+        if bias is not None:
+            o = biased_attention(q, k, v, bias)
         else:
             o = attention(q, k, v)
         return self.to_out(_merge(o))

@@ -9,7 +9,11 @@ independent chunks of mini_batch_encoder pixel or mini_batch_decoder latent
 frames, each starting its causal convs afresh); the even-cover spatial
 tiling; `smooth_output`, the slice modes' chunk-seam blend; and the
 diagonal Gaussian's mode, sample and KL. The compression modes and `cog`
-are not ported (ROADMAP queue 1 item 8).
+are not ported (ROADMAP queue 1 item 8). vae_encode, vae_decode and
+latent_frame_count also take V1's 2D AutoencoderKL (kl2d.py), as JAX's do
+(magvit.py:393-431, :642-645): frame-batched, one latent a frame, no chunk
+protocol; the tiled paths refuse it by name (its tile size is 2^30, so the
+pipelines never tile it).
 
 encode_chunk and decode_chunk are differentiable (the VAE trainer,
 training/vae_trainer.py, takes their gradients with cache=None): no layer
@@ -24,6 +28,7 @@ from torch import nn
 
 from ...device import resolve_device
 from .blocks import DownBlock3D, MidBlock3D, UpBlock3D, _sub
+from .kl2d import AutoencoderKL, KL2DConfig
 from .layers import CausalConv3d, Conv1x1x1, GroupNorm
 
 CHUNK_MODES = ("cache_mag", "slice_mag")
@@ -216,7 +221,10 @@ def vae_encode(vae: AutoencoderKLMagvit, video: torch.Tensor) -> torch.Tensor:
     """video (B, C, T, H, W) in [-1, 1] -> moments (B, 2 * latent, T', H',
     W'), mean and logvar concatenated on C. cache_mag: frame 0 alone, then
     chunks of mini_batch_encoder frames (T = mini_batch_encoder * k + 1);
-    slice_mag: independent chunks of mini_batch_encoder frames."""
+    slice_mag: independent chunks of mini_batch_encoder frames. V1's
+    AutoencoderKL encodes every frame on its own."""
+    if isinstance(vae, AutoencoderKL):
+        return vae.encode(video)
     return _run_chunks(vae, vae.encode_chunk, video,
                        vae.cfg.mini_batch_encoder)
 
@@ -258,7 +266,10 @@ def _decode_chunk_frames(cfg: MagvitVAEConfig) -> int:
 
 
 def vae_decode(vae: AutoencoderKLMagvit, latents: torch.Tensor) -> torch.Tensor:
-    """latents (B, C, T, H, W) -> pixels in [-1, 1] (no scaling_factor)."""
+    """latents (B, C, T, H, W) -> pixels in [-1, 1] (no scaling_factor).
+    V1's AutoencoderKL decodes every latent frame on its own."""
+    if isinstance(vae, AutoencoderKL):
+        return vae.decode(latents)
     return _run_chunks(vae, vae.decode_chunk, latents,
                        _decode_chunk_frames(vae.cfg))
 
@@ -326,9 +337,17 @@ def _tiled(apply_chunked: Callable, x: torch.Tensor, tile_in: int,
     return torch.cat(out_rows, dim=3)
 
 
+def _refuse_kl2d(vae, what: str) -> None:
+    if isinstance(vae, AutoencoderKL):
+        raise TypeError(f"{what}: V1's AutoencoderKL is not tiled (its "
+                        "tile_sample_min_size is 2^30, so the pipelines never "
+                        "tile it); call vae_encode / vae_decode")
+
+
 def vae_encode_tiled(vae: AutoencoderKLMagvit,
                      video: torch.Tensor) -> torch.Tensor:
     """Spatially tiled encode (tiles of tile_sample_min_size pixels)."""
+    _refuse_kl2d(vae, "vae_encode_tiled")
     cfg = vae.cfg
     tile_in = cfg.tile_sample_min_size
     tile_out = tile_in // cfg.spatial_compression
@@ -339,6 +358,7 @@ def vae_encode_tiled(vae: AutoencoderKLMagvit,
 def vae_decode_tiled(vae: AutoencoderKLMagvit,
                      latents: torch.Tensor) -> torch.Tensor:
     """Spatially tiled decode (tiles of tile_sample_min_size pixels)."""
+    _refuse_kl2d(vae, "vae_decode_tiled")
     cfg = vae.cfg
     tile_out = cfg.tile_sample_min_size
     tile_in = tile_out // cfg.spatial_compression
@@ -369,7 +389,9 @@ def smooth_output(vae: AutoencoderKLMagvit, video: torch.Tensor
 def latent_frame_count(pixel_frames: int, cfg: MagvitVAEConfig) -> int:
     """The frame remap (pipeline_easyanimate.py:677-688): cache_mag,
     (f - 1) // mini_batch_encoder * mini_batch_decoder + 1; slice_mag,
-    f // temporal_compression."""
+    f // temporal_compression; V1's KL2D, f (one latent a frame)."""
+    if isinstance(cfg, KL2DConfig):
+        return pixel_frames
     if cfg.chunk_mode == "slice_mag":
         return pixel_frames // cfg.temporal_compression
     return ((pixel_frames - 1) // cfg.mini_batch_encoder

@@ -30,13 +30,15 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 HEAD_DIMS = (16, 32, 64)
 # the attention kernels by the names their input checks raise with, and
 # the head dims each has an instance for: K1's forward also takes 88 (V4's
-# HunyuanDiT, csrc/flash_fwd.cu::flash_fwd_d88_sm90)
+# HunyuanDiT, csrc/flash_fwd.cu::flash_fwd_d88_sm90), 72 (the V1-V3
+# Transformer3D: flash_fwd_d72_sm90, or the mma.sync body for short
+# sequences) and 144 (V1's and V2's motion modules, the mma.sync body)
 K1 = "K1 (ea_flash_fwd_bf16)"
 K2 = "K2 (ea_swa_fwd_bf16)"
 K3_K4 = "K3 and K4 (ea_flash_bwd_dq_bf16, ea_flash_bwd_dkv_bf16)"
 K5 = "K5 (ea_swa_fused_fwd_bf16)"
 K6_K7 = "K6 and K7 (ea_swa_bwd_dq_bf16, ea_swa_bwd_dkv_bf16)"
-KERNEL_HEAD_DIMS = {K1: HEAD_DIMS + (88,), K2: HEAD_DIMS, K3_K4: HEAD_DIMS,
+KERNEL_HEAD_DIMS = {K1: HEAD_DIMS + (72, 88, 144), K2: HEAD_DIMS, K3_K4: HEAD_DIMS,
                     K5: HEAD_DIMS, K6_K7: HEAD_DIMS}
 
 # csrc/hopper.cuh::kTensorMapError: an entry point returns it plus the
@@ -48,8 +50,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, lse, bh, sq, skv, kv_valid, head_dim, stream
     "ea_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # head_dim -> 1 if ea_flash_fwd_bf16 runs the TMA + wgmma kernel
-    "ea_flash_fwd_uses_sm90": (_I,),
+    # head_dim, sq -> 1 if ea_flash_fwd_bf16 runs a TMA + wgmma kernel
+    "ea_flash_fwd_uses_sm90": (_I, _I),
     # q, k, v, o, lse, bh, s, window, head_dim, stream
     "ea_swa_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # head_dim -> 1 if ea_swa_fwd_bf16 runs the TMA + wgmma kernel

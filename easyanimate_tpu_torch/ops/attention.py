@@ -22,6 +22,18 @@ def prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
     return (q * (sm_scale * LOG2E)).to(q.dtype)
 
 
+def check_attn_impl(attn_impl: str) -> None:
+    """A model config's `attn_impl`, kept for JAX's field set: JAX's
+    HunyuanDiT and Transformer3D read it nowhere (transformer3d_legacy.py's
+    attn_impl_resolved returns "auto"), and the port sends every bias-free
+    attention to K1, so a setting other than "auto" is refused rather than
+    ignored."""
+    if attn_impl != "auto":
+        raise ValueError(f"attn_impl {attn_impl!r}: the port runs every "
+                         "model attention on K1 (its plain version on a CPU "
+                         "tensor); only 'auto' is accepted")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: Optional[float] = None,
               kv_valid: Optional[int] = None,
@@ -48,6 +60,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     return o.reshape(b, h, sq, d)
+
+
+def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """Softmax attention [B, H, S, D] with an additive float32 bias [B, Sq,
+    Skv] (a text mask's -10000 on padding): JAX's dense einsums outside
+    any kernel (hunyuan.py:151-158, transformer3d_legacy.py:151-158), so
+    plain float32 matmuls here; p is cast to v's dtype before p @ v."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    scores = scores * q.shape[-1] ** -0.5 + bias[:, None].float()
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
 def joint_attention(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid,

@@ -1,7 +1,7 @@
 """Dense attention over [bh, S, d]: the hand-written Hopper kernels
 (csrc/flash_fwd.cu, K1; csrc/flash_bwd.cu, K3 and K4; all three TMA +
-wgmma kernels at d 64), their plain PyTorch versions, and the autograd
-Function that joins them.
+wgmma kernels at d 64, K1 also at d 88 and 72), their plain PyTorch
+versions, and the autograd Function that joins them.
 
 All take q pre-scaled by sm_scale * log2(e) (ops/attention.py folds it in
 and rounds back to the input dtype, as the JAX wrapper does at
@@ -62,11 +62,12 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     """Non-causal attention over pre-scaled q [bh, Sq, d] and k, v
     [bh, Skv, d] -> (o [bh, Sq, d], lse2 [bh, Sq, 1] float32).
 
-    A CUDA tensor launches K1 (bf16, d in 16/32/64/88, contiguous) or
-    raises; a CPU tensor takes flash_attention_plain.
-    `flash_attention_fwd.launches` counts kernel launches, `.launches_sm90`
-    those that ran a TMA + wgmma kernel (d 64 and 88; d 16 and 32 run the
-    mma.sync one)."""
+    A CUDA tensor launches K1 (bf16, d in 16/32/64/72/88/144, contiguous)
+    or raises; a CPU tensor takes flash_attention_plain.
+    `flash_attention_fwd.launches` counts kernel launches,
+    `.launches_by_dim` them by head dim, `.launches_sm90` those that ran a
+    TMA + wgmma kernel (d 64 and 88, and 72 past 64 q rows; d 16, 32 and
+    144 and the short d 72 passes run the mma.sync one)."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
@@ -82,12 +83,15 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                   kf.data_ptr(), vf.data_ptr(), o.data_ptr(), lse.data_ptr(),
                   bh, sq, skv, kv_valid, d)
     flash_attention_fwd.launches += 1
+    by_dim = flash_attention_fwd.launches_by_dim
+    by_dim[d] = by_dim.get(d, 0) + 1
     flash_attention_fwd.launches_sm90 += _build.load_library(
-        ).ea_flash_fwd_uses_sm90(d)
+        ).ea_flash_fwd_uses_sm90(d, sq)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_dim = {}
 flash_attention_fwd.launches_sm90 = 0
 
 

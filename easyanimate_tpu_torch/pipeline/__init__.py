@@ -2,6 +2,7 @@
 their samplers."""
 from .control import EasyAnimateControlPipeline
 from .inpaint import EasyAnimateInpaintPipeline
+from .pixart import PixArtMagvitPipeline
 from .schedulers import (DDIMConfig, DPMSolverConfig, EulerAncestralConfig,
                          EulerConfig, FlowMatchEulerConfig, PNDMConfig,
                          make_scheduler)
@@ -10,4 +11,5 @@ from .t2v import EasyAnimatePipeline, build_rope
 __all__ = ["DDIMConfig", "DPMSolverConfig", "EasyAnimateControlPipeline",
            "EasyAnimateInpaintPipeline", "EasyAnimatePipeline",
            "EulerAncestralConfig", "EulerConfig", "FlowMatchEulerConfig",
-           "PNDMConfig", "build_rope", "make_scheduler"]
+           "PNDMConfig", "PixArtMagvitPipeline", "build_rope",
+           "make_scheduler"]

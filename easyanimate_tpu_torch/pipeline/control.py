@@ -20,14 +20,17 @@ The loop and the decode are EasyAnimatePipeline's, with every sampler and
 serving knob. The control pipeline takes no T5 stream, as JAX's does not
 (easyanimate_tpu/pipeline/control.py:28-95 swallows prompt_embeds_t5 in
 its **kw): on a V5 model it runs on the Bert stream alone, whatever the
-controller hands it (a trap kept as it is, ROADMAP §3).
+controller hands it (a trap kept as it is, ROADMAP §3). It refuses the
+V1-V3 Transformer3D by name, as the inpaint pipeline does: JAX's reads
+add_ref_latent_in_control_model from the transformer's config (JAX
+control.py:80), which Transformer3DConfig lacks.
 """
 from typing import Optional
 
 import torch
 
 from ..models.vae.magvit import gaussian_mode, vae_encode
-from .inpaint import resize_mask_to_latent
+from .inpaint import refuse_transformer3d, resize_mask_to_latent
 from .schedulers import init_noise_sigma
 from .t2v import Callback, EasyAnimatePipeline, _check_output_type
 
@@ -37,6 +40,11 @@ CAMERA_SCALE = 6.0
 
 class EasyAnimateControlPipeline(EasyAnimatePipeline):
     """Controlled T2V through a Control-trained transformer."""
+
+    def __init__(self, transformer, vae, *args, **kwargs):
+        refuse_transformer3d(transformer, "EasyAnimateControlPipeline",
+                             "add_ref_latent_in_control_model")
+        super().__init__(transformer, vae, *args, **kwargs)
 
     @torch.inference_mode()
     def __call__(self, prompt_embeds: torch.Tensor,

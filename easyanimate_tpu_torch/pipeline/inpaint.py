@@ -20,16 +20,34 @@ pipeline_easyanimate_inpaint.py):
     mask (ones by default) ride in `cond`, zeros for the unconditional half
     under CFG, and the loop zeroes both until step (1 - clip_apply_ratio)
     * n (t2v.py's _denoise, JAX t2v.py:305-315).
+The V1-V3 Transformer3D is refused by name (refuse_transformer3d): JAX's
+pipeline reads resize_inpaint_mask_directly and add_noise_in_inpaint_model
+from the transformer's config (JAX inpaint.py:95, :125, :139, :151), which
+its Transformer3DConfig does not have, so JAX serves no V1-V3 inpaint.
 """
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..models.transformer3d_legacy import Transformer3D
 from ..models.vae.magvit import gaussian_mode, vae_encode
 from .schedulers import (EulerConfig, FlowMatchEulerConfig, ddim_add_noise,
                          init_noise_sigma, schedule_arrays)
 from .t2v import Callback, EasyAnimatePipeline, _check_output_type
+
+
+def refuse_transformer3d(transformer, pipeline: str, fields: str) -> None:
+    """Raise NotImplementedError for the V1-V3 Transformer3D in `pipeline`,
+    whose JAX counterpart reads `fields` from the transformer's config;
+    JAX's Transformer3DConfig lacks them (an AttributeError there), so the
+    port adds no V1-V3 inpaint or control that JAX does not serve."""
+    if isinstance(transformer, Transformer3D):
+        raise NotImplementedError(
+            f"{pipeline} does not take the V1-V3 Transformer3D: the JAX "
+            f"pipeline reads {fields} from its config, which "
+            "Transformer3DConfig does not have (not carried over, ROADMAP "
+            "§3); use EasyAnimatePipeline (T2V) or PixArtMagvitPipeline")
 
 
 def resize_mask_to_latent(mask: torch.Tensor, latent_shape: Sequence[int],
@@ -91,6 +109,12 @@ def v2v_init(sched, num_inference_steps: int, t_start: int,
 
 class EasyAnimateInpaintPipeline(EasyAnimatePipeline):
     """T2V / I2V / V2V through an inpaint-trained transformer."""
+
+    def __init__(self, transformer, vae, *args, **kwargs):
+        refuse_transformer3d(transformer, "EasyAnimateInpaintPipeline",
+                             "resize_inpaint_mask_directly and "
+                             "add_noise_in_inpaint_model")
+        super().__init__(transformer, vae, *args, **kwargs)
 
     @torch.inference_mode()
     def __call__(self, prompt_embeds: torch.Tensor,

@@ -20,11 +20,15 @@ beside the next chunk (`decode_latents_overlapped`). The loop steps with
 the pipeline's `scheduler`, any of the six samplers (schedulers.py, JAX
 :365-440): Euler's model input is scaled first, PNDM and DPM++ carry their
 state across steps, Euler-A draws its step noise from the request's
-generator. The transformer is the MMDiT (V5, V5.1) or V4's HunyuanDiT
+generator. The transformer is the MMDiT (V5, V5.1), V4's HunyuanDiT
 (models/hunyuan.py: its 2D RoPE from build_rope, its learned-sigma half
-dropped from the prediction, no TeaCache polynomial, as in JAX); a
-slice-mode VAE (V4's `slice_mag`) blends its chunk seams with
-`smooth_output` by default (JAX :499-534).
+dropped from the prediction, no TeaCache polynomial, as in JAX) or the
+V1-V3 Transformer3D (models/transformer3d_legacy.py: sinusoidal tables, so
+build_rope's 2D tables go unused; learned sigma; no TeaCache polynomial); a
+slice-mode VAE (V2's to V4's `slice_mag`) blends its chunk seams with
+`smooth_output` by default (JAX :499-534); V1's 2D AutoencoderKL decodes
+frame by frame, never tiled or smoothed, and the overlapped decode takes
+decode_latents for it, as for any VAE without the cache protocol.
 """
 from typing import Callable, Dict, Optional, Tuple
 
@@ -150,8 +154,8 @@ class EasyAnimatePipeline:
         self.scheduler = scheduler
         # the loader sets this from the checkpoint's path
         # (get_teacache_coefficients); None turns TeaCache off, as for V4's
-        # HunyuanDiT, which has no polynomial (and no embed / backbone
-        # split to gate)
+        # HunyuanDiT and the V1-V3 Transformer3D, which have no polynomial
+        # (and no embed / backbone split to gate)
         self.teacache_coefficients = (
             TEACACHE_COEFFICIENTS
             if isinstance(transformer, EasyAnimateTransformer3D) else None)

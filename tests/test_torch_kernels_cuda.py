@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (forward K1/K2/K5, K1 also at V4's
-head dim 88, backward K3/K4 and K6/K7, and the quantized linears' Q1-Q3)
+head dim 88 and the V1-V3 Transformer3D's 72 and 144, backward K3/K4 and
+K6/K7, and the quantized linears' Q1-Q3)
 against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
 skips without one; the CPU tests (test_torch_ops.py) hold the plain versions
 against the JAX package.
@@ -49,7 +50,21 @@ def cuda_device():
     (200, 333, 333, 88), (129, 257, 200, 88), (1000, 16, 16, 88),
     (1, 100, 100, 88), (1000, 1000, 1000, 88), (192, 96, 96, 88),
     (193, 500, 500, 88), (400, 777, 700, 88), (300, 288, 288, 88),
-    (300, 500, 384, 88)])
+    (300, 500, 384, 88),
+    # d 72 (V1-V3) past 64 q rows runs the TMA + wgmma kernel of d 88 with
+    # a 16-column hi box (TMA's zeros in 72-79): the text pass's 120 keys;
+    # a frame's 1,024 tokens; kv_valid inside the last kv tile; one q row
+    # past the short limit; one q row past a block. At most 64 q rows (V3's
+    # temporal passes over 36 frames) run the mma.sync body with its k8
+    # step: 36 and 64 rows, and a ragged kv
+    (200, 120, 120, 72), (1024, 1024, 1024, 72), (400, 777, 700, 72),
+    (65, 65, 65, 72), (193, 500, 500, 72), (36, 36, 36, 72),
+    (64, 64, 64, 72), (36, 100, 77, 72), (1, 36, 36, 72),
+    # d 144 (V1's and V2's motion modules) runs the mma.sync body: V2's
+    # temporal pass over 36 frames, V1's grid over 4 x 16; ragged and
+    # longer shapes
+    (36, 36, 36, 144), (64, 64, 64, 144), (100, 333, 300, 144),
+    (300, 1000, 1000, 144), (1, 70, 70, 144)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(4, n, d, generator=g, device=cuda_device
@@ -59,7 +74,8 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
-    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (d in (64, 88))
+    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (
+        d in (64, 88) or (d == 72 and sq > 64))
     o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
     # bf16 output and the kernel's bf16 p before p @ v
     _close(o.float(), o_p.float(), 2e-2)
@@ -110,6 +126,76 @@ def test_flash_kernel_d88_masks_pad_columns_at_deep_scores_on_card(
     assert lse.max().item() < -300, lse.max().item()
     assert torch.isfinite(o.float()).all()
     o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(1001, 72), (36, 72), (36, 144), (65, 144)])
+def test_flash_kernel_d72_d144_ragged_heads_on_card(cuda_device, s, d):
+    """K1 at d 72 and 144 on 12 heads of s rows, each head's k and v offset
+    by its own mean: a tile read across a head's end would carry another
+    head's values, and at d 72 columns 72-79 read from the next row (the
+    TMA hi box, or the mma.sync body's k8 step) would add its first 8
+    values to every score."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    bh = 12
+    shift = torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 3 - 1.0
+    q = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+         * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    k, v = ((torch.randn(bh, s, d, generator=g, device=cuda_device) + shift)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v)
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,kv_valid,d", [
+    (300, 200, 200, 72), (300, 300, 250, 72), (36, 36, 30, 72),
+    (64, 100, 70, 144)])
+def test_flash_kernel_d72_d144_mask_pad_columns_at_deep_scores_on_card(
+        cuda_device, sq, skv, kv_valid, d):
+    """Every visible score of a row far below 0 (q all +2, k near -2): the
+    zero k rows past kv_valid (TMA's, or the mma.sync body's zero-filled
+    tile rows) score 0, and would take the row max unless K1 hides columns
+    j >= kv_valid."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    q = torch.full((4, sq, d), 2.0, device=cuda_device).to(torch.bfloat16)
+    k = (-2.0 + 0.25 * torch.randn(4, skv, d, generator=g, device=cuda_device)
+         ).to(torch.bfloat16)
+    v = torch.randn(4, skv, d, generator=g, device=cuda_device
+                    ).to(torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
+    torch.cuda.synchronize()
+    assert lse.max().item() < -4 * d + 40, lse.max().item()
+    assert torch.isfinite(o.float()).all()
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d", [
+    (73728, 36, 72), (66000, 100, 72), (66000, 8, 64), (66000, 8, 88),
+    (65537, 36, 144)])
+def test_flash_kernel_takes_bh_past_grid_y_on_card(cuda_device, bh, s, d):
+    """b*h past gridDim.y's 65,535 on every K1 instance: V3's temporal pass
+    at 768x768 ([73,728, 36, 72], the mma.sync body), the TMA + wgmma
+    kernels at d 72, 64 and 88, and the mma.sync body at d 144. Each head
+    offset by its own mean, so a block that read or wrote another head's
+    rows would show."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 5 - 2.0)
+    q = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+         * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    k, v = ((torch.randn(bh, s, d, generator=g, device=cuda_device) + shift)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v)
     _close(o.float(), o_p.float(), 2e-2)
     _close(lse, lse_p, 1e-3)
 
@@ -186,6 +272,23 @@ def test_kernels_refuse_head_dim_88_by_name_on_card(cuda_device):
     o = tattn.attention(q, q, q)
     with pytest.raises(ValueError, match="K3 and K4"):
         o.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 144])
+def test_kernels_refuse_head_dims_72_144_by_name_on_card(cuda_device, d):
+    """Only K1's forward has d 72 and 144 instances (the JAX package trains
+    no V1-V3): K2-K7 refuse them, each naming its kernel."""
+    x = torch.zeros(2, 8, d, dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros(2, 8, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="K2"):
+        tswa.sliding_window_fwd(x, x, x, 4)
+    with pytest.raises(ValueError, match="K5"):
+        tswa.swa_local_global_fwd(x, x, x, x, x, 4)
+    with pytest.raises(ValueError, match="K3 and K4"):
+        tfa.flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(ValueError, match="K6 and K7"):
+        tswa.sliding_window_bwd(x, x, x, x, lse, x, 4)
 
 
 @pytest.mark.cuda

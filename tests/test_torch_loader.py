@@ -27,7 +27,8 @@ from easyanimate_tpu.utils import config as jconfig
 from easyanimate_tpu_torch import loader
 from easyanimate_tpu_torch.models import convert as tconvert
 from easyanimate_tpu_torch.models.mmdit import PRESETS, EasyAnimateTransformer3D
-from easyanimate_tpu_torch.models.vae import MagvitVAEConfig
+from easyanimate_tpu_torch.models.transformer3d_legacy import Transformer3D
+from easyanimate_tpu_torch.models.vae import AutoencoderKL, MagvitVAEConfig
 from easyanimate_tpu_torch.ops import quant as tquant
 from easyanimate_tpu_torch.training import lora as tlora
 from easyanimate_tpu_torch.utils import config as tconfig
@@ -296,13 +297,16 @@ def test_everything_not_ported_raises(model_dir, tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         loader.mmdit_config_from_json(
             {"time_position_encoding_type": "2d_rope"})
-    # V4's HunyuanTransformer3DModel is ported (tests/test_torch_v4.py);
-    # V1-V3's Transformer3DModel is not
+    # V4's HunyuanTransformer3DModel is ported (tests/test_torch_v4.py),
+    # and so are V1-V3's Transformer3DModel and V1's 2D AutoencoderKL
+    # (tests/test_torch_legacy.py); the cogvideox VAE is not
+    model, _ = tconfig.build_transformer(
+        {"transformer_type": "Transformer3DModel"}, device="meta")
+    assert isinstance(model, Transformer3D)
+    vae, _ = tconfig.build_vae({"vae_type": "AutoencoderKL"}, device="meta")
+    assert isinstance(vae, AutoencoderKL)
     with pytest.raises(NotImplementedError, match="item 11"):
-        tconfig.build_transformer({"transformer_type": "Transformer3DModel"})
-    for v_type in ("AutoencoderKL", "AutoencoderKLCogVideoX"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tconfig.build_vae({"vae_type": v_type})
+        tconfig.build_vae({"vae_type": "AutoencoderKLCogVideoX"})
     for mode in ("cog", "slice_compression", "cache_compression", "none"):
         with pytest.raises(NotImplementedError, match="item 8"):
             tconfig.build_vae({"chunk_mode": mode})

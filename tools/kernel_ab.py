@@ -17,11 +17,12 @@ same turns beside its yardstick, B's unfused pair (K2 + the K1 cross pass
 over the global rows). The inputs are random bf16 q, k, v, do (q
 pre-scaled as the wrappers do) with the lse of B's own forward kernel and
 di = rowsum(o * do). Prints the card's name and power limit; one JSON line
-per TMA + wgmma kernel (K1 at d 64 and 88, K2, K5; K3, K4, K6, K7) with each build's
-ptxas registers and spills, its SASS opcode counts and whether the two
-builds' SASS is the same instruction for instruction (a kernel that a
-build lacks is null there); then one JSON line per kernel: every turn's
-ms, and each side's median and mean. Needs one CUDA device and nvcc.
+per TMA + wgmma kernel (K1 at d 64, 88 and 72, K2, K5; K3, K4, K6, K7)
+with each build's ptxas registers and spills, its SASS opcode counts and
+whether the two builds' SASS is the same instruction for instruction (a
+kernel that a build lacks is null there); then one JSON line per kernel:
+every turn's ms, and each side's median and mean. Needs one CUDA device
+and nvcc.
 """
 import argparse
 import ctypes
@@ -43,10 +44,10 @@ BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, D = 96, 13360, 13104, 1008, 1027, 64
 BH88, S88, D88 = 32, 36864, 88
 KV88 = {"self": S88, "text": 333, "clip": 16}
 LOG2E = 1.4426950408889634
-# the TMA + wgmma kernels: K1 (d 64, d 88), K2, K5; K3, K4, K6, K7
-SM90_KERNELS = ("flash_fwd_sm90", "flash_fwd_d88_sm90", "swa_fwd_sm90",
-                "swa_fused_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
-                "swa_bwd_dq_sm90", "swa_bwd_dkv_sm90")
+# the TMA + wgmma kernels: K1 (d 64, 88, 72), K2, K5; K3, K4, K6, K7
+SM90_KERNELS = ("flash_fwd_sm90", "flash_fwd_d88_sm90", "flash_fwd_d72_sm90",
+                "swa_fwd_sm90", "swa_fused_fwd_sm90", "flash_bwd_dq_sm90",
+                "flash_bwd_dkv_sm90", "swa_bwd_dq_sm90", "swa_bwd_dkv_sm90")
 # run in each tree: build its library, then print the library's path and,
 # for each kernel it holds, ptxas's report and its SASS instructions
 _BUILD_AND_REPORT = '''

@@ -76,6 +76,7 @@ def swapped(funcs):
     function their module's name holds, so each stand-in carries counts."""
     for f in funcs.values():
         f.launches = f.launches_sm90 = 0
+        f.launches_by_dim = {}
     for (mod, name), real in REAL.items():
         setattr(mod, name, funcs.get(name, real))
     try:
