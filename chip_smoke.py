@@ -6,9 +6,10 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   device     card name, nvidia-smi name and power limit; TF32 off
   build      the CUDA kernels built from easyanimate_tpu_torch/csrc; ptxas's
              registers and spills and the SASS opcodes (HGMMA, UTMALDG) of
-             the TMA + wgmma kernels (K1 at d 64, 88 and 72, K2, K5, K3's
-             and K6's dq and K4's and K7's dk/dv kernels), and of K1's
-             mma.sync body at d 72 and 144
+             the TMA + wgmma kernels (K1 at d 64, 88 and 72 and its
+             short-head kernel at d 72 and 144, K2, K5, K3's and K6's dq
+             and K4's and K7's dk/dv kernels), and of K1's mma.sync body at
+             d 72 and 144
   kernels    K1 (dense flash forward), K2 (sliding-window forward) and K5
              (fused sliding-window + global forward) against their plain
              PyTorch versions at the flagship shapes (K1 also at the
@@ -19,8 +20,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              wgmma kernel) at V4's three shapes: self attention [32,
              36,864, 88], the text cross pass (kv 333) and the CLIP pass
              (kv 16), and on 12 ragged heads; then K1 at head dims 72
-             (K1@72: its TMA + wgmma kernel past 64 q rows, the mma.sync
-             body below) and 144 (K1@144, the mma.sync body) at the V1-V3
+             (K1@72: its persistent TMA + wgmma walk past 64 q rows, the
+             short-head kernel below) and 144 (K1@144, the short-head
+             kernel) at the V1-V3
              shapes: V3's Global_Self [32, 36,864, 72], the spatial [1,152,
              1,024, 72], text (kv 120) and temporal [32,768, 36, 72]
              passes, V2's temporal [16,384, 36, 144] and V1's grid [4,096,
@@ -185,12 +187,14 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
              frame to 0 latents, in JAX too): s/step, decode s, peak; K1
              per CFG evaluation by head dim (LEGACY_K1): V3 112 at d 72
              (42 of them, the temporal passes over 36 frames, on the
-             mma.sync body), V2 and V1 56 at d 72 and 56 at d 144 (all on
-             the mma.sync body), PixArt 56 at d 72
+             short-head kernel flash_fwd_short_sm90, the rest on
+             flash_fwd_d72_sm90's persistent walk), V2 and V1 56 at d 72
+             and 56 at d 144 (all of the latter on the short-head
+             kernel), PixArt 56 at d 72
 Each main-path phase sets the kernels' launch counts to 0 just before it
 and checks them just after, and that every launch of K1-K7 (at d 64, and
-K1's at d 88 in V4's, at d 72 past 64 q rows in V1-V3's) ran its TMA +
-wgmma kernel, the rest of V1-V3's K1 launches the mma.sync body; Q1-Q3
+K1's at d 88 in V4's, at d 72 and 144 in V1-V3's) ran its TMA + wgmma
+kernel, V1-V3's temporal and grid passes the short-head one; Q1-Q3
 launch on the quantized paths only. Then the per-kernel JSON line (K1@88,
 K1@72 and K1@144 their own rows) and, last, the device line.
 """
@@ -357,8 +361,12 @@ BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 6
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
 K1_D88_SM90 = "flash_fwd_d88_sm90"  # K1's at head dim 88 (the same file)
 K1_D72_SM90 = "flash_fwd_d72_sm90"  # K1's at head dim 72 past 64 q rows
-# K1's mma.sync body at d 144 (csrc/attn_fwd.cuh; d 72's short passes run
-# its d 72 instance)
+# K1's short-head kernel at d 72 and 144 (heads of at most 64 q and kv
+# rows; csrc/fwd_short_sm90.cuh)
+K1_SHORT = {d: f"flash_fwd_short_sm90ILi{d}E" for d in (72, 144)}
+# K1's mma.sync body at d 72 and 144 (csrc/attn_fwd.cuh): the shapes the
+# other K1 kernels leave (q rows at most 64 over kv rows past 64, and d
+# 144 past 64 rows); no main path runs it
 K1_MMA = {72: "attn_fwd_kernelILi72ELb0", 144: "attn_fwd_kernelILi144ELb0"}
 K2_SM90 = "swa_fwd_sm90"  # K2's (csrc/swa_fwd.cu)
 K5_SM90 = "swa_fused_fwd_sm90"  # K5's (csrc/swa_fused_fwd.cu)
@@ -481,8 +489,10 @@ def phase_build():
     _build.load_library()
     seconds = time.perf_counter() - t0
     out, report = {}, {}
+    short = [(f"K1 short@{d}", k) for d, k in K1_SHORT.items()]
     for key, kernel in (("K1", K1_SM90), ("K1@88", K1_D88_SM90),
-                        ("K1@72", K1_D72_SM90), ("K2", K2_SM90), ("K3", K3_SM90), ("K4", K4_SM90),
+                        ("K1@72", K1_D72_SM90), *short, ("K2", K2_SM90),
+                        ("K3", K3_SM90), ("K4", K4_SM90),
                         ("K5", K5_SM90), ("K6", K6_SM90), ("K7", K7_SM90)):
         ptxas = _build.ptxas_report(kernel)
         sass = _build.sass_counts(kernel, ("HGMMA", "UTMALDG", "UTMASTG",
@@ -991,8 +1001,8 @@ def reference_runs(kind, runs):
     v4, legacy = kind == "v4", kind == "legacy"
     # the legacy request at 128 x 128: 64 tokens a frame, so that the text
     # and Global_Self passes (2 frames) run past 64 q rows on K1's d 72
-    # TMA + wgmma kernel and the spatial and temporal ones on its mma.sync
-    # body
+    # persistent walk and the spatial and temporal ones on its short-head
+    # kernel
     px = 128 if legacy else 64
     lat0 = torch.randn(1, 4, V4_REF_FRAMES // 4 if v4 else 2, px // 8,
                        px // 8, generator=gen)
@@ -1986,15 +1996,16 @@ LEGACY_YAML = {
            {"vae_type": "AutoencoderKLMagvit", "mini_batch_encoder": 8,
             "mini_batch_decoder": 2, "chunk_mode": "slice_mag"}),
 }
-# K1 launches per CFG evaluation by head dim, and how many of them attend
-# over at most 64 q rows (the mma.sync body): each layer's spatial and text
-# passes (d 72, 1,024 and 36,864 or 16,384 q rows); V3's motion modules at
-# 16 heads (d 72): 2 Temporal_Self passes over 36 frames on even layers,
-# Temporal_Self + Global_Self (36,864 q rows) on odd ones; V2's at 8 heads
-# (d 144): 2 Temporal_Self passes over 36 frames; V1's the same over a 2 x
-# 2 cell's 4 x 16 = 64 tokens; PixArt's basic blocks none
-LEGACY_K1 = {"v3": ({72: 112}, 42), "v2": ({72: 56, 144: 56}, 56),
-             "v1": ({72: 56, 144: 56}, 56), "pixart": ({72: 56}, 0)}
+# K1 launches per CFG evaluation by head dim, and by head dim those that
+# attend over at most 64 q and kv rows (the short-head kernel): each
+# layer's spatial and text passes (d 72, 1,024 and 36,864 or 16,384 q rows,
+# flash_fwd_d72_sm90); V3's motion modules at 16 heads (d 72): 2
+# Temporal_Self passes over 36 frames on even layers, Temporal_Self +
+# Global_Self (36,864 q rows) on odd ones; V2's at 8 heads (d 144): 2
+# Temporal_Self passes over 36 frames; V1's the same over a 2 x 2 cell's 4
+# x 16 = 64 tokens; PixArt's basic blocks none
+LEGACY_K1 = {"v3": ({72: 112}, {72: 42}), "v2": ({72: 56, 144: 56}, {144: 56}),
+             "v1": ({72: 56, 144: 56}, {144: 56}), "pixart": ({72: 56}, {})}
 # K1's V1-V3 shapes, each over the CFG batch: (name, d, b*h, sq, skv)
 LEGACY_K1_CASES = (
     ("K1@72 Global_Self", 72, 2 * LEGACY_HEADS, LEGACY_TOKENS, LEGACY_TOKENS),
@@ -2008,11 +2019,23 @@ LEGACY_K1_CASES = (
 LEGACY_BIG_BH = 2 * 48 * 48 * LEGACY_HEADS
 
 
+def k1_route(d, sq, skv):
+    """Which kernel ea_flash_fwd_bf16 runs for these shapes at d 72 or
+    144: "short" (flash_fwd_short_sm90), "sm90" (flash_fwd_d72_sm90's
+    persistent walk) or "mma" (the mma.sync body)."""
+    lib = _build.load_library()
+    if lib.ea_flash_fwd_uses_short(d, sq, skv):
+        return "short"
+    return "sm90" if lib.ea_flash_fwd_uses_sm90(d, sq, skv) else "mma"
+
+
 def phase_kernels_legacy(gen):
     """K1 at head dims 72 (csrc/flash_fwd.cu::flash_fwd_d72_sm90 on
-    fwd_split_sm90.cuh past 64 q rows, the mma.sync body of attn_fwd.cuh
-    at most 64) and 144 (the mma.sync body) against its plain version at
-    the V1-V3 shapes of LEGACY_K1_CASES, with kernel / plain / SDPA
+    fwd_split_sm90.cuh past 64 q rows, flash_fwd_short_sm90 on
+    fwd_short_sm90.cuh at most 64 q and kv rows) and 144
+    (flash_fwd_short_sm90 at most 64 q and kv rows, the mma.sync body of
+    attn_fwd.cuh past them) against its plain version at the V1-V3 shapes
+    of LEGACY_K1_CASES, with the route each ran and kernel / plain / SDPA
     (yardstick) times and bounds; then at b*h = LEGACY_BIG_BH and on 12
     ragged heads. Returns the K1@72 and K1@144 stats."""
     dev = DEVICE
@@ -2041,8 +2064,7 @@ def phase_kernels_legacy(gen):
                              5 if long else 20),
                "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
                "sdpa_ms": sdpa, "bound_ms": bms, "bound_by": by,
-               "sm90": bool(_build.load_library().ea_flash_fwd_uses_sm90(
-                   d, sq))}
+               "route": k1_route(d, sq, skv)}
         if sdpa_error:
             row["sdpa_error"] = sdpa_error
         row["share_of_bound"] = bms / row["ms"]
@@ -2060,6 +2082,7 @@ def phase_kernels_legacy(gen):
                                       flash_attention_fwd,
                                       flash_attention_plain, (q, k, v, 36)))
     stats[72]["big_bh_ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v), 20)
+    stats[72]["big_bh_route"] = k1_route(72, 36, 36)
     del q, k, v, shift
     # 12 heads of 1001 rows (not a multiple of the 192-row q blocks or the
     # 96-row kv tiles), each head offset by its own mean: columns 72-79
@@ -2078,9 +2101,9 @@ def phase_kernels_legacy(gen):
         st.update(max_abs_err=max(e[0] for e in errs),
                   max_rel_err=max(e[1] for e in errs))
         emit({"phase": "kernels", "case": f"K1@{d} times", **st,
-              "note": "sdpa_ms is a yardstick, not on the path; sm90: the "
-                      "shape ran flash_fwd_d72_sm90, else the mma.sync "
-                      "body"})
+              "note": "sdpa_ms is a yardstick, not on the path; route: the "
+                      "kernel the shape ran (short: flash_fwd_short_sm90, "
+                      "sm90: flash_fwd_d72_sm90, mma: the mma.sync body)"})
     torch.cuda.empty_cache()
     return stats
 
@@ -3185,11 +3208,12 @@ COUNTERS = {"K1": flash_attention_fwd, "K2": sliding_window_fwd,
 def reset_counts():
     """The main path's run starts here. K3 and K4 share one counter (each
     flash_attention_bwd call launches both), as do K6 and K7; K1 also
-    counts its launches by head dim."""
+    counts its launches by head dim and those on its short-head kernel."""
     for fn in (*COUNTERS.values(), *QCOUNTERS.values()):
         fn.launches = 0
     flash_attention_fwd.launches_by_dim = {}
     flash_attention_fwd.launches_sm90 = 0
+    flash_attention_fwd.launches_short = 0
     sliding_window_fwd.launches_sm90 = 0
     swa_local_global_fwd.launches_sm90 = 0
     flash_attention_bwd.launches_sm90 = 0
@@ -3822,16 +3846,18 @@ def main():
 
     totals_q = dict.fromkeys(QCOUNTERS, 0)
     totals_by_dim = {}  # K1's launches over the path runs by head dim
+    short_by_dim = {}  # and those on its short-head kernel
 
     def path_run(phase, fn, expect=None, expect_q=None, k1_dims=None,
-                 k1_short=0):
+                 k1_short=None):
         """One main-path run: counts set to 0 just before, read just after;
         every launch of K1-K7 ran its TMA + wgmma kernel (d 64; K1 also at
-        V4's d 88 and V1-V3's d 72), but for the `k1_short` K1 launches
-        that the mma.sync body takes (V1-V3's d 144, and their d 72 passes
-        over at most 64 q rows); K1's launches by head dim are `k1_dims`
-        (when given); Q1-Q3 launched `expect_q` times (none on a float
-        model's path)."""
+        V4's d 88 and V1-V3's d 72 and 144), `k1_short` of K1's (by head
+        dim: V1-V3's passes over at most 64 q and kv rows) its short-head
+        kernel flash_fwd_short_sm90; K1's launches by head dim are
+        `k1_dims` (when given); Q1-Q3 launched `expect_q` times (none on a
+        float model's path)."""
+        k1_short = k1_short or {}
         reset_counts()
         result = fn()
         got = read_counts()
@@ -3849,12 +3875,17 @@ def main():
         for k, n in got_q.items():
             totals_q[k] += n
         for key, (counter, kernel) in sm90_counters.items():
-            short = k1_short if key == "K1" else 0
-            if counter.launches_sm90 != got[key] - short:
+            if counter.launches_sm90 != got[key]:
                 raise AssertionError(f"{phase}: {counter.launches_sm90} of "
                                      f"{got[key]} {key} launches ran {kernel}"
-                                     f" ({short} expected on mma.sync)")
+                                     f" or another TMA + wgmma kernel")
             totals_sm90[key] += counter.launches_sm90
+        if flash_attention_fwd.launches_short != sum(k1_short.values()):
+            raise AssertionError(
+                f"{phase}: {flash_attention_fwd.launches_short} K1 launches "
+                f"ran flash_fwd_short_sm90, expected {k1_short}")
+        for d, n in k1_short.items():
+            short_by_dim[d] = short_by_dim.get(d, 0) + n
         for k, n in got.items():
             totals[k] += n
         torch.cuda.synchronize()
@@ -4011,9 +4042,9 @@ def main():
     torch.cuda.empty_cache()
     v4_k1 = expect_v4_t2v["K1"] + expect_v4_i2v["K1"]
     # V1-V3 (EasyAnimateV1-V3) and PixArt: the Transformer3D at full width
-    # and depth from each yaml's fields, DDIM; K1 at d 72 (its TMA + wgmma
-    # kernel past 64 q rows, the mma.sync body for V3's temporal passes)
-    # and d 144 (V1's and V2's motion modules, the mma.sync body)
+    # and depth from each yaml's fields, DDIM; K1 at d 72 (its persistent
+    # walk past 64 q rows, the short-head kernel for V3's temporal passes)
+    # and d 144 (V1's and V2's motion modules, the short-head kernel)
     expect_legacy, legacy_sm90 = {}, 0
     for i, edition in enumerate(("v3", "v2", "v1", "pixart")):
         model_l, vae_l = legacy_models(edition, args.seed + 110 + 2 * i)
@@ -4028,7 +4059,7 @@ def main():
         path_run(phase, lambda: legacy_request(
             phase, pipe, args.seed + 111 + 2 * i, new_steps,
             LEGACY_FRAMES[edition]), expect_legacy[edition], k1_dims=dims,
-            k1_short=short * new_steps)
+            k1_short={d: n * new_steps for d, n in short.items()})
         legacy_sm90 += totals_sm90["K1"] - sm90_before
         del pipe, model_l, vae_l
         torch.cuda.empty_cache()
@@ -4151,21 +4182,26 @@ def main():
                         + ptxas88.get("spill_load_bytes", 0)),
         "sass": build["K1@88"]["sass"]}
 
-    def legacy_row(d, case, kernel, sources, launches_sm90):
-        """K1 at the V1-V3 head dim d: its path launches (those that ran
-        `kernel`, the rest the mma.sync body), ms, plain, SDPA and bound at
-        `case`'s shape, every shape's in `shapes`."""
+    def legacy_row(d, case, kernel, sources, main_key):
+        """K1 at the V1-V3 head dim d: its path launches (all on TMA +
+        wgmma kernels, `launches_short` of them on the short-head one),
+        ms, plain, SDPA and bound at `case`'s shape, every shape's in
+        `shapes` (with the kernel each ran); registers and spills of
+        `main_key`'s kernel (the one `case` ran) and of the short-head
+        kernel at d."""
         st, main_case = legacy_stats[d], legacy_stats[d]["shapes"][case]
-        ptxas = build[f"K1@{d}" if launches_sm90 else f"K1@{d} mma"]["ptxas"]
+        ptxas = build[main_key]["ptxas"]
+        short = build[f"K1 short@{d}"]["ptxas"]
+        n = totals_by_dim.get(d, 0)
         return {
             "name": f"K1@{d} flash_attention_fwd (d {d}, V1-V3)",
             "route": "cuda",
             "source": "easyanimate_tpu_torch/csrc/flash_fwd.cu",
             "sources": [f"easyanimate_tpu_torch/csrc/{f}" for f in sources],
             "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
-            "launches": totals_by_dim.get(d, 0),
-            "launches_sm90": launches_sm90,
-            "launches_mma_sync": totals_by_dim.get(d, 0) - launches_sm90,
+            "launches": n, "launches_sm90": n,
+            "launches_short": short_by_dim.get(d, 0),
+            "launches_mma_sync": 0,
             "kernel": kernel, "max_abs_err": st["max_abs_err"],
             "max_rel_err": st["max_rel_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],
@@ -4175,15 +4211,23 @@ def main():
             "share_of_bound": main_case["share_of_bound"],
             "shapes": st["shapes"], "registers": ptxas.get("registers"),
             "spill_bytes": (ptxas.get("spill_store_bytes", 0)
-                            + ptxas.get("spill_load_bytes", 0))}
+                            + ptxas.get("spill_load_bytes", 0)),
+            "short_kernel": {
+                "kernel": K1_SHORT[d],
+                "registers": short["registers"],
+                "spill_bytes": sum(short.get(k, 0) for k in (
+                    "spill_store_bytes", "spill_load_bytes"))}}
 
     k1_72_row = legacy_row(
-        72, "K1@72 Global_Self", f"{K1_D72_SM90} (+ {K1_MMA[72]})",
-        ("flash_fwd.cu", "fwd_split_sm90.cuh", "attn_fwd.cuh", "hopper.cuh"),
-        legacy_sm90)
+        72, "K1@72 Global_Self",
+        f"{K1_D72_SM90} (+ flash_fwd_short_sm90<72>)",
+        ("flash_fwd.cu", "fwd_split_sm90.cuh", "fwd_short_sm90.cuh",
+         "hopper.cuh"), "K1@72")
     k1_72_row["big_bh_ms"] = legacy_stats[72]["big_bh_ms"]
-    k1_144_row = legacy_row(144, "K1@144 V2 temporal", K1_MMA[144],
-                            ("flash_fwd.cu", "attn_fwd.cuh"), 0)
+    k1_144_row = legacy_row(
+        144, "K1@144 V2 temporal", "flash_fwd_short_sm90<144>",
+        ("flash_fwd.cu", "fwd_short_sm90.cuh", "hopper.cuh"),
+        "K1 short@144")
     for r in (k1_row, k1_88_row):
         if r["launches"] != r["launches_sm90"]:
             raise AssertionError(f"{r['name']} launches {r['launches']} != "
@@ -4191,10 +4235,12 @@ def main():
     if (totals_by_dim.get(64, 0) != k1_row["launches"]
             or totals_by_dim.get(88, 0) != k1_88_row["launches"]
             or k1_72_row["launches"] + k1_144_row["launches"] != legacy_k1
-            or not k1_72_row["launches_sm90"]
-            or not k1_72_row["launches_mma_sync"]
+            or legacy_sm90 != legacy_k1
+            or not k1_72_row["launches_short"]
+            or k1_144_row["launches_short"] != k1_144_row["launches"]
             or not k1_144_row["launches"]):
-        raise AssertionError(f"K1 launches by head dim {totals_by_dim}")
+        raise AssertionError(f"K1 launches by head dim {totals_by_dim}, on "
+                             f"the short-head kernel {short_by_dim}")
 
     emit({"kernels": [
         k1_row | {"v5_ms": stats["K1"]["v5_ms"],
@@ -4237,13 +4283,14 @@ def main():
                "wgmma kernel): ms, plain_ms, library_ms (SDPA) and bound at "
                "V4's self attention [32, 36864, 88], shapes[] also at its "
                "text (333) and CLIP (16) cross passes. K1@72 (V1-V3's head "
-               "dim; its TMA + wgmma kernel past 64 q rows, the mma.sync "
-               "body for the temporal passes over 36 frames): ms, plain, "
+               "dim; its persistent walk past 64 q rows, the short-head "
+               "kernel for the temporal passes over 36 frames): ms, plain, "
                "SDPA and bound at V3's Global_Self [32, 36864, 72], shapes[] "
-               "also at the spatial, text and temporal passes; big_bh_ms at "
-               "b*h 73728. K1@144 (V1's and V2's motion modules, the "
-               "mma.sync body): at V2's temporal pass [16384, 36, 144], "
-               "shapes[] also at V1's grid [4096, 64, 144]. K3/K4 and K6/K7 "
+               "also at the spatial, text and temporal passes, each with "
+               "the kernel it ran (route); big_bh_ms at b*h 73728. K1@144 "
+               "(V1's and V2's motion modules, the short-head kernel): at "
+               "V2's temporal pass [16384, 36, 144], shapes[] also at V1's "
+               "grid [4096, 64, 144]. K3/K4 and K6/K7 "
                "plain_ms and library_ms: one plain pass, and one SDPA "
                "backward (K6/K7: with the boolean band mask), compute both "
                "kernels' gradients. K2 library_ms: SDPA with the band mask. "

@@ -1,10 +1,11 @@
 // The mma.sync forward-attention body of K1 (flash_fwd.cu: dense), K2
 // (swa_fwd.cu: banded) and K5 (swa_fused_fwd.cu: banded + global) at head
-// dims 16 and 32 (the tiny test preset), and of K1 at head dim 144 (V1's
-// and V2's motion modules) and at 72 for at most 64 q rows (V3's temporal
-// passes over 36 latent frames); at d 64 all three are TMA + wgmma kernels
-// on fwd_sm90.cuh, and so is K1 at d 88 and at d 72 past 64 q rows
-// (fwd_split_sm90.cuh).
+// dims 16 and 32 (the tiny test preset), and of K1 at head dims 72 and 144
+// for the shapes its TMA + wgmma kernels leave (at most 64 q rows over
+// more than 64 kv rows; d 144 past 64 q rows); at d 64 all three are TMA
+// + wgmma kernels on fwd_sm90.cuh, and so is K1 at d 88 and at d 72 past
+// 64 q rows (fwd_split_sm90.cuh) and at d 72 and 144 on heads of at most
+// 64 q and kv rows (fwd_short_sm90.cuh: V1-V3's temporal passes).
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -40,9 +41,10 @@
 // onto. At d 88 this body ran V4's self attention [32, 36864, 88] in
 // 101.95 ms on an NVIDIA H100 80GB HBM3 at 700 W, 15% of its 15.48 ms
 // bound and 2.9x SDPA's time there: the reason K1 took the TMA + wgmma
-// design at 88 and 72. The passes it keeps at 72 and 144 attend over 36 or
-// 64 tokens, and are bound by their bytes: each block reads its q, k and v
-// rows once.
+// design at 88 and 72. At d 144 it ran V2's temporal pass [16,384, 36,
+// 144] in 0.504 ms (40% of its bytes bound), one 64-row block a head that
+// loads before it computes: the reason those passes moved to
+// flash_fwd_short_sm90.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -83,18 +83,41 @@
 // k/v traffic from L2 per q row, one consumer fewer to fill the others'
 // softmax gaps, and ptxas sizes consumers by the launch's 168).
 //
-// Every launch of these three kernels folds the q block and b*h into
-// blockIdx.x (the q blocks of one head adjacent, so the blocks resident
-// at once share their heads' k and v in L2, as with q blocks on x and
-// b*h on y), so b*h may pass gridDim.y's 65,535: V3's temporal pass at
-// 768x768 has b*h = 73,728.
+// At 72 the block runs as a persistent walk (fwd_split_sm90.cuh's Walk;
+// d 88 keeps one block a (q block, head)): one block an SM walks (q
+// block, head) items with q in two buffers, so the next item's q and
+// first kv tiles load behind this item's last tiles and epilogue; where a
+// head's kv fits the ring (the text pass's 120 keys: 2 tiles) the block
+// walks a run of adjacent items and keeps the tiles across the head's q
+// blocks. A 1,024-row head's last block has one live consumer of three,
+// and the other two run over their zero q rows as before. Tried on the
+// card and dropped (NVIDIA H100 80GB HBM3, 700 W; tools/kernel_ab.py
+// against this walk, in the same turns): splitting that block's kv tiles
+// three ways over the consumers, with a merge of the partial o and lse
+// (Global_Self +5% and spatial +1.5% even with the consumer index made
+// warp-uniform by a broadcast; +18% as a second loop; the branch in the
+// tile loop costs every item more than the idle consumers cost the
+// tail); the two dead consumers letting the tiles pass unread (spatial
+// -0.3%, Global_Self +1.8%: a lone consumer is no faster).
 //
-// Head dims 16 and 32 (the tiny test preset), 144 (V1's and V2's motion
-// modules: short temporal passes over f or 4f tokens) and 72 at sq <=
-// kShortRows (V3's temporal passes over f = 36 latent frames, where a
-// 192-row q block would idle more than 80% of its rows) run the mma.sync
-// body of attn_fwd.cuh: a dispatch by shape in ea_flash_fwd_bf16, never a
-// fallback on failure. ea_flash_fwd_uses_sm90 tells the wrapper which ran.
+// K1 at d 64 and 88 folds the q block and b*h into blockIdx.x (the q
+// blocks of one head adjacent, so the blocks resident at once share their
+// heads' k and v in L2), so b*h may pass gridDim.y's 65,535; the
+// persistent kernels walk b*h (V3's temporal pass at 768x768 has b*h =
+// 73,728).
+//
+// Heads of at most 64 q and kv rows at d 144 (V1's and V2's motion
+// modules: temporal passes over 36 frames or V1's 2 x 2 cells of 16
+// frames) and at d 72 (V3's temporal passes over 36 frames, at q and kv
+// rows up to kShortD72Rows) run flash_fwd_short_sm90 (fwd_short_sm90.cuh
+// gives its design): a whole head one 64-row wgmma tile, one block an SM
+// walking the heads. Head dims 16 and 32 (the tiny test preset) and the
+// d 72 and 144 shapes left (at most 64 q rows over more kv rows, d 144
+// past 64 q rows) run the mma.sync body of attn_fwd.cuh. A dispatch by
+// shape in ea_flash_fwd_bf16, never a fallback on failure;
+// ea_flash_fwd_uses_sm90 and ea_flash_fwd_uses_short tell the wrapper
+// which ran.
+#include "fwd_short_sm90.cuh"
 #include "fwd_split_sm90.cuh"
 #include "fwd_sm90.cuh"
 
@@ -221,73 +244,228 @@ __device__ __forceinline__ void consume_split(fwdsplit::Smem<D>& sm,
                            r_a, r_b);
 }
 
-// The block at d 88 or 72: the producer warpgroup, then three consumers.
+// One consumer warpgroup of the persistent walk (d 72): consume_split's
+// loop over each of the block's items, q from buffer i % 2; a stage is
+// released after its tile's last use (every use, unless the tiles stay in
+// the ring across the head's items), q buffer i % 2 once o is stored.
 template <int D>
+__device__ __forceinline__ void consume_walk(fwdsplit::SmemWalk<D>& sm,
+                                             const fwdsplit::Maps<D>& m,
+                                             const fwdsplit::Walk& w,
+                                             float* __restrict__ lse, int c,
+                                             int sq, int kv_valid) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g;  // this thread's two rows in the 64
+  const int r_b = r_a + 8;
+  int jt = 0, prev_bh = -1;
+  for (int i = 0; i < w.count; ++i) {
+    const int bh = w.head(i), q0 = w.q0(i), qb = i & 1;
+    if (w.resident && bh == prev_bh) jt -= w.n_tiles;  // the same tiles
+    prev_bh = bh;
+    const bool release =
+        !w.resident || i + 1 == w.count || w.head(i + 1) != bh;
+    const fwdsplit::QView qv = sm.q(qb);
+    const fwdsplit::QDesc dq{
+        sm90::desc_sw128(qv.q_lo + c * 64 * fwdsplit::kLoCols, 16, 1024),
+        fwdsplit::desc_hi<D>(qv.q_hi + c * 64 * fwdsplit::kHiCols<D>, 16,
+                             8 * fwdsplit::kHiRowBytes<D>)};
+    float o_lo[32], o_hi[fwdsplit::kHiOut<D> / 2];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) o_lo[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < fwdsplit::kHiOut<D> / 2; ++k) o_hi[k] = 0.f;
+    fwd90::RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
+
+    sm90::mbar_wait(sm.q_full(qb), (i >> 1) & 1);
+    for (int j = 0; j < w.n_tiles; ++j, ++jt) {
+      const int s = jt % fwdsplit::kStages;
+      // a tile kept in the ring: its load's phase is still the last one
+      sm90::mbar_wait(&sm.b.full[s], (jt / fwdsplit::kStages) & 1);
+      float sc[48];
+      sm90::wgmma_fence();
+      fwdsplit::issue_qk<D>(sc, dq, sm.b.k_lo[s], sm.b.k_hi[s]);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      fwdsplit::mask_tail(sc, j * fwdsplit::kBlockN, kv_valid, t);
+      fwdsplit::softmax_pv<D, false>(sc, o_lo, o_hi, st, sm.b, s, lane);
+      if (release) {
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&sm.b.empty[s]);
+      }
+    }
+    fwdsplit::store_o_lse<D>(o_lo, o_hi, st, qv, m, lse, c, bh, q0, sq, tid,
+                             t, r_a, r_b);
+    if (tid == 0) sm90::mbar_arrive(&sm.q_empty[qb]);  // o stored from it
+  }
+}
+
+// The block at d 88 or 72: the producer warpgroup, then three consumers;
+// one (q block, head) a block, or (kWalk: d 72) the persistent walk over
+// the b*h heads' q blocks.
+template <int D, bool kWalk>
 __device__ __forceinline__ void split_block(const fwdsplit::Maps<D>& m,
-                                            float* __restrict__ lse, int sq,
-                                            int kv_valid) {
-  fwdsplit::Smem<D>& sm = fwdsplit::init_smem<D>();
-  const int warpgroup = threadIdx.x / 128;
-  const int n_qb = (sq + fwdsplit::kBlockM - 1) / fwdsplit::kBlockM;
-  const int bh = blockIdx.x / n_qb;
-  const int q0 = (blockIdx.x - bh * n_qb) * fwdsplit::kBlockM;
-  const int n_tiles = (kv_valid + fwdsplit::kBlockN - 1) / fwdsplit::kBlockN;
-  if (warpgroup == 0) {
-    fwdsplit::produce<D>(sm, m, q0, bh, n_tiles);
+                                            float* __restrict__ lse, int bh,
+                                            int sq, int kv_valid) {
+  if constexpr (kWalk) {
+    fwdsplit::SmemWalk<D>& sm = fwdsplit::init_smem_walk<D>();
+    const int warpgroup = threadIdx.x / 128;
+    const fwdsplit::Walk w(bh, sq, kv_valid);
+    if (warpgroup == 0) {
+      fwdsplit::produce_walk<D>(sm, m, w);
+    } else {
+      sm90::setmaxnreg_inc<fwdsplit::kConsumerRegs>();
+      consume_walk<D>(sm, m, w, lse, warpgroup - 1, sq, kv_valid);
+    }
   } else {
-    sm90::setmaxnreg_inc<fwdsplit::kConsumerRegs>();
-    consume_split<D>(sm, m, lse, warpgroup - 1, bh, q0, sq, kv_valid,
-                     n_tiles);
+    fwdsplit::Smem<D>& sm = fwdsplit::init_smem<D>();
+    const int warpgroup = threadIdx.x / 128;
+    const int n_qb = (sq + fwdsplit::kBlockM - 1) / fwdsplit::kBlockM;
+    const int b = blockIdx.x / n_qb;
+    const int q0 = (blockIdx.x - b * n_qb) * fwdsplit::kBlockM;
+    const int n_tiles = (kv_valid + fwdsplit::kBlockN - 1) / fwdsplit::kBlockN;
+    if (warpgroup == 0) {
+      fwdsplit::produce<D>(sm, m, q0, b, n_tiles);
+    } else {
+      sm90::setmaxnreg_inc<fwdsplit::kConsumerRegs>();
+      consume_split<D>(sm, m, lse, warpgroup - 1, b, q0, sq, kv_valid,
+                       n_tiles);
+    }
   }
 }
 
 __global__ void __launch_bounds__(fwdsplit::kThreads, 1)
 flash_fwd_d88_sm90(const __grid_constant__ fwdsplit::Maps<88> m,
                    float* __restrict__ lse, int sq, int kv_valid) {
-  split_block<88>(m, lse, sq, kv_valid);
+  split_block<88, false>(m, lse, 0, sq, kv_valid);
 }
 
 __global__ void __launch_bounds__(fwdsplit::kThreads, 1)
 flash_fwd_d72_sm90(const __grid_constant__ fwdsplit::Maps<72> m,
-                   float* __restrict__ lse, int sq, int kv_valid) {
-  split_block<72>(m, lse, sq, kv_valid);
+                   float* __restrict__ lse, int bh, int sq, int kv_valid) {
+  split_block<72, true>(m, lse, bh, sq, kv_valid);
+}
+
+// The card's SM count (the persistent kernels' grid), or 0 on an error.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return n;
 }
 
 // Refuses the launch (cudaErrorInvalidConfiguration) unless ptxas gave the
-// kernel the 128 registers its setmaxnreg balance assumes.
-template <int D, typename Kernel>
-int launch_split(Kernel* kernel, const void* q, const void* k, const void* v,
-                 void* o, void* lse, int bh, int sq, int skv, int kv_valid,
+// kernel the 128 registers its setmaxnreg balance assumes. d 88: one block
+// a (q block, head); d 72: the persistent walk, one block an SM (or an
+// item, if fewer).
+template <int D>
+int launch_split(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int bh, int sq, int skv, int kv_valid,
                  cudaStream_t stream) {
   fwdsplit::Maps<D> m;
   int err = fwdsplit::encode_maps<D>(m, q, k, v, o, bh, sq, skv, kv_valid);
   if (err) return err;
+  constexpr bool kWalk = D == 72;
+  const auto kernel = kWalk ? reinterpret_cast<const void*>(flash_fwd_d72_sm90)
+                            : reinterpret_cast<const void*>(flash_fwd_d88_sm90);
   err = sm90::check_launch_regs(kernel, fwdsplit::kLaunchRegs);
   if (err) return err;
+  const size_t smem = kWalk ? fwdsplit::kSmemWalkBytes<D>
+                            : fwdsplit::kSmemBytes<D>;
   cudaError_t st = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(fwdsplit::kSmemBytes<D>));
+      static_cast<int>(smem));
   if (st != cudaSuccess) return static_cast<int>(st);
-  const dim3 grid(static_cast<unsigned>(
-      (sq + fwdsplit::kBlockM - 1) / fwdsplit::kBlockM) * bh);
-  kernel<<<grid, fwdsplit::kThreads, fwdsplit::kSmemBytes<D>, stream>>>(
-      m, static_cast<float*>(lse), sq, kv_valid);
+  const long long items =
+      (long long)((sq + fwdsplit::kBlockM - 1) / fwdsplit::kBlockM) * bh;
+  if constexpr (kWalk) {
+    const int sms = sm_count();
+    if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const dim3 grid(static_cast<unsigned>(items < sms ? items : sms));
+    flash_fwd_d72_sm90<<<grid, fwdsplit::kThreads, smem, stream>>>(
+        m, static_cast<float*>(lse), bh, sq, kv_valid);
+  } else {
+    flash_fwd_d88_sm90<<<dim3(static_cast<unsigned>(items)),
+                         fwdsplit::kThreads, smem, stream>>>(
+        m, static_cast<float*>(lse), sq, kv_valid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 at d 144 and 72 on heads of at most 64 q and kv rows (fwd_short_sm90.cuh
+// gives the design): one block an SM walking the heads.
+template <int D>
+__global__ void __launch_bounds__(fwdshort::kThreads, 1)
+flash_fwd_short_sm90(const __grid_constant__ fwdshort::Maps m,
+                     float* __restrict__ lse, int bh, int sq, int kv_valid) {
+  fwdshort::Smem<D>& sm = fwdshort::init_smem<D>();
+  const int n_heads = (bh - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int warp = threadIdx.x / 32;
+  if (warp == fwdshort::kProducerWarp) {
+    if (threadIdx.x % 32 == 0) {
+      fwdshort::produce<D>(sm, m, blockIdx.x, gridDim.x, n_heads);
+    }
+  } else {
+    fwdshort::consume<D>(sm, m, lse, warp / 4, blockIdx.x, gridDim.x,
+                         n_heads, sq, kv_valid);
+  }
+}
+
+template <int D>
+int launch_short(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int bh, int sq, int skv, int kv_valid,
+                 cudaStream_t stream) {
+  fwdshort::Maps m;
+  int err = fwdshort::encode_maps<D>(m, q, k, v, o, bh, sq, skv, kv_valid);
+  if (err) return err;
+  constexpr size_t smem = fwdshort::kSmemBytes<D>;
+  cudaError_t st = cudaFuncSetAttribute(
+      flash_fwd_short_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (st != cudaSuccess) return static_cast<int>(st);
+  const int sms = sm_count();
+  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const dim3 grid(static_cast<unsigned>(bh < sms ? bh : sms));
+  flash_fwd_short_sm90<D><<<grid, fwdshort::kThreads, smem, stream>>>(
+      m, static_cast<float*>(lse), bh, sq, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace k1
 }  // namespace ea
 
-// q rows at or below which d 72 runs the mma.sync body (V3's temporal
-// passes over 36 latent frames): on an H100 80GB HBM3 (700 W) the body
-// takes 0.451 / 0.310 ms at 36 / 64 rows against flash_fwd_d72_sm90's
-// 1.084 / 0.635, which leads from 96 rows (0.452 against 0.542) at the
-// same 1.18 M q rows (tools/k1_d72_crossover.py)
+// q rows at or below which d 72 leaves flash_fwd_d72_sm90, and q and kv
+// rows at or below which it then takes flash_fwd_short_sm90 rather than
+// the mma.sync body (V3's temporal passes over 36 latent frames). On an
+// H100 80GB HBM3 (700 W) at 1.18 M q rows, tools/k1_d72_crossover.py:
+// the short-head kernel 0.273 / 0.253 ms at 36 / 64 rows against the
+// mma.sync body's 0.450 / 0.312 and the walk's 0.67 / 0.40; the walk
+// leads from 96 rows (0.270 against the body's 0.536)
 constexpr int kShortRows = 64;
+constexpr int kShortD72Rows = 64;
+static_assert(kShortD72Rows <= ea::fwdshort::kRows, "one wgmma tile a head");
 
-extern "C" int ea_flash_fwd_uses_sm90(int head_dim, int sq) {
+// Heads of at most 64 q and kv rows at d 144, and at d 72 those the
+// split kernel leaves, up to kShortD72Rows: flash_fwd_short_sm90.
+static bool short_route(int head_dim, int sq, int skv) {
+  const int rows = head_dim == 144 ? ea::fwdshort::kRows
+                   : (head_dim == 72 && sq <= kShortRows) ? kShortD72Rows
+                                                          : 0;
+  return sq <= rows && skv <= rows;
+}
+
+extern "C" int ea_flash_fwd_uses_short(int head_dim, int sq, int skv) {
+  return short_route(head_dim, sq, skv);
+}
+
+extern "C" int ea_flash_fwd_uses_sm90(int head_dim, int sq, int skv) {
   return head_dim == ea::fwd90::kD || head_dim == 88 ||
-         (head_dim == 72 && sq > kShortRows);
+         (head_dim == 72 && sq > kShortRows) ||
+         short_route(head_dim, sq, skv);
 }
 
 extern "C" int ea_flash_fwd_bf16(const void* q, const void* k, const void* v,
@@ -298,14 +476,21 @@ extern "C" int ea_flash_fwd_bf16(const void* q, const void* k, const void* v,
     return ea::k1::launch(q, k, v, o, lse, bh, sq, skv, kv_valid, st);
   }
   if (head_dim == 88) {
-    return ea::k1::launch_split<88>(ea::k1::flash_fwd_d88_sm90, q, k, v, o,
-                                    lse, bh, sq, skv, kv_valid, st);
+    return ea::k1::launch_split<88>(q, k, v, o, lse, bh, sq, skv, kv_valid,
+                                    st);
   }
-  // past d 64 and 88 the predicate holds for d 72's long passes only; the
-  // wrappers' launches_sm90 count reads the same predicate
-  if (ea_flash_fwd_uses_sm90(head_dim, sq)) {
-    return ea::k1::launch_split<72>(ea::k1::flash_fwd_d72_sm90, q, k, v, o,
-                                    lse, bh, sq, skv, kv_valid, st);
+  // a dispatch by shape; the wrapper's launches_sm90 and launches_short
+  // counts read the same predicates
+  if (short_route(head_dim, sq, skv)) {
+    return head_dim == 144
+               ? ea::k1::launch_short<144>(q, k, v, o, lse, bh, sq, skv,
+                                           kv_valid, st)
+               : ea::k1::launch_short<72>(q, k, v, o, lse, bh, sq, skv,
+                                          kv_valid, st);
+  }
+  if (head_dim == 72 && sq > kShortRows) {
+    return ea::k1::launch_split<72>(q, k, v, o, lse, bh, sq, skv, kv_valid,
+                                    st);
   }
   return ea::launch_attn_fwd<false>(q, k, v, o, lse, bh, sq, skv, kv_valid,
                                     /*window=*/0, head_dim, stream);

@@ -285,8 +285,10 @@ __device__ __forceinline__ void mask_tail(float (&sc)[48], int col0,
 // adjacent 8-column chunks a k step) and that half's p v issued, so that
 // the second half's exponentials run while the first half's product is on
 // the tensor cores; the stage released (its empty barrier) once
-// wgmma.wait_group shows both complete.
-template <int D>
+// wgmma.wait_group shows both complete (unless kArrive is false: the
+// persistent walk's consumers release a stage themselves, once its last
+// use is done).
+template <int D, bool kArrive = true>
 __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
                                            float (&o_hi)[kHiOut<D> / 2],
                                            RowStats& st, Smem<D>& sm, int s,
@@ -358,8 +360,10 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
   sm90::fence_regs(o_lo);
   sm90::fence_regs(o_hi);
   sm90::fence_regs(pa);
-  __syncwarp();
-  if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
+  if constexpr (kArrive) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);  // k and v of stage s read
+  }
 }
 
 // A consumer's epilogue: o * (1 / l) in bf16 written into its own q rows
@@ -368,10 +372,12 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[48], float (&o_lo)[32],
 // 0-63 and the hi box (the store clips columns >= D and rows >= sq); lse =
 // m + log2(l) for rows below sq. tid, t, r_a and r_b are the consumer
 // thread's index in its warpgroup, in its quad, and its two rows in the 64.
-template <int D>
+// sm holds the q buffer as q_lo and q_hi: the block's Smem<D>, or the
+// persistent walk's QView of one of its two buffers.
+template <int D, class S>
 __device__ __forceinline__ void store_o_lse(const float (&o_lo)[32],
                                             const float (&o_hi)[kHiOut<D> / 2],
-                                            const RowStats& st, Smem<D>& sm,
+                                            const RowStats& st, S& sm,
                                             const Maps<D>& m,
                                             float* __restrict__ lse, int c,
                                             int bh, int q0, int sq, int tid,
@@ -416,6 +422,135 @@ __device__ __forceinline__ void store_o_lse(const float (&o_lo)[32],
     float* lb = lse + (size_t)bh * sq;
     if (row0 + r_a < sq) lb[row0 + r_a] = st.m_a + log2f(fmaxf(l_sum_a, 1e-30f));
     if (row0 + r_b < sq) lb[row0 + r_b] = st.m_b + log2f(fmaxf(l_sum_b, 1e-30f));
+  }
+}
+
+
+// ---- the persistent walk (K1 at d 72) ----------------------------------
+//
+// About one block an SM walks work items, each one q block of 192 rows of
+// one head (item w: head w / n_qb, q block w % n_qb; a head's q blocks
+// adjacent). q has two buffers, each with a full barrier and an empty one
+// (one arrive per consumer, once its o store has read the buffer), so the
+// producer loads the next item's q and first kv tiles while the consumers
+// finish this item's last tiles and epilogue. Where a head's kv fits in
+// the ring (n_tiles <= kStages: the text pass's 120 keys in 2 tiles) the
+// block walks a contiguous run of items, and its tiles stay in the ring
+// across that head's items: the producer loads them once, the consumers
+// release them after the head's last item. Otherwise the block takes
+// every gridDim.x-th item, so the items resident at once are adjacent and
+// share their heads' k and v in L2, as the one-block-an-item grid did.
+
+// One of the walk's q buffers, as store_o_lse reads it.
+struct QView {
+  __nv_bfloat16* q_lo;
+  __nv_bfloat16* q_hi;
+};
+
+// The block's shared memory: Smem<D> (q buffer 0, the kv ring, its
+// barriers and q buffer 0's full barrier), then q buffer 1 and the rest.
+template <int D>
+struct SmemWalk {
+  Smem<D> b;
+  alignas(1024) __nv_bfloat16 q_lo1[kBlockM * kLoCols];
+  __nv_bfloat16 q_hi1[kBlockM * kHiCols<D>];
+  uint64_t q_full1;
+  uint64_t q_empty[2];
+
+  __device__ __forceinline__ QView q(int qb) {
+    return qb ? QView{q_lo1, q_hi1} : QView{b.q_lo, b.q_hi};
+  }
+  __device__ __forceinline__ uint64_t* q_full(int qb) {
+    return qb ? &q_full1 : &b.q_full;
+  }
+};
+template <int D>
+constexpr size_t kSmemWalkBytes = sizeof(SmemWalk<D>) + 1024;
+
+template <int D>
+__device__ __forceinline__ SmemWalk<D>& init_smem_walk() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::smem_u32(smem_raw);
+  SmemWalk<D>& sm = *reinterpret_cast<SmemWalk<D>*>(
+      smem_raw + (((base + 1023) & ~1023u) - base));
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.b.full[s], 1);                // the producer's
+      sm90::mbar_init(&sm.b.empty[s], kConsumers * 4);  // a consumer warp's
+    }
+    sm90::mbar_init(&sm.b.q_full, 1);
+    sm90::mbar_init(&sm.q_full1, 1);
+    sm90::mbar_init(&sm.q_empty[0], kConsumers);  // a consumer's, after its store
+    sm90::mbar_init(&sm.q_empty[1], kConsumers);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// A block's items: first, first + step, ... (count of them); the producer
+// and the consumers compute the same walk.
+struct Walk {
+  int first, step, count, n_qb, n_tiles;
+  bool resident;  // kv tiles kept in the ring across a head's items
+
+  __device__ __forceinline__ Walk(int bh, int sq, int kv_valid) {
+    n_qb = (sq + kBlockM - 1) / kBlockM;
+    n_tiles = (kv_valid + kBlockN - 1) / kBlockN;
+    resident = n_tiles <= kStages;
+    const long long items = (long long)n_qb * bh;
+    if (resident) {
+      first = static_cast<int>(items * blockIdx.x / gridDim.x);
+      count = static_cast<int>(items * (blockIdx.x + 1) / gridDim.x) - first;
+      step = 1;
+    } else {
+      first = blockIdx.x;
+      step = gridDim.x;
+      count = static_cast<int>((items - blockIdx.x + gridDim.x - 1) /
+                               gridDim.x);
+    }
+  }
+  __device__ __forceinline__ int head(int i) const {
+    return (first + i * step) / n_qb;
+  }
+  __device__ __forceinline__ int q0(int i) const {
+    return (first + i * step) % n_qb * kBlockM;
+  }
+};
+
+// The producer warpgroup: one thread walks the block's items, loading
+// each one's q into buffer i % 2 and, unless they are still in the ring,
+// its head's kv tiles (jt counts the tiles loaded, as the consumers do).
+template <int D>
+__device__ __forceinline__ void produce_walk(SmemWalk<D>& sm, const Maps<D>& m,
+                                             const Walk& w) {
+  sm90::setmaxnreg_dec<kProducerRegs>();
+  if (threadIdx.x == 0) {
+    int jt = 0, prev_bh = -1;
+    for (int i = 0; i < w.count; ++i) {
+      const int bh = w.head(i), q0 = w.q0(i), qb = i & 1;
+      const QView qv = sm.q(qb);
+      // the first pass over each buffer finds it free
+      sm90::mbar_wait(&sm.q_empty[qb], ((i >> 1) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(sm.q_full(qb), kQBytes<D>);
+      sm90::tma_load_3d(qv.q_lo, &m.q_lo, sm.q_full(qb), 0, q0, bh);
+      sm90::tma_load_3d(qv.q_hi, &m.q_hi, sm.q_full(qb), kLoCols, q0, bh);
+      if (w.resident && bh == prev_bh) continue;
+      prev_bh = bh;
+      for (int j = 0; j < w.n_tiles; ++j, ++jt) {
+        const int s = jt % kStages;
+        const int row = j * kBlockN;
+        sm90::mbar_wait(&sm.b.empty[s], ((jt / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&sm.b.full[s], 2 * kTileBytes<D>);
+        sm90::tma_load_3d(sm.b.k_lo[s], &m.k_lo, &sm.b.full[s], 0, row, bh);
+        sm90::tma_load_3d(sm.b.k_hi[s], &m.k_hi, &sm.b.full[s], kLoCols, row,
+                          bh);
+        sm90::tma_load_3d(sm.b.v_lo[s], &m.v_lo, &sm.b.full[s], 0, row, bh);
+        sm90::tma_load_3d(sm.b.v_hi[s], &m.v_hi, &sm.b.full[s], kLoCols, row,
+                          bh);
+      }
+    }
   }
 }
 

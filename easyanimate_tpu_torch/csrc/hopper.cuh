@@ -7,7 +7,9 @@
 // swa_bwd.cu on bwd_sm90.cuh), all at head_dim 64, and K1 at head_dim 88
 // and 72 (flash_fwd.cu on fwd_split_sm90.cuh), all bound by operations at
 // the flagship shapes ([96, 13360, 64] bf16; the banded ones [96, 13104,
-// 64] banded to 1,008; V4's [32, 36864, 88]; V3's [32, 36864, 72]).
+// 64] banded to 1,008; V4's [32, 36864, 88]; V3's [32, 36864, 72]); and
+// K1's short-head kernel at d 72 and 144 (flash_fwd.cu on
+// fwd_short_sm90.cuh), bound by bytes (heads of 36 or 64 rows).
 // Their common shape: one producer warpgroup keeps TMA loads in flight
 // through a ring of shared-memory stages guarded by full/empty mbarriers,
 // and consumer warpgroups run the products on the tensor cores with wgmma
@@ -327,6 +329,27 @@ __device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64x16] (+)= A[64x16] B[16x16]: A from registers, B from shared memory
+// MN-major, as wgmma_m64n64k16_rs_tb (K1's p v over head-dim columns
+// 128-143 at d 144).
+__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float (&d)[8],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
 }
 
 // d[64x24] (+)= A[64x16] B[16x24]: A from registers, B from shared memory

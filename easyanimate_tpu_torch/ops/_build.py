@@ -31,8 +31,10 @@ HEAD_DIMS = (16, 32, 64)
 # the attention kernels by the names their input checks raise with, and
 # the head dims each has an instance for: K1's forward also takes 88 (V4's
 # HunyuanDiT, csrc/flash_fwd.cu::flash_fwd_d88_sm90), 72 (the V1-V3
-# Transformer3D: flash_fwd_d72_sm90, or the mma.sync body for short
-# sequences) and 144 (V1's and V2's motion modules, the mma.sync body)
+# Transformer3D: flash_fwd_d72_sm90 past 64 q rows, flash_fwd_short_sm90
+# for heads of at most 64 q and kv rows, else the mma.sync body) and 144
+# (V1's and V2's motion modules: flash_fwd_short_sm90 for heads of at most
+# 64 q and kv rows, else the mma.sync body)
 K1 = "K1 (ea_flash_fwd_bf16)"
 K2 = "K2 (ea_swa_fwd_bf16)"
 K3_K4 = "K3 and K4 (ea_flash_bwd_dq_bf16, ea_flash_bwd_dkv_bf16)"
@@ -50,8 +52,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, lse, bh, sq, skv, kv_valid, head_dim, stream
     "ea_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # head_dim, sq -> 1 if ea_flash_fwd_bf16 runs a TMA + wgmma kernel
-    "ea_flash_fwd_uses_sm90": (_I, _I),
+    # head_dim, sq, skv -> 1 if ea_flash_fwd_bf16 runs a TMA + wgmma kernel
+    "ea_flash_fwd_uses_sm90": (_I, _I, _I),
+    # head_dim, sq, skv -> 1 if that kernel is the short-head one
+    # (flash_fwd_short_sm90)
+    "ea_flash_fwd_uses_short": (_I, _I, _I),
     # q, k, v, o, lse, bh, s, window, head_dim, stream
     "ea_swa_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # head_dim -> 1 if ea_swa_fwd_bf16 runs the TMA + wgmma kernel

@@ -1,6 +1,6 @@
 """Dense attention over [bh, S, d]: the hand-written Hopper kernels
 (csrc/flash_fwd.cu, K1; csrc/flash_bwd.cu, K3 and K4; all three TMA +
-wgmma kernels at d 64, K1 also at d 88 and 72), their plain PyTorch
+wgmma kernels at d 64, K1 also at d 88, 72 and 144), their plain PyTorch
 versions, and the autograd Function that joins them.
 
 All take q pre-scaled by sm_scale * log2(e) (ops/attention.py folds it in
@@ -66,8 +66,10 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     or raises; a CPU tensor takes flash_attention_plain.
     `flash_attention_fwd.launches` counts kernel launches,
     `.launches_by_dim` them by head dim, `.launches_sm90` those that ran a
-    TMA + wgmma kernel (d 64 and 88, and 72 past 64 q rows; d 16, 32 and
-    144 and the short d 72 passes run the mma.sync one)."""
+    TMA + wgmma kernel (d 64 and 88, d 72 past 64 q rows, and d 72 and 144
+    heads of at most 64 q and kv rows; d 16 and 32 and the other short d
+    72 and 144 passes run the mma.sync one), `.launches_short` those of
+    them that ran the short-head kernel (flash_fwd_short_sm90)."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
@@ -85,14 +87,17 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     flash_attention_fwd.launches += 1
     by_dim = flash_attention_fwd.launches_by_dim
     by_dim[d] = by_dim.get(d, 0) + 1
-    flash_attention_fwd.launches_sm90 += _build.load_library(
-        ).ea_flash_fwd_uses_sm90(d, sq)
+    lib = _build.load_library()
+    flash_attention_fwd.launches_sm90 += lib.ea_flash_fwd_uses_sm90(d, sq, skv)
+    flash_attention_fwd.launches_short += lib.ea_flash_fwd_uses_short(d, sq,
+                                                                      skv)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_dim = {}
 flash_attention_fwd.launches_sm90 = 0
+flash_attention_fwd.launches_short = 0
 
 
 def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

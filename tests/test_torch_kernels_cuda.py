@@ -23,6 +23,27 @@ def _close(got, want, tol):
                                want.detach().cpu().numpy(), atol=tol, rtol=tol)
 
 
+def _k1_route(d, sq, skv):
+    """Which K1 kernel csrc/flash_fwd.cu's ea_flash_fwd_bf16 runs: "sm90"
+    (d 64's or d 88's block, or d 72's persistent walk past 64 q rows),
+    "short" (flash_fwd_short_sm90: d 72 and 144 heads of at most 64 q and
+    kv rows) or "mma" (the mma.sync body)."""
+    if d in (64, 88) or (d == 72 and sq > 64):
+        return "sm90"
+    if d in (72, 144) and sq <= 64 and skv <= 64:
+        return "short"
+    return "mma"
+
+
+def _check_route(d, sq, skv, before_sm90, before_short):
+    """The wrapper's counts moved by the route _k1_route names."""
+    route = _k1_route(d, sq, skv)
+    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (
+        route != "mma")
+    assert tfa.flash_attention_fwd.launches_short == before_short + (
+        route == "short")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -60,22 +81,32 @@ def cuda_device():
     (200, 120, 120, 72), (1024, 1024, 1024, 72), (400, 777, 700, 72),
     (65, 65, 65, 72), (193, 500, 500, 72), (36, 36, 36, 72),
     (64, 64, 64, 72), (36, 100, 77, 72), (1, 36, 36, 72),
-    # d 144 (V1's and V2's motion modules) runs the mma.sync body: V2's
-    # temporal pass over 36 frames, V1's grid over 4 x 16; ragged and
-    # longer shapes
+    # d 144 (V1's and V2's motion modules): V2's temporal pass over 36
+    # frames and V1's grid over 4 x 16 run the short-head kernel; ragged
+    # and longer shapes the mma.sync body
     (36, 36, 36, 144), (64, 64, 64, 144), (100, 333, 300, 144),
-    (300, 1000, 1000, 144), (1, 70, 70, 144)])
+    (300, 1000, 1000, 144), (1, 70, 70, 144),
+    # the short-head kernel (heads of at most 64 q and kv rows, d 72 and
+    # 144): kv_valid inside a head, with 48- and 64-row kv boxes; one q
+    # row; q rows below a kv length past 64 (the mma.sync body)
+    (36, 36, 30, 144), (64, 64, 41, 144), (36, 36, 30, 72),
+    (64, 64, 41, 72), (1, 64, 64, 144), (48, 48, 48, 72),
+    (36, 65, 65, 144), (64, 65, 65, 72),
+    # d 72's persistent walk: the text pass's 120 keys (its tiles kept in
+    # the ring) at 1,024 rows; 333 keys (4 tiles: as many as the ring's
+    # stages); a ragged 1,001-row head
+    (1024, 120, 120, 72), (1001, 333, 333, 72), (1001, 1001, 1001, 72)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, sq, skv, kv_valid, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(4, n, d, generator=g, device=cuda_device
                            ).to(torch.bfloat16) for n in (sq, skv, skv))
     before = tfa.flash_attention_fwd.launches
     before_sm90 = tfa.flash_attention_fwd.launches_sm90
+    before_short = tfa.flash_attention_fwd.launches_short
     o, lse = tfa.flash_attention_fwd(q, k, v, kv_valid)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
-    assert tfa.flash_attention_fwd.launches_sm90 == before_sm90 + (
-        d in (64, 88) or (d == 72 and sq > 64))
+    _check_route(d, sq, skv, before_sm90, before_short)
     o_p, lse_p = tfa.flash_attention_plain(q, k, v, kv_valid)
     # bf16 output and the kernel's bf16 p before p @ v
     _close(o.float(), o_p.float(), 2e-2)
@@ -178,13 +209,46 @@ def test_flash_kernel_d72_d144_mask_pad_columns_at_deep_scores_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,d", [
+    # the short-head kernel at d 72 and 144 (36 and 64 rows)
+    (1, 36, 36, 144), (1, 64, 64, 72), (133, 36, 36, 144),
+    (1001, 64, 64, 144), (997, 36, 36, 72), (265, 50, 40, 72),
+    # d 72's persistent walk: fewer items than SMs, and many a block; the
+    # text pass's kv tiles kept across a head's q blocks, also where a
+    # block's run of items spans heads; 1,024- and 1,001-row heads
+    (2, 1024, 1024, 72), (300, 1024, 1024, 72), (150, 1001, 1001, 72),
+    (200, 1001, 120, 72), (300, 1024, 120, 72), (150, 500, 333, 72),
+    (100, 1024, 500, 72)])
+def test_flash_kernel_d72_d144_walks_on_card(cuda_device, bh, sq, skv, d):
+    """K1's persistent kernels on many heads, each head's k and v offset
+    by its own mean: a block that walked into another head's rows, or kept
+    a head's kv tiles in its ring past the head's end, would show."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    shift = torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 5 - 2.0
+    q = (torch.randn(bh, sq, d, generator=g, device=cuda_device)
+         * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    k, v = ((torch.randn(bh, skv, d, generator=g, device=cuda_device) + shift)
+            .to(torch.bfloat16) for _ in range(2))
+    before_sm90 = tfa.flash_attention_fwd.launches_sm90
+    before_short = tfa.flash_attention_fwd.launches_short
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    _check_route(d, sq, skv, before_sm90, before_short)
+    assert _k1_route(d, sq, skv) != "mma"
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v)
+    _close(o.float(), o_p.float(), 2e-2)
+    _close(lse, lse_p, 1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,d", [
     (73728, 36, 72), (66000, 100, 72), (66000, 8, 64), (66000, 8, 88),
-    (65537, 36, 144)])
+    (65537, 36, 144), (73728, 36, 144), (65537, 64, 72), (73728, 64, 144)])
 def test_flash_kernel_takes_bh_past_grid_y_on_card(cuda_device, bh, s, d):
     """b*h past gridDim.y's 65,535 on every K1 instance: V3's temporal pass
-    at 768x768 ([73,728, 36, 72], the mma.sync body), the TMA + wgmma
-    kernels at d 72, 64 and 88, and the mma.sync body at d 144. Each head
+    at 768x768 ([73,728, 36, 72]) and the other short heads at d 72 and
+    144 (the short-head kernel, which walks the heads), and the TMA +
+    wgmma kernels at d 72, 64 and 88. Each head
     offset by its own mean, so a block that read or wrote another head's
     rows would show."""
     g = torch.Generator(device=cuda_device).manual_seed(6)

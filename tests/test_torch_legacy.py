@@ -160,11 +160,12 @@ def _inputs(frames, seed=1):
 
 @pytest.mark.parametrize("d,sq,skv,kv_valid", [
     (72, 36, 36, None), (72, 100, 77, 70), (144, 36, 36, None),
-    (144, 64, 50, 41)])
+    (144, 64, 50, 41), (144, 64, 64, None), (72, 200, 120, None)])
 def test_attention_at_head_dims_72_and_144_matches_jax(d, sq, skv, kv_valid):
     """The port's attention (K1's plain version on the CPU) at the V1-V3
     head dims against JAX's attention_xla: the temporal passes' 36 and 64
-    tokens, and ragged kv lengths with the columns past kv_valid hidden."""
+    tokens (V1's grid at 64), the text pass's 120 keys, and ragged kv
+    lengths with the columns past kv_valid hidden."""
     rng = np.random.default_rng(d + sq)
     q, k, v = (rng.standard_normal((2, 3, n, d)).astype(np.float32)
                for n in (sq, skv, skv))

@@ -1,24 +1,30 @@
-"""Time K1 at head dim 72 on both of its routes over short and middle q
+"""Time K1 at head dim 72 on its three routes over short and middle q
 lengths, in the same turns: flash_fwd_d72_sm90 (TMA + wgmma, 192-row q
-blocks, csrc/fwd_split_sm90.cuh) and the mma.sync body of
-csrc/attn_fwd.cuh (64-row q blocks), to place csrc/flash_fwd.cu's
-kShortRows, the q length at or below which d 72 takes the mma.sync body.
+blocks in a persistent walk, csrc/fwd_split_sm90.cuh), the mma.sync body
+of csrc/attn_fwd.cuh (64-row q blocks) and, at 64 q and kv rows or fewer,
+flash_fwd_short_sm90 (one head a 64-row wgmma tile, heads walked by one
+block an SM, csrc/fwd_short_sm90.cuh), to place csrc/flash_fwd.cu's
+kShortRows (the q length at or below which d 72 leaves
+flash_fwd_d72_sm90) and kShortD72Rows (the q and kv length at or below
+which it then takes flash_fwd_short_sm90 rather than the mma.sync body).
 
     python3 tools/k1_d72_crossover.py [--turns 6] [--iters 20]
 
-Copies this checkout's package twice into build/k1_crossover/ (which
-.gitignore lists), with kShortRows set so that every d 72 call takes one
-route ("sm90": 0, "mma": 2^30), builds both at once with their own
-ops/_build.py, and times each library's ea_flash_fwd_bf16 by CUDA events
-on the same random bf16 inputs (q pre-scaled as the wrapper does, kv = q
-length) in the turns A B B A ..., `iters` launches a turn, at q lengths
-36 (V3's temporal pass over 36 latent frames, b*h 32,768 at 512 x 512),
-64, 96, 128, 192 and 256, b*h set so that each shape holds the same
-1,179,648 q rows. Each route's output is held against the plain version
-(max |o - plain| over max |plain|). Prints the card's name and power
-limit, one JSON line per length (each route's ms per turn, median and
-error), and a last one with the shortest length from which the sm90
-kernel's median is the lower one. Needs one CUDA device and nvcc.
+Copies this checkout's package three times into build/k1_crossover/
+(which .gitignore lists), with the two constants set so that every d 72
+call of a length takes one route ("sm90": kShortRows 0; "mma": kShortRows
+2^30, kShortD72Rows 0; "short": kShortRows 2^30, kShortD72Rows 64), builds
+them at once with their own ops/_build.py, and times each library's
+ea_flash_fwd_bf16 by CUDA events on the same random bf16 inputs (q
+pre-scaled as the wrapper does, kv = q length) in the turns A B C C B A
+..., `iters` launches a turn, at q lengths 36 (V3's temporal pass over 36
+latent frames, b*h 32,768 at 512 x 512), 64, 96, 128, 192 and 256, b*h
+set so that each shape holds the same 1,179,648 q rows ("short" at 36 and
+64 only). Each route's output is held against the plain version (max |o -
+plain| over max |plain|). Prints the card's name and power limit, one
+JSON line per length (each route's ms per turn, median, error and the
+fastest route), and a last one with the shortest length from which the
+sm90 kernel's median is the lowest. Needs one CUDA device and nvcc.
 """
 import argparse
 import concurrent.futures
@@ -42,23 +48,27 @@ from easyanimate_tpu_torch.ops.flash_attention import (  # noqa: E402
 D = 72
 ROWS = 32768 * 36  # V3's temporal pass: b*h 2 x 1,024 x 16, 36 frames
 LENGTHS = (36, 64, 96, 128, 192, 256)
-ROUTES = {"sm90": 0, "mma": 1 << 30}  # kShortRows of each build
-SHORT_ROWS = re.compile(r"constexpr int kShortRows = \d+;")
+SHORT_MAX = 64  # the short-head kernel's limit on q and kv rows
+# kShortRows and kShortD72Rows of each route's build
+ROUTES = {"sm90": (0, 0), "mma": (1 << 30, 0), "short": (1 << 30, SHORT_MAX)}
 
 
-def build(route: str, short_rows: int) -> ctypes.CDLL:
-    """A copy of the package with kShortRows = short_rows, built by its
-    own _build.py in a subprocess, loaded with the entry points' types."""
+def build(route: str, constants) -> ctypes.CDLL:
+    """A copy of the package with (kShortRows, kShortD72Rows) =
+    constants, built by its own _build.py in a subprocess, loaded with the
+    entry points' types."""
     tree = ROOT / "build" / "k1_crossover" / route
     shutil.rmtree(tree, ignore_errors=True)
     shutil.copytree(ROOT / "easyanimate_tpu_torch",
                     tree / "easyanimate_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     src = tree / "easyanimate_tpu_torch" / "csrc" / "flash_fwd.cu"
-    text, n = SHORT_ROWS.subn(f"constexpr int kShortRows = {short_rows};",
-                              src.read_text())
-    if n != 1:
-        raise RuntimeError("kShortRows not found in csrc/flash_fwd.cu")
+    text = src.read_text()
+    for name, value in zip(("kShortRows", "kShortD72Rows"), constants):
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {value};", text)
+        if n != 1:
+            raise RuntimeError(f"{name} not found in csrc/flash_fwd.cu")
     src.write_text(text)
     out = subprocess.run(
         [sys.executable, "-c", "from easyanimate_tpu_torch.ops import _build;"
@@ -70,6 +80,11 @@ def build(route: str, short_rows: int) -> ctypes.CDLL:
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def lengths(route):
+    """The q lengths a route is timed at."""
+    return [s for s in LENGTHS if route != "short" or s <= SHORT_MAX]
 
 
 def turn_ms(fn, iters):
@@ -96,9 +111,11 @@ def main():
         futures = {r: pool.submit(build, r, n) for r, n in ROUTES.items()}
         libs = {r: f.result() for r, f in futures.items()}
     for route, lib in libs.items():  # each build takes its one route
-        want = int(route == "sm90")
-        if any(lib.ea_flash_fwd_uses_sm90(D, s) != want for s in LENGTHS):
-            raise RuntimeError(f"{route} build does not take its route")
+        for s in lengths(route):
+            got = (lib.ea_flash_fwd_uses_sm90(D, s, s),
+                   lib.ea_flash_fwd_uses_short(D, s, s))
+            if got != (route != "mma", route == "short"):
+                raise RuntimeError(f"{route} build does not take its route")
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     cross = None
@@ -111,6 +128,8 @@ def main():
         ref = flash_attention_plain(q, k, v)[0].float()
         fns, row = {}, {"shape": [bh, s, D], "err": {}}
         for route, lib in libs.items():
+            if s not in lengths(route):
+                continue
             o = torch.empty_like(q)
             lse = torch.empty(bh, s, 1, dtype=torch.float32, device="cuda")
 
@@ -131,13 +150,14 @@ def main():
                 ms[route].append(turn_ms(fns[route], args.iters))
         row.update(ms=ms, median={r: statistics.median(x)
                                   for r, x in ms.items()})
-        if cross is None and row["median"]["sm90"] < row["median"]["mma"]:
+        row["fastest"] = min(row["median"], key=row["median"].get)
+        if cross is None and row["fastest"] == "sm90":
             cross = s
         print(json.dumps(row), flush=True)
         del q, k, v, ref, fns
         torch.cuda.empty_cache()
     print(json.dumps({"iters": args.iters, "turns": args.turns,
-                      "sm90_faster_from": cross}), flush=True)
+                      "sm90_fastest_from": cross}), flush=True)
 
 
 if __name__ == "__main__":
