@@ -360,14 +360,13 @@ PEAK_BYTES = 3.35e12
 BH, S_DENSE, S_VID, WINDOW, S_GLOBAL, HEAD_DIM = 96, 13360, 13104, 1008, 1027, 64
 K1_SM90 = "flash_fwd_sm90"  # K1's TMA + wgmma kernel (csrc/flash_fwd.cu)
 K1_D88_SM90 = "flash_fwd_d88_sm90"  # K1's at head dim 88 (the same file)
-K1_D72_SM90 = "flash_fwd_d72_sm90"  # K1's at head dim 72 past 64 q rows
+K1_D72_SM90 = "flash_fwd_d72_sm90"  # K1's at head dim 72 (the walk)
 # K1's short-head kernel at d 72 and 144 (heads of at most 64 q and kv
 # rows; csrc/fwd_short_sm90.cuh)
 K1_SHORT = {d: f"flash_fwd_short_sm90ILi{d}E" for d in (72, 144)}
-# K1's mma.sync body at d 72 and 144 (csrc/attn_fwd.cuh): the shapes the
-# other K1 kernels leave (q rows at most 64 over kv rows past 64, and d
-# 144 past 64 rows); no main path runs it
-K1_MMA = {72: "attn_fwd_kernelILi72ELb0", 144: "attn_fwd_kernelILi144ELb0"}
+# K1's mma.sync body at d 144 (csrc/attn_fwd.cuh): heads past 64 q or kv
+# rows, which the short-head kernel leaves; no main path runs it
+K1_MMA = {144: "attn_fwd_kernelILi144ELb0"}
 K2_SM90 = "swa_fwd_sm90"  # K2's (csrc/swa_fwd.cu)
 K5_SM90 = "swa_fused_fwd_sm90"  # K5's (csrc/swa_fused_fwd.cu)
 K3_SM90 = "flash_bwd_dq_sm90"  # K3's (csrc/flash_bwd.cu)
@@ -2022,7 +2021,7 @@ LEGACY_BIG_BH = 2 * 48 * 48 * LEGACY_HEADS
 def k1_route(d, sq, skv):
     """Which kernel ea_flash_fwd_bf16 runs for these shapes at d 72 or
     144: "short" (flash_fwd_short_sm90), "sm90" (flash_fwd_d72_sm90's
-    persistent walk) or "mma" (the mma.sync body)."""
+    persistent walk) or "mma" (the mma.sync body, d 144 only)."""
     lib = _build.load_library()
     if lib.ea_flash_fwd_uses_short(d, sq, skv):
         return "short"
@@ -2030,14 +2029,14 @@ def k1_route(d, sq, skv):
 
 
 def phase_kernels_legacy(gen):
-    """K1 at head dims 72 (csrc/flash_fwd.cu::flash_fwd_d72_sm90 on
-    fwd_split_sm90.cuh past 64 q rows, flash_fwd_short_sm90 on
-    fwd_short_sm90.cuh at most 64 q and kv rows) and 144
-    (flash_fwd_short_sm90 at most 64 q and kv rows, the mma.sync body of
-    attn_fwd.cuh past them) against its plain version at the V1-V3 shapes
-    of LEGACY_K1_CASES, with the route each ran and kernel / plain / SDPA
-    (yardstick) times and bounds; then at b*h = LEGACY_BIG_BH and on 12
-    ragged heads. Returns the K1@72 and K1@144 stats."""
+    """K1 at head dims 72 (flash_fwd_short_sm90 on fwd_short_sm90.cuh at
+    most 64 q and kv rows, csrc/flash_fwd.cu::flash_fwd_d72_sm90's walk on
+    fwd_split_sm90.cuh past them) and 144 (flash_fwd_short_sm90 at most 64
+    q and kv rows, the mma.sync body of attn_fwd.cuh past them) against
+    its plain version at the V1-V3 shapes of LEGACY_K1_CASES, with the
+    route each ran and kernel / plain / SDPA (yardstick) times and bounds;
+    then at b*h = LEGACY_BIG_BH, on 36-row heads over 100 kv rows (the
+    walk) and on 12 ragged heads. Returns the K1@72 and K1@144 stats."""
     dev = DEVICE
 
     def rand(*shape, scale=1.0):
@@ -2084,6 +2083,18 @@ def phase_kernels_legacy(gen):
     stats[72]["big_bh_ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v), 20)
     stats[72]["big_bh_route"] = k1_route(72, 36, 36)
     del q, k, v, shift
+    # at most 64 q rows over more than 64 kv rows: d 72's walk, its q block
+    # mostly TMA's zero rows past sq
+    q = rand(4096, 36, 72, scale=72 ** -0.5 * LOG2E)
+    k, v = rand(4096, 100, 72), rand(4096, 100, 72)
+    stats[72]["errs"].append(_compare("K1@72 [4096, 36, 72] x 100",
+                                      flash_attention_fwd,
+                                      flash_attention_plain, (q, k, v, 100)))
+    stats[72]["short_q_long_kv_route"] = k1_route(72, 36, 100)
+    if stats[72]["short_q_long_kv_route"] != "sm90":
+        raise AssertionError("K1@72 [4096, 36, 72] x 100 did not run "
+                             f"{K1_D72_SM90}")
+    del q, k, v
     # 12 heads of 1001 rows (not a multiple of the 192-row q blocks or the
     # 96-row kv tiles), each head offset by its own mean: columns 72-79
     # read from the next row would show
@@ -3213,7 +3224,9 @@ def reset_counts():
         fn.launches = 0
     flash_attention_fwd.launches_by_dim = {}
     flash_attention_fwd.launches_sm90 = 0
+    flash_attention_fwd.launches_sm90_by_dim = {}
     flash_attention_fwd.launches_short = 0
+    flash_attention_fwd.launches_short_by_dim = {}
     sliding_window_fwd.launches_sm90 = 0
     swa_local_global_fwd.launches_sm90 = 0
     flash_attention_bwd.launches_sm90 = 0
@@ -3845,7 +3858,8 @@ def main():
                      "K7": (sliding_window_bwd, K7_SM90)}
 
     totals_q = dict.fromkeys(QCOUNTERS, 0)
-    totals_by_dim = {}  # K1's launches over the path runs by head dim
+    totals_by_dim = {}  # K1's launches over the path runs by head dim,
+    sm90_by_dim = {}  # those on its TMA + wgmma kernels
     short_by_dim = {}  # and those on its short-head kernel
 
     def path_run(phase, fn, expect=None, expect_q=None, k1_dims=None,
@@ -3880,12 +3894,18 @@ def main():
                                      f"{got[key]} {key} launches ran {kernel}"
                                      f" or another TMA + wgmma kernel")
             totals_sm90[key] += counter.launches_sm90
-        if flash_attention_fwd.launches_short != sum(k1_short.values()):
+        got_short = {d: n for d, n in
+                     flash_attention_fwd.launches_short_by_dim.items() if n}
+        if (got_short != k1_short or flash_attention_fwd.launches_short
+                != sum(got_short.values())):
             raise AssertionError(
-                f"{phase}: {flash_attention_fwd.launches_short} K1 launches "
-                f"ran flash_fwd_short_sm90, expected {k1_short}")
-        for d, n in k1_short.items():
-            short_by_dim[d] = short_by_dim.get(d, 0) + n
+                f"{phase}: K1 launches on flash_fwd_short_sm90 by head dim "
+                f"{got_short}, expected {k1_short}")
+        for counts, totals_d in (
+                (flash_attention_fwd.launches_sm90_by_dim, sm90_by_dim),
+                (flash_attention_fwd.launches_short_by_dim, short_by_dim)):
+            for d, n in counts.items():
+                totals_d[d] = totals_d.get(d, 0) + n
         for k, n in got.items():
             totals[k] += n
         torch.cuda.synchronize()
@@ -4192,16 +4212,16 @@ def main():
         st, main_case = legacy_stats[d], legacy_stats[d]["shapes"][case]
         ptxas = build[main_key]["ptxas"]
         short = build[f"K1 short@{d}"]["ptxas"]
-        n = totals_by_dim.get(d, 0)
+        n, sm90 = totals_by_dim.get(d, 0), sm90_by_dim.get(d, 0)
         return {
             "name": f"K1@{d} flash_attention_fwd (d {d}, V1-V3)",
             "route": "cuda",
             "source": "easyanimate_tpu_torch/csrc/flash_fwd.cu",
             "sources": [f"easyanimate_tpu_torch/csrc/{f}" for f in sources],
             "replaces": "easyanimate_tpu/ops/flash_attention.py:92",
-            "launches": n, "launches_sm90": n,
+            "launches": n, "launches_sm90": sm90,
             "launches_short": short_by_dim.get(d, 0),
-            "launches_mma_sync": 0,
+            "launches_mma_sync": n - sm90,
             "kernel": kernel, "max_abs_err": st["max_abs_err"],
             "max_rel_err": st["max_rel_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],
@@ -4228,7 +4248,7 @@ def main():
         144, "K1@144 V2 temporal", "flash_fwd_short_sm90<144>",
         ("flash_fwd.cu", "fwd_short_sm90.cuh", "hopper.cuh"),
         "K1 short@144")
-    for r in (k1_row, k1_88_row):
+    for r in (k1_row, k1_88_row, k1_72_row, k1_144_row):
         if r["launches"] != r["launches_sm90"]:
             raise AssertionError(f"{r['name']} launches {r['launches']} != "
                                  f"sm90 {r['launches_sm90']}")

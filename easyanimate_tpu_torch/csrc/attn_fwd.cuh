@@ -1,11 +1,10 @@
 // The mma.sync forward-attention body of K1 (flash_fwd.cu: dense), K2
 // (swa_fwd.cu: banded) and K5 (swa_fused_fwd.cu: banded + global) at head
-// dims 16 and 32 (the tiny test preset), and of K1 at head dims 72 and 144
-// for the shapes its TMA + wgmma kernels leave (at most 64 q rows over
-// more than 64 kv rows; d 144 past 64 q rows); at d 64 all three are TMA
-// + wgmma kernels on fwd_sm90.cuh, and so is K1 at d 88 and at d 72 past
-// 64 q rows (fwd_split_sm90.cuh) and at d 72 and 144 on heads of at most
-// 64 q and kv rows (fwd_short_sm90.cuh: V1-V3's temporal passes).
+// dims 16 and 32 (the tiny test preset), and of K1 at head dim 144 past
+// 64 q or kv rows; at d 64 all three are TMA + wgmma kernels on
+// fwd_sm90.cuh, and so is K1 at d 88 and 72 (fwd_split_sm90.cuh) and at
+// d 72 and 144 on heads of at most 64 q and kv rows (fwd_short_sm90.cuh:
+// V1-V3's temporal passes).
 //
 // What it computes: o = softmax2(q k^T) v and the base-2 logsumexp per row,
 // where q arrives pre-scaled by sm_scale * log2(e) (the wrapper folds it in
@@ -26,8 +25,7 @@
 //   - both products are mma.sync.m16n8k16 bf16 -> f32; the f32 score
 //     fragment of q k^T is re-packed in registers as the A operand of p v
 //     (the usual register-level FA2 layout trick), so p never touches
-//     shared memory. At d 72 (not a multiple of 16) q k^T ends with one
-//     m16n8k8 step over columns 64-71;
+//     shared memory;
 //   - running max / sum in f32, rows reduced across the 4 threads of a quad
 //     with shuffles;
 //   - the ragged edge is masked by column index (s = -inf), so no padded
@@ -61,11 +59,9 @@ constexpr int kBlockKV = 64;
 // (each is loaded as 16-byte chunks), and a row stride of 4 words past a
 // multiple of 8, so that the 8 rows (g) one fragment load touches fall in 8
 // distinct groups of 4 banks: D + 8 for d 16, 32 and 144 (12, 20 and 76
-// words); at d 72, D + 8 would be 40 words, so the rows stay 72 long (36).
+// words).
 template <int D>
 constexpr int kRow = D + 8;
-template <>
-constexpr int kRow<72> = 72;
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = kWarps * 32;
 
@@ -76,18 +72,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The m16n8k8 step: c[16x8] += a[16x8] b[8x8] (K1's last 8 columns of q
-// k^T at d 72). a is the m16n8k16 A fragment's first half (rows g and g +
-// 8, columns 2t and 2t + 1), b its B fragment's first register.
-__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[2],
-                                         uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -153,15 +137,12 @@ struct SoftmaxState {
   }
 };
 
-// One warp's 16 q rows as bf16 A fragments, one per 16 columns of d, and
-// at d 72 one m16n8k8 fragment for columns 64-71.
+// One warp's 16 q rows as bf16 A fragments, one per 16 columns of d.
 template <int D>
 struct QFrags {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   static constexpr int kSteps = D / 16;  // m16n8k16 steps
-  static constexpr bool kTail = D % 16 != 0;  // one m16n8k8 step after them
   uint32_t a[kSteps][4];
-  uint32_t tail[2];
 };
 
 // Load this warp's 16 q rows of sQ as bf16 A fragments.
@@ -175,11 +156,6 @@ __device__ __forceinline__ void load_q_frags(QFrags<D>& qa,
     qa.a[kk][1] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t]);
     qa.a[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 2 * t + 8]);
     qa.a[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 2 * t + 8]);
-  }
-  if constexpr (QFrags<D>::kTail) {
-    constexpr int c = QFrags<D>::kSteps * 16;
-    qa.tail[0] = ld32(&sQ[r0 + g][c + 2 * t]);
-    qa.tail[1] = ld32(&sQ[r0 + g + 8][c + 2 * t]);
   }
 }
 
@@ -209,10 +185,6 @@ __device__ __forceinline__ void attend_tiles(
         b[0] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t]);
         b[1] = ld32(&sK[nt * 8 + g][kk * 16 + 2 * t + 8]);
         mma_16816(s[nt], qa.a[kk], b);
-      }
-      if constexpr (QFrags<D>::kTail) {
-        mma_1688(s[nt], qa.tail,
-                 ld32(&sK[nt * 8 + g][QFrags<D>::kSteps * 16 + 2 * t]));
       }
     }
 
@@ -293,7 +265,7 @@ template <int D>
 constexpr int kFwdSmemBytes = (kBlockQ + 2 * kBlockKV) * kRow<D> * 2;
 
 // kWindowed == false: columns j < kv_len are visible (dense: K1 at d 16,
-// 32 and 144, and at 72 over at most 64 q rows).
+// 32 and 144).
 // kWindowed == true:  columns j < kv_len with |i - j| <= window (K2).
 template <int D, bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
@@ -396,13 +368,7 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
     case 32:
       return launch_attn_fwd_d<32, kWindowed>(qp, kp, vp, op, lp, bh, sq,
                                               skv, kv_len, window, st);
-    // K1 only: its wrapper refuses 72 and 144 for K2 (KERNEL_HEAD_DIMS)
-    case 72:
-      if constexpr (!kWindowed) {
-        return launch_attn_fwd_d<72, false>(qp, kp, vp, op, lp, bh, sq, skv,
-                                            kv_len, window, st);
-      }
-      break;
+    // K1 only: its wrapper refuses 144 for K2 (KERNEL_HEAD_DIMS)
     case 144:
       if constexpr (!kWindowed) {
         return launch_attn_fwd_d<144, false>(qp, kp, vp, op, lp, bh, sq, skv,
@@ -410,7 +376,7 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
       }
       break;
     // d 64 runs the TMA + wgmma kernels (flash_fwd.cu, swa_fwd.cu), and so
-    // does K1's d 88: no instance here
+    // do K1's d 88 and 72: no instance here
     default:
       break;
   }

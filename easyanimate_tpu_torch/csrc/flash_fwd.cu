@@ -109,14 +109,14 @@
 // Heads of at most 64 q and kv rows at d 144 (V1's and V2's motion
 // modules: temporal passes over 36 frames or V1's 2 x 2 cells of 16
 // frames) and at d 72 (V3's temporal passes over 36 frames, at q and kv
-// rows up to kShortD72Rows) run flash_fwd_short_sm90 (fwd_short_sm90.cuh
+// rows up to kShortRows) run flash_fwd_short_sm90 (fwd_short_sm90.cuh
 // gives its design): a whole head one 64-row wgmma tile, one block an SM
-// walking the heads. Head dims 16 and 32 (the tiny test preset) and the
-// d 72 and 144 shapes left (at most 64 q rows over more kv rows, d 144
-// past 64 q rows) run the mma.sync body of attn_fwd.cuh. A dispatch by
-// shape in ea_flash_fwd_bf16, never a fallback on failure;
-// ea_flash_fwd_uses_sm90 and ea_flash_fwd_uses_short tell the wrapper
-// which ran.
+// walking the heads. Every other d 72 shape runs flash_fwd_d72_sm90's
+// walk (rows past sq come in as TMA's zeros and are masked); head dims 16
+// and 32 (the tiny test preset) and d 144 past 64 q or kv rows run the
+// mma.sync body of attn_fwd.cuh. A dispatch by shape in
+// ea_flash_fwd_bf16, never a fallback on failure; ea_flash_fwd_uses_sm90
+// and ea_flash_fwd_uses_short tell the wrapper which ran.
 #include "fwd_short_sm90.cuh"
 #include "fwd_split_sm90.cuh"
 #include "fwd_sm90.cuh"
@@ -438,23 +438,20 @@ int launch_short(const void* q, const void* k, const void* v, void* o,
 }  // namespace k1
 }  // namespace ea
 
-// q rows at or below which d 72 leaves flash_fwd_d72_sm90, and q and kv
-// rows at or below which it then takes flash_fwd_short_sm90 rather than
-// the mma.sync body (V3's temporal passes over 36 latent frames). On an
-// H100 80GB HBM3 (700 W) at 1.18 M q rows, tools/k1_d72_crossover.py:
-// the short-head kernel 0.273 / 0.253 ms at 36 / 64 rows against the
-// mma.sync body's 0.450 / 0.312 and the walk's 0.67 / 0.40; the walk
-// leads from 96 rows (0.270 against the body's 0.536)
+// q and kv rows at or below which d 72 takes flash_fwd_short_sm90 rather
+// than flash_fwd_d72_sm90's walk (V3's temporal passes over 36 latent
+// frames). On an H100 80GB HBM3 (700 W) at 1.18 M q rows,
+// tools/k1_d72_crossover.py: the short-head kernel 0.273 / 0.253 ms at
+// 36 / 64 rows against the walk's 0.67 / 0.40
 constexpr int kShortRows = 64;
-constexpr int kShortD72Rows = 64;
-static_assert(kShortD72Rows <= ea::fwdshort::kRows, "one wgmma tile a head");
+static_assert(kShortRows <= ea::fwdshort::kRows, "one wgmma tile a head");
 
-// Heads of at most 64 q and kv rows at d 144, and at d 72 those the
-// split kernel leaves, up to kShortD72Rows: flash_fwd_short_sm90.
+// Heads of at most 64 q and kv rows at d 144, and at d 72 up to
+// kShortRows: flash_fwd_short_sm90.
 static bool short_route(int head_dim, int sq, int skv) {
   const int rows = head_dim == 144 ? ea::fwdshort::kRows
-                   : (head_dim == 72 && sq <= kShortRows) ? kShortD72Rows
-                                                          : 0;
+                   : head_dim == 72 ? kShortRows
+                                    : 0;
   return sq <= rows && skv <= rows;
 }
 
@@ -463,8 +460,7 @@ extern "C" int ea_flash_fwd_uses_short(int head_dim, int sq, int skv) {
 }
 
 extern "C" int ea_flash_fwd_uses_sm90(int head_dim, int sq, int skv) {
-  return head_dim == ea::fwd90::kD || head_dim == 88 ||
-         (head_dim == 72 && sq > kShortRows) ||
+  return head_dim == ea::fwd90::kD || head_dim == 88 || head_dim == 72 ||
          short_route(head_dim, sq, skv);
 }
 
@@ -488,7 +484,7 @@ extern "C" int ea_flash_fwd_bf16(const void* q, const void* k, const void* v,
                : ea::k1::launch_short<72>(q, k, v, o, lse, bh, sq, skv,
                                           kv_valid, st);
   }
-  if (head_dim == 72 && sq > kShortRows) {
+  if (head_dim == 72) {
     return ea::k1::launch_split<72>(q, k, v, o, lse, bh, sq, skv, kv_valid,
                                     st);
   }

@@ -31,8 +31,8 @@ HEAD_DIMS = (16, 32, 64)
 # the attention kernels by the names their input checks raise with, and
 # the head dims each has an instance for: K1's forward also takes 88 (V4's
 # HunyuanDiT, csrc/flash_fwd.cu::flash_fwd_d88_sm90), 72 (the V1-V3
-# Transformer3D: flash_fwd_d72_sm90 past 64 q rows, flash_fwd_short_sm90
-# for heads of at most 64 q and kv rows, else the mma.sync body) and 144
+# Transformer3D: flash_fwd_short_sm90 for heads of at most 64 q and kv
+# rows, else flash_fwd_d72_sm90's persistent walk) and 144
 # (V1's and V2's motion modules: flash_fwd_short_sm90 for heads of at most
 # 64 q and kv rows, else the mma.sync body)
 K1 = "K1 (ea_flash_fwd_bf16)"

@@ -66,10 +66,11 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     or raises; a CPU tensor takes flash_attention_plain.
     `flash_attention_fwd.launches` counts kernel launches,
     `.launches_by_dim` them by head dim, `.launches_sm90` those that ran a
-    TMA + wgmma kernel (d 64 and 88, d 72 past 64 q rows, and d 72 and 144
-    heads of at most 64 q and kv rows; d 16 and 32 and the other short d
-    72 and 144 passes run the mma.sync one), `.launches_short` those of
-    them that ran the short-head kernel (flash_fwd_short_sm90)."""
+    TMA + wgmma kernel (d 64, 88 and 72, and d 144 heads of at most 64 q
+    and kv rows; d 16 and 32 and d 144 past 64 rows run the mma.sync
+    one), `.launches_short` those of them that ran the short-head kernel
+    (flash_fwd_short_sm90); `.launches_sm90_by_dim` and
+    `.launches_short_by_dim` count those two by head dim."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
@@ -85,19 +86,24 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                   kf.data_ptr(), vf.data_ptr(), o.data_ptr(), lse.data_ptr(),
                   bh, sq, skv, kv_valid, d)
     flash_attention_fwd.launches += 1
-    by_dim = flash_attention_fwd.launches_by_dim
-    by_dim[d] = by_dim.get(d, 0) + 1
     lib = _build.load_library()
-    flash_attention_fwd.launches_sm90 += lib.ea_flash_fwd_uses_sm90(d, sq, skv)
-    flash_attention_fwd.launches_short += lib.ea_flash_fwd_uses_short(d, sq,
-                                                                      skv)
+    sm90 = lib.ea_flash_fwd_uses_sm90(d, sq, skv)
+    short = lib.ea_flash_fwd_uses_short(d, sq, skv)
+    flash_attention_fwd.launches_sm90 += sm90
+    flash_attention_fwd.launches_short += short
+    for counts, n in ((flash_attention_fwd.launches_by_dim, 1),
+                      (flash_attention_fwd.launches_sm90_by_dim, sm90),
+                      (flash_attention_fwd.launches_short_by_dim, short)):
+        counts[d] = counts.get(d, 0) + n
     return o, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_dim = {}
 flash_attention_fwd.launches_sm90 = 0
+flash_attention_fwd.launches_sm90_by_dim = {}
 flash_attention_fwd.launches_short = 0
+flash_attention_fwd.launches_short_by_dim = {}
 
 
 def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

@@ -222,7 +222,9 @@ class CLIPVisionEmbeddings(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig, **fk):
         super().__init__()
         d, p = cfg.hidden_size, cfg.patch_size
-        self.class_embedding = nn.Parameter(torch.empty(d, **fk))
+        # Hugging Face's init (normal, std d^-0.5): a fresh model must not
+        # carry uninitialised memory into its scores
+        self.class_embedding = nn.Parameter(torch.randn(d, **fk) * d ** -0.5)
         self.patch_embedding = nn.Conv2d(cfg.num_channels, d, p, stride=p,
                                          bias=False, **fk)
         n = (cfg.image_size // p) ** 2 + 1

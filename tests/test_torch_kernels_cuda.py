@@ -24,14 +24,14 @@ def _close(got, want, tol):
 
 
 def _k1_route(d, sq, skv):
-    """Which K1 kernel csrc/flash_fwd.cu's ea_flash_fwd_bf16 runs: "sm90"
-    (d 64's or d 88's block, or d 72's persistent walk past 64 q rows),
-    "short" (flash_fwd_short_sm90: d 72 and 144 heads of at most 64 q and
-    kv rows) or "mma" (the mma.sync body)."""
-    if d in (64, 88) or (d == 72 and sq > 64):
-        return "sm90"
+    """Which K1 kernel csrc/flash_fwd.cu's ea_flash_fwd_bf16 runs: "short"
+    (flash_fwd_short_sm90: d 72 and 144 heads of at most 64 q and kv rows),
+    "sm90" (d 64's or d 88's block, or d 72's persistent walk) or "mma"
+    (the mma.sync body: d 16, 32, and 144 past 64 rows)."""
     if d in (72, 144) and sq <= 64 and skv <= 64:
         return "short"
+    if d in (64, 72, 88):
+        return "sm90"
     return "mma"
 
 
@@ -72,12 +72,13 @@ def cuda_device():
     (1, 100, 100, 88), (1000, 1000, 1000, 88), (192, 96, 96, 88),
     (193, 500, 500, 88), (400, 777, 700, 88), (300, 288, 288, 88),
     (300, 500, 384, 88),
-    # d 72 (V1-V3) past 64 q rows runs the TMA + wgmma kernel of d 88 with
-    # a 16-column hi box (TMA's zeros in 72-79): the text pass's 120 keys;
-    # a frame's 1,024 tokens; kv_valid inside the last kv tile; one q row
-    # past the short limit; one q row past a block. At most 64 q rows (V3's
-    # temporal passes over 36 frames) run the mma.sync body with its k8
-    # step: 36 and 64 rows, and a ragged kv
+    # d 72 (V1-V3) runs the TMA + wgmma kernel of d 88 with a 16-column hi
+    # box (TMA's zeros in 72-79) as a persistent walk: the text pass's 120
+    # keys; a frame's 1,024 tokens; kv_valid inside the last kv tile; one q
+    # row past the short limit; one q row past a block. Heads of at most
+    # 64 q and kv rows (V3's temporal passes over 36 frames) run the
+    # short-head kernel: 36 and 64 rows; at most 64 q rows over a longer,
+    # ragged kv run the walk
     (200, 120, 120, 72), (1024, 1024, 1024, 72), (400, 777, 700, 72),
     (65, 65, 65, 72), (193, 500, 500, 72), (36, 36, 36, 72),
     (64, 64, 64, 72), (36, 100, 77, 72), (1, 36, 36, 72),
@@ -88,7 +89,8 @@ def cuda_device():
     (300, 1000, 1000, 144), (1, 70, 70, 144),
     # the short-head kernel (heads of at most 64 q and kv rows, d 72 and
     # 144): kv_valid inside a head, with 48- and 64-row kv boxes; one q
-    # row; q rows below a kv length past 64 (the mma.sync body)
+    # row; q rows below a kv length past 64 (d 144: the mma.sync body;
+    # d 72: the walk)
     (36, 36, 30, 144), (64, 64, 41, 144), (36, 36, 30, 72),
     (64, 64, 41, 72), (1, 64, 64, 144), (48, 48, 48, 72),
     (36, 65, 65, 144), (64, 65, 65, 72),
@@ -210,7 +212,12 @@ def test_flash_kernel_d72_d144_mask_pad_columns_at_deep_scores_on_card(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,sq,skv,d", [
-    # the short-head kernel at d 72 and 144 (36 and 64 rows)
+    # b*h past gridDim.y's 65,535
+    (73728, 36, 36, 72), (66000, 100, 100, 72), (66000, 8, 8, 64),
+    (66000, 8, 8, 88), (65537, 36, 36, 144), (73728, 36, 36, 144),
+    (65537, 64, 64, 72), (73728, 64, 64, 144),
+    # the short-head kernel at d 72 and 144 (36 and 64 rows): one head;
+    # head counts that are not a multiple of the grid
     (1, 36, 36, 144), (1, 64, 64, 72), (133, 36, 36, 144),
     (1001, 64, 64, 144), (997, 36, 36, 72), (265, 50, 40, 72),
     # d 72's persistent walk: fewer items than SMs, and many a block; the
@@ -219,12 +226,16 @@ def test_flash_kernel_d72_d144_mask_pad_columns_at_deep_scores_on_card(
     (2, 1024, 1024, 72), (300, 1024, 1024, 72), (150, 1001, 1001, 72),
     (200, 1001, 120, 72), (300, 1024, 120, 72), (150, 500, 333, 72),
     (100, 1024, 500, 72)])
-def test_flash_kernel_d72_d144_walks_on_card(cuda_device, bh, sq, skv, d):
-    """K1's persistent kernels on many heads, each head's k and v offset
-    by its own mean: a block that walked into another head's rows, or kept
-    a head's kv tiles in its ring past the head's end, would show."""
-    g = torch.Generator(device=cuda_device).manual_seed(11)
-    shift = torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 5 - 2.0
+def test_flash_kernel_takes_bh_past_grid_y_on_card(cuda_device, bh, sq, skv,
+                                                    d):
+    """K1 on many heads, each head's k and v offset by its own mean, so a
+    block that read or wrote another head's rows, or kept a head's kv
+    tiles in its ring past the head's end, would show: b*h past gridDim.y's
+    65,535 on every K1 instance (V3's temporal pass at 768x768 is [73,728,
+    36, 72]); the persistent kernels (the short-head kernel, d 72's walk)
+    over heads that do not divide evenly among their blocks."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 5 - 2.0)
     q = (torch.randn(bh, sq, d, generator=g, device=cuda_device)
          * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
     k, v = ((torch.randn(bh, skv, d, generator=g, device=cuda_device) + shift)
@@ -234,31 +245,6 @@ def test_flash_kernel_d72_d144_walks_on_card(cuda_device, bh, sq, skv, d):
     o, lse = tfa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     _check_route(d, sq, skv, before_sm90, before_short)
-    assert _k1_route(d, sq, skv) != "mma"
-    o_p, lse_p = tfa.flash_attention_plain(q, k, v)
-    _close(o.float(), o_p.float(), 2e-2)
-    _close(lse, lse_p, 1e-3)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,s,d", [
-    (73728, 36, 72), (66000, 100, 72), (66000, 8, 64), (66000, 8, 88),
-    (65537, 36, 144), (73728, 36, 144), (65537, 64, 72), (73728, 64, 144)])
-def test_flash_kernel_takes_bh_past_grid_y_on_card(cuda_device, bh, s, d):
-    """b*h past gridDim.y's 65,535 on every K1 instance: V3's temporal pass
-    at 768x768 ([73,728, 36, 72]) and the other short heads at d 72 and
-    144 (the short-head kernel, which walks the heads), and the TMA +
-    wgmma kernels at d 72, 64 and 88. Each head
-    offset by its own mean, so a block that read or wrote another head's
-    rows would show."""
-    g = torch.Generator(device=cuda_device).manual_seed(6)
-    shift = (torch.arange(bh, device=cuda_device).view(bh, 1, 1) % 5 - 2.0)
-    q = (torch.randn(bh, s, d, generator=g, device=cuda_device)
-         * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
-    k, v = ((torch.randn(bh, s, d, generator=g, device=cuda_device) + shift)
-            .to(torch.bfloat16) for _ in range(2))
-    o, lse = tfa.flash_attention_fwd(q, k, v)
-    torch.cuda.synchronize()
     o_p, lse_p = tfa.flash_attention_plain(q, k, v)
     _close(o.float(), o_p.float(), 2e-2)
     _close(lse, lse_p, 1e-3)

@@ -1,23 +1,19 @@
-"""Time K1 at head dim 72 on its three routes over short and middle q
+"""Time K1 at head dim 72 on its two routes over short and middle q
 lengths, in the same turns: flash_fwd_d72_sm90 (TMA + wgmma, 192-row q
-blocks in a persistent walk, csrc/fwd_split_sm90.cuh), the mma.sync body
-of csrc/attn_fwd.cuh (64-row q blocks) and, at 64 q and kv rows or fewer,
-flash_fwd_short_sm90 (one head a 64-row wgmma tile, heads walked by one
-block an SM, csrc/fwd_short_sm90.cuh), to place csrc/flash_fwd.cu's
-kShortRows (the q length at or below which d 72 leaves
-flash_fwd_d72_sm90) and kShortD72Rows (the q and kv length at or below
-which it then takes flash_fwd_short_sm90 rather than the mma.sync body).
+blocks in a persistent walk, csrc/fwd_split_sm90.cuh) and, at 64 q and kv
+rows or fewer, flash_fwd_short_sm90 (one head a 64-row wgmma tile, heads
+walked by one block an SM, csrc/fwd_short_sm90.cuh), to place
+csrc/flash_fwd.cu's kShortRows (the q and kv length at or below which d
+72 takes flash_fwd_short_sm90 rather than the walk).
 
     python3 tools/k1_d72_crossover.py [--turns 6] [--iters 20]
 
-Copies this checkout's package three times into build/k1_crossover/
-(which .gitignore lists), with the two constants set so that every d 72
-call of a length takes one route ("sm90": kShortRows 0; "mma": kShortRows
-2^30, kShortD72Rows 0; "short": kShortRows 2^30, kShortD72Rows 64), builds
-them at once with their own ops/_build.py, and times each library's
-ea_flash_fwd_bf16 by CUDA events on the same random bf16 inputs (q
-pre-scaled as the wrapper does, kv = q length) in the turns A B C C B A
-..., `iters` launches a turn, at q lengths 36 (V3's temporal pass over 36
+Copies this checkout's package twice into build/k1_crossover/ (which
+.gitignore lists), with kShortRows set so that every d 72 call of a
+length takes one route ("sm90": 0; "short": 64), builds them at once with
+their own ops/_build.py, and times each library's ea_flash_fwd_bf16 by
+CUDA events on the same random bf16 inputs (q pre-scaled as the wrapper
+does, kv = q length) in the turns A B B A ..., `iters` launches a turn, at q lengths 36 (V3's temporal pass over 36
 latent frames, b*h 32,768 at 512 x 512), 64, 96, 128, 192 and 256, b*h
 set so that each shape holds the same 1,179,648 q rows ("short" at 36 and
 64 only). Each route's output is held against the plain version (max |o -
@@ -49,14 +45,13 @@ D = 72
 ROWS = 32768 * 36  # V3's temporal pass: b*h 2 x 1,024 x 16, 36 frames
 LENGTHS = (36, 64, 96, 128, 192, 256)
 SHORT_MAX = 64  # the short-head kernel's limit on q and kv rows
-# kShortRows and kShortD72Rows of each route's build
-ROUTES = {"sm90": (0, 0), "mma": (1 << 30, 0), "short": (1 << 30, SHORT_MAX)}
+# kShortRows of each route's build
+ROUTES = {"sm90": 0, "short": SHORT_MAX}
 
 
-def build(route: str, constants) -> ctypes.CDLL:
-    """A copy of the package with (kShortRows, kShortD72Rows) =
-    constants, built by its own _build.py in a subprocess, loaded with the
-    entry points' types."""
+def build(route: str, short_rows: int) -> ctypes.CDLL:
+    """A copy of the package with kShortRows = short_rows, built by its own
+    _build.py in a subprocess, loaded with the entry points' types."""
     tree = ROOT / "build" / "k1_crossover" / route
     shutil.rmtree(tree, ignore_errors=True)
     shutil.copytree(ROOT / "easyanimate_tpu_torch",
@@ -64,11 +59,10 @@ def build(route: str, constants) -> ctypes.CDLL:
                     ignore=shutil.ignore_patterns("__pycache__"))
     src = tree / "easyanimate_tpu_torch" / "csrc" / "flash_fwd.cu"
     text = src.read_text()
-    for name, value in zip(("kShortRows", "kShortD72Rows"), constants):
-        text, n = re.subn(rf"constexpr int {name} = \d+;",
-                          f"constexpr int {name} = {value};", text)
-        if n != 1:
-            raise RuntimeError(f"{name} not found in csrc/flash_fwd.cu")
+    text, n = re.subn(r"constexpr int kShortRows = \d+;",
+                      f"constexpr int kShortRows = {short_rows};", text)
+    if n != 1:
+        raise RuntimeError("kShortRows not found in csrc/flash_fwd.cu")
     src.write_text(text)
     out = subprocess.run(
         [sys.executable, "-c", "from easyanimate_tpu_torch.ops import _build;"
@@ -114,7 +108,7 @@ def main():
         for s in lengths(route):
             got = (lib.ea_flash_fwd_uses_sm90(D, s, s),
                    lib.ea_flash_fwd_uses_short(D, s, s))
-            if got != (route != "mma", route == "short"):
+            if got != (1, route == "short"):
                 raise RuntimeError(f"{route} build does not take its route")
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
