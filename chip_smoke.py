@@ -155,6 +155,20 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
   sft        SFT at the 12B widths, 4 layers (0 dense, 1-3 SWA), float32
              masters: 3 steps each of AdamW, CAME and 8-bit AdamW, then
              1 'ddpm' step; s/step, peak and optimizer-state bytes each
+  parallel   the multi-GPU path at world size 1: init_distributed joins a
+             1-rank NCCL group (a file store in a temporary directory),
+             create_mesh builds the (1, 1, 1) mesh; the ring's hop code
+             (parallel/context.py) over V5.1's joint attention [96,
+             13,360, 64] cut into sp = 2 and 4 shards in one process (K1
+             per hop and the float32 merge, K3 + K4 per hop from the
+             global o and lse) against one K1 and one K3 + K4 call (o,
+             lse, dq, dk, dv within the kernels' bounds; ms per hop and
+             merge); the Ulysses pass's per-rank body on heads [12r,
+             12r + 12) of the 12B's SWA layer against the 48-head call;
+             the driver's loop (train.train, the driver's parser) on the
+             sft phase's model, 2 steps each plain, --distributed
+             (ZeRO-2) and --distributed --fsdp (FSDP2), held against the
+             plain run's losses and masters; s/step and peak of each
   vae_train  the full V5.1 MagViT's GAN training (training/vae_trainer.py;
              float32, Discriminator3D, LPIPS on VGG16, random weights) on
              a random 256x256x17 clip, batch 1: 3 ae_step + disc_step
@@ -212,7 +226,9 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from easyanimate_tpu_torch.api.server import request_kwargs, video_rgb
 from easyanimate_tpu_torch.data.camera import plucker_from_file
@@ -242,7 +258,11 @@ from easyanimate_tpu_torch.ops.flash_attention import (
 from easyanimate_tpu_torch.ops.swa import (
     sliding_window_bwd, sliding_window_bwd_plain, sliding_window_fwd,
     sliding_window_plain, swa_attention_streams, swa_local_global_fwd,
-    swa_local_global_plain)
+    swa_local_global_plain, swa_streams_heads)
+from easyanimate_tpu_torch.parallel import (MeshConfig, create_mesh,
+                                            init_distributed)
+from easyanimate_tpu_torch.parallel.context import (ring_bwd_hop,
+                                                    ring_fwd_hop, ring_merge)
 from easyanimate_tpu_torch.pipeline import (EasyAnimateControlPipeline,
                                             EasyAnimateInpaintPipeline,
                                             EasyAnimatePipeline,
@@ -3349,6 +3369,11 @@ def state_bytes(tree):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# masters the sft and parallel phases require to move
+SFT_WATCH = ("transformer_blocks.0.attn1.to_q.weight",
+             "transformer_blocks.2.ff.net.2.weight", "proj_out.weight")
+
+
 def phase_sft(seed):
     """make_train_step at the 12B widths, 4 layers (0 dense, 1-3 SWA),
     random weights, float32 masters, 384x672x49f: 3 steps each of AdamW,
@@ -3361,8 +3386,7 @@ def phase_sft(seed):
     model = EasyAnimateTransformer3D(cfg, device="meta")
     model = init_random_(model.to_empty(device=dev),
                          torch.Generator(device=dev).manual_seed(seed))
-    watch = ["transformer_blocks.0.attn1.to_q.weight",
-             "transformer_blocks.2.ff.net.2.weight", "proj_out.weight"]
+    watch = SFT_WATCH
     batch, gen = train_batch(cfg, seed)
     outs = []
     for name, fields, steps in SFT_VARIANTS:
@@ -3750,6 +3774,368 @@ def phase_reward(model, vae, seed):
     return outs, summary
 
 
+# the parallel phase: the ring's sp sizes over V5.1's joint attention, the
+# Ulysses head slices of the 12B's 48 heads (sp = 4), the driver's steps
+PARALLEL_SPS = (2, 4)
+ULYSSES_SP = 4
+PARALLEL_STEPS = 2
+# the driver's sharded runs against the plain one: the least share of the
+# masters' elements updated with the same sign (one card: 0.99999 under
+# FSDP2, 1 under ZeRO-2; four cards: 0.9996, tools/multigpu_check.py)
+SIGN_AGREEMENT_BOUND = 0.999
+# the 12B's SWA layer: 13 latent frames of 24 x 42 patches (window 1,008)
+SWA_GRID = dict(num_frames=13, height=24, width=42)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _ring_hops(gen):
+    """The ring's hop code at V5.1-12B's joint attention, q, k, v [2 x 48,
+    13,360, 64] bf16, in one process: for sp in PARALLEL_SPS the sequence
+    splits into sp contiguous shards; each shard's q visits every kv shard
+    in ring order (K1 per hop, then the float32 merge), then the backward
+    hops (K3 + K4 per hop from the merged o and lse, one di per shard),
+    dq summed per q shard and dk, dv per kv shard. Held against one K1 and
+    one K3 + K4 call over the whole sequence: o within O_REL_BOUND of
+    max |o|, lse within LSE_BOUND, dq, dk, dv within BWD_BOUND. Times: one
+    hop's kernels and one merge alone (CUDA events, no counter), their
+    sum over the sp^2 hops against the one call. Returns (stats, launches
+    of K1 and of the K3 + K4 pair)."""
+    dev, d, s = DEVICE, HEAD_DIM, S_DENSE
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    q, k, v = rand(BH, s, d, scale=d ** -0.5 * LOG2E), rand(BH, s, d), \
+        rand(BH, s, d)
+    do = rand(BH, s, d)
+    o_w, lse_w = flash_attention_fwd(q, k, v)
+    dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, o_w, lse_w, do)
+    di_w = row_dot(o_w, do)
+    outs = [torch.empty_like(q) for _ in range(4)]
+    lse_buf = torch.empty_like(lse_w)
+    whole = {"fwd_ms": _entry_ms("ea_flash_fwd_bf16", (q, k, v),
+                                 (outs[0], lse_buf), (BH, s, s, s, d)),
+             "bwd_ms": (_entry_ms("ea_flash_bwd_dq_bf16",
+                                  (q, k, v, do, lse_w, di_w), (outs[1],),
+                                  (BH, s, s, s, d))
+                        + _entry_ms("ea_flash_bwd_dkv_bf16",
+                                    (q, k, v, do, lse_w, di_w),
+                                    (outs[2], outs[3]), (BH, s, s, s, d))),
+             "row_dot_ms": cuda_ms(lambda: row_dot(o_w, do), 5)}
+    del outs, lse_buf
+    stats, hops = {"whole": whole}, 0
+    for sp in PARALLEL_SPS:
+        n = s // sp
+        cut = lambda x, i: x[:, i * n:(i + 1) * n].contiguous()
+        qs, ks, vs, dos = ([cut(x, i) for i in range(sp)]
+                           for x in (q, k, v, do))
+        o_err = lse_err = 0.0
+        merged = []
+        for r in range(sp):
+            o_acc = torch.zeros(BH, n, d, device=dev)
+            lse_acc = torch.full((BH, n, 1), -torch.inf, device=dev)
+            for j in range(sp):  # rank r sees its own block, then r-1, ...
+                src = (r - j) % sp
+                o_acc, lse_acc = ring_merge(o_acc, lse_acc, *ring_fwd_hop(
+                    qs[r], ks[src], vs[src]))
+            o_r = o_acc.to(torch.bfloat16)
+            o_err = max(o_err, _rel(o_r, cut(o_w, r)))
+            lse_err = max(lse_err, (lse_acc - cut(lse_w, r)).abs().max().item())
+            merged.append((o_r, lse_acc))
+        dq_err = dk_err = dv_err = 0.0
+        dks = [torch.zeros(BH, n, d, device=dev) for _ in range(sp)]
+        dvs = [torch.zeros(BH, n, d, device=dev) for _ in range(sp)]
+        for r, (o_r, lse_r) in enumerate(merged):
+            di = row_dot(o_r, dos[r])
+            dq = torch.zeros(BH, n, d, device=dev)
+            for j in range(sp):
+                src = (r - j) % sp
+                dqh, dkh, dvh = ring_bwd_hop(qs[r], ks[src], vs[src], o_r,
+                                             lse_r, dos[r], di)
+                dq += dqh.float()
+                dks[src] += dkh.float()
+                dvs[src] += dvh.float()
+            dq_err = max(dq_err, _rel(dq, cut(dq_w, r)))
+        for j in range(sp):
+            dk_err = max(dk_err, _rel(dks[j], cut(dk_w, j)))
+            dv_err = max(dv_err, _rel(dvs[j], cut(dv_w, j)))
+        hops += sp * sp
+        # one hop's kernels and one merge, timed alone
+        o_r, lse_r = merged[0]
+        di = row_dot(o_r, dos[0])
+        hop_out = [torch.empty_like(qs[0]) for _ in range(3)]
+        hop_lse = torch.empty_like(lse_r)
+        fwd_ms = _entry_ms("ea_flash_fwd_bf16", (qs[0], ks[1], vs[1]),
+                           (hop_out[0], hop_lse), (BH, n, n, n, d))
+        acc = o_r.float()  # merged in place again and again: acc stays bounded
+        merge_ms = cuda_ms(lambda: ring_merge(acc, lse_r, o_r, lse_r), 5)
+        ins = (qs[0], ks[1], vs[1], dos[0], lse_r, di)
+        bwd_ms = (_entry_ms("ea_flash_bwd_dq_bf16", ins, (hop_out[0],),
+                            (BH, n, n, n, d))
+                  + _entry_ms("ea_flash_bwd_dkv_bf16", ins,
+                              (hop_out[1], hop_out[2]), (BH, n, n, n, d)))
+        st = {"shard_rows": n, "hops": sp * sp, "o_rel_err": o_err,
+              "lse_max_abs_err": lse_err, "dq_rel_err": dq_err,
+              "dk_rel_err": dk_err, "dv_rel_err": dv_err,
+              "hop_fwd_ms": fwd_ms, "merge_ms": merge_ms,
+              "hop_bwd_ms": bwd_ms,
+              "fwd_sum_ms": sp * sp * (fwd_ms + merge_ms),
+              "bwd_sum_ms": sp * sp * bwd_ms + whole["row_dot_ms"],
+              "fwd_sum_over_one_call": sp * sp * (fwd_ms + merge_ms)
+              / whole["fwd_ms"],
+              "bwd_sum_over_one_call": (sp * sp * bwd_ms + whole["row_dot_ms"])
+              / (whole["bwd_ms"] + whole["row_dot_ms"])}
+        stats[f"sp{sp}"] = st
+        del qs, ks, vs, dos, merged, dks, dvs, hop_out
+        if not (o_err <= O_REL_BOUND and lse_err <= LSE_BOUND
+                and max(dq_err, dk_err, dv_err) <= BWD_BOUND):
+            raise AssertionError(f"parallel: the ring's hops at sp={sp} "
+                                 f"disagree with one call: {st}")
+    del q, k, v, do, o_w, lse_w, dq_w, dk_w, dv_w
+    torch.cuda.empty_cache()
+    return stats, 1 + hops
+
+
+def _ulysses_slices(gen):
+    """The Ulysses pass's per-rank body on one card: swa_streams_heads on
+    heads [12r, 12r + 12) of the 12B's 48 (r < ULYSSES_SP) at its SWA
+    shapes (text 256, video 13,104 tokens, batch 2), each head in the
+    direction group of its global index, against the same heads of the
+    48-head swa_attention_streams (K2 + the K1 cross pass), timed after a
+    warm-up call. Returns stats; K1 and K2 each launch 2 + ULYSSES_SP
+    times."""
+    dev, d = DEVICE, HEAD_DIM
+
+    def rand(n):
+        return torch.randn(2, 48, n, d, generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    txt = [rand(TEXT_LEN) for _ in range(3)]
+    vid = [rand(S_VID) for _ in range(3)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    swa_attention_streams(*txt, *vid, **SWA_GRID)  # warm-up
+    start.record()
+    o_t, o_v = swa_attention_streams(*txt, *vid, **SWA_GRID)
+    end.record()
+    torch.cuda.synchronize()
+    whole_ms = start.elapsed_time(end)
+    count = 48 // ULYSSES_SP
+    errs, slice_ms = [], []
+    for r in range(ULYSSES_SP):
+        heads = slice(r * count, (r + 1) * count)
+        part = [x[:, heads].contiguous() for x in (*txt, *vid)]
+        start.record()
+        ot_r, ov_r = swa_streams_heads(*part, head_start=heads.start,
+                                       num_heads=48, **SWA_GRID)
+        end.record()
+        torch.cuda.synchronize()
+        slice_ms.append(start.elapsed_time(end))
+        errs.append(max(_rel(ot_r, o_t[:, heads]), _rel(ov_r, o_v[:, heads])))
+    out = {"sp": ULYSSES_SP, "heads_per_rank": count,
+           "max_rel_err": max(errs), "bound": O_REL_BOUND,
+           "whole_ms": whole_ms, "slice_ms": slice_ms,
+           "shape": {"text": [2, 48, TEXT_LEN, d], "video": [2, 48, S_VID, d],
+                     **SWA_GRID}}
+    del txt, vid, o_t, o_v
+    torch.cuda.empty_cache()
+    if max(errs) > O_REL_BOUND:
+        raise AssertionError(f"parallel: a Ulysses head slice disagrees with "
+                             f"the 48-head call: {out}")
+    return out
+
+
+class _UnwrittenCheckpoints(CheckpointManager):
+    """The driver's checkpoint save as it runs (a sharded state gathered
+    to the host by the first data rank, the barrier) without writing the
+    ~11 GB state to disk: the bytes it would write are recorded."""
+
+    written = []
+
+    def _write(self, step, state, sampler_state):
+        self.written.append(state_bytes(state))
+
+
+def _parallel_driver(seed, root, mesh):
+    """train.train, the driver's loop, with arguments from the driver's own
+    parser: SFT on the sft phase's model (the 12B's widths, 4 layers, 1-3
+    SWA; random weights from `seed`, float32 masters, AdamW), batch 1 at
+    HxWxFRAMES from a 2-video, 2-image manifest (file reads patched as in
+    train_driver), the full MagViT (random), fixed random text. Three runs
+    of PARALLEL_STEPS steps from the same weights and seeds: plain,
+    --distributed (ZeRO-2 on the 1-rank NCCL mesh) and --distributed
+    --fsdp (FSDP2 per block). In every run the watched masters (SFT_WATCH)
+    moved and the model holds its masters (FSDP's parameters gathered).
+    The sharded runs' losses and logged grad norms within TRAIN_LOSS_BOUND
+    of the plain run's, and at least SIGN_AGREEMENT_BOUND of the masters'
+    elements updated with the plain run's sign (a first Adam update is
+    about lr * sign(g), so only a gradient within rounding of 0 may flip);
+    the masters' largest distance from the plain run's is held only to
+    the sanity ceiling of Adam's envelope (2 * lr * steps, + 1% for
+    float32 rounding), which two runs from one start cannot leave.
+    Returns the runs' stats."""
+    cfg = dataclasses.replace(PRESETS["v5.1-12b"], num_layers=4,
+                              swa_layers=(1, 2, 3))
+    vae = init_random_(AutoencoderKLMagvit(
+        MagvitVAEConfig(dtype="bfloat16", decode_chunk_frames=4),
+        device="meta").to_empty(device=DEVICE),
+        torch.Generator(device=DEVICE).manual_seed(seed))
+    text = 0.02 * torch.randn(1, TEXT_LEN, cfg.text_embed_dim,
+                              generator=torch.Generator(device=DEVICE)
+                              .manual_seed(seed + 1), device=DEVICE)
+
+    def encode_text(prompts):
+        return {"text": text.expand(len(prompts), -1, -1)}
+
+    def fresh():
+        model = EasyAnimateTransformer3D(cfg, device="meta")
+        return init_random_(model.to_empty(device=DEVICE),
+                            torch.Generator(device=DEVICE).manual_seed(seed))
+
+    entries = [{"file_path": f"clip{i}.mp4", "type": "video",
+                "num_frames": 120, "text": f"{SERVE_PROMPT} take {i}"}
+               for i in range(2)]
+    entries += [{"file_path": f"still{i}.png", "type": "image",
+                 "text": f"a still of the forest, number {i}"}
+                for i in range(2)]
+    meta = os.path.join(root, "train.json")
+    with open(meta, "w") as f:
+        json.dump(entries, f)
+    argv = ["--train_data_meta", meta, "--train_data_dir", root,
+            "--sample_height", str(H), "--sample_width", str(W),
+            "--video_sample_n_frames", str(FRAMES),
+            "--max_train_steps", str(PARALLEL_STEPS),
+            "--dataloader_num_workers", "2", "--no-sanity_check",
+            "--seed", str(seed)]
+    patches = [(train_module, "CheckpointManager", _UnwrittenCheckpoints)]
+    patches += [(dataset_module, k, v) for k, v in _media_reads(H, W).items()]
+    originals = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    init = {n: p.detach().clone() for n, p in fresh().named_parameters()}
+    runs, plain = {}, None
+    try:
+        for m, k, v in patches:
+            setattr(m, k, v)
+        for name, flags in (("plain", []), ("zero2", ["--distributed"]),
+                            ("fsdp", ["--distributed", "--fsdp"])):
+            model = fresh()
+            args = train_module.parse_args(
+                argv + ["--output_dir", os.path.join(root, name)] + flags)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _UnwrittenCheckpoints.written = []
+            res = train_module.train(args, model, vae, encode_text, DEVICE,
+                                     mesh if flags else None)
+            torch.cuda.synchronize()
+            out = {"flags": flags, "losses": res.losses, "s_per_step": res.step_s,
+                   "save_s": res.save_s,
+                   "checkpoint_bytes": _UnwrittenCheckpoints.written,
+                   "max_memory_allocated_gib":
+                       torch.cuda.max_memory_allocated() / 2**30}
+            with open(os.path.join(root, name, "metrics.jsonl")) as f:
+                out["grad_norms"] = [json.loads(line)["grad_norm"]
+                                     for line in f if "grad_norm" in line]
+            masters = res.state.params
+            moved = {n: (masters[n] - init[n].float()).abs().max().item()
+                     for n in SFT_WATCH}
+            synced = all(torch.equal(
+                p.full_tensor() if isinstance(p, DTensor) else p,
+                masters[n].to(p.dtype)) for n, p in model.named_parameters())
+            out.update(master_max_abs_change=moved,
+                       model_matches_masters=synced)
+            if not (all(v > 0 for v in moved.values()) and synced):
+                raise AssertionError(f"parallel: train {flags}: the masters "
+                                     "did not move or the model does not "
+                                     f"hold them: {out}")
+            if plain is None:
+                plain = (res.losses, out["grad_norms"], masters)
+                out["largest_update"] = max(
+                    (masters[n] - init[n].float()).abs().max().item()
+                    for n in masters)
+            else:
+                rel = lambda got, want: max(abs(a - b) / abs(b)
+                                            for a, b in zip(got, want))
+                loss_err = rel(res.losses, plain[0])
+                norm_err = rel(out["grad_norms"], plain[1])
+                param_err = max((masters[n] - plain[2][n]).abs().max().item()
+                                for n in masters)
+                agree = sum(((masters[n] - init[n].float()).sign()
+                             == (plain[2][n] - init[n].float()).sign())
+                            .sum().item() for n in masters) / sum(
+                                t.numel() for t in masters.values())
+                # sanity ceiling; + 1% for float32 rounding of master +- lr
+                envelope = 2 * args.learning_rate * PARALLEL_STEPS * 1.01
+                out.update(
+                    loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                    master_max_abs_err=param_err, master_bound=envelope,
+                    update_sign_agreement=agree,
+                    sign_agreement_bound=SIGN_AGREEMENT_BOUND,
+                    bit_equal=all(torch.equal(masters[n], plain[2][n])
+                                  for n in masters),
+                    loss_bound=TRAIN_LOSS_BOUND)
+                if not (loss_err <= TRAIN_LOSS_BOUND
+                        and norm_err <= TRAIN_LOSS_BOUND
+                        and agree >= SIGN_AGREEMENT_BOUND
+                        and param_err <= envelope):
+                    raise AssertionError(f"parallel: train {flags} disagrees "
+                                         f"with the plain run: {out}")
+            if not (len(res.losses) == PARALLEL_STEPS
+                    and all(map(math.isfinite, res.losses))):
+                raise AssertionError(f"parallel: train {flags}: {out}")
+            runs[name] = out
+            del model, res, masters
+    finally:
+        for m, k, v in originals:
+            setattr(m, k, v)
+    del vae, init, plain
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_parallel(seed, root):
+    """The multi-GPU path on one card: (a) init_distributed joins a 1-rank
+    NCCL group (a file store under `root`) and create_mesh builds the
+    (1, 1, 1) mesh; (b) the ring's hop code over V5.1's joint attention
+    at sp 2 and 4 (_ring_hops); (c) the Ulysses head slices of the SWA
+    pass (_ulysses_slices); (d) the driver's SFT steps plain, with
+    --distributed (ZeRO-2) and with --distributed --fsdp
+    (_parallel_driver). Returns the phase's launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    dev = init_distributed(f"file://{os.path.join(root, 'store')}", 1, 0)
+    try:
+        mesh = create_mesh(MeshConfig(dp=1, sp=1, tp=1))
+        group = {"backend": str(dist.get_backend()), "device": str(dev),
+                 "world_size": dist.get_world_size(), "mesh": mesh.shape,
+                 "init_s": time.perf_counter() - t0}
+        print(f"parallel: {group}", flush=True)
+        ring, ring_launches = _ring_hops(gen)
+        ulysses = _ulysses_slices(gen)
+        runs = _parallel_driver(seed + 1, root, mesh)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "parallel", "group": group, "ring": ring,
+          "ring_launches": {"K1": ring_launches, "K3": ring_launches,
+                            "K4": ring_launches},
+          "ulysses": ulysses, "train": runs,
+          "note": "ring: one K1 and one K3 + K4 call over the whole "
+                  "[96, 13360, 64] against sp shards' hops; *_ms of hops "
+                  "and merges timed alone (CUDA events), *_sum_ms over the "
+                  "sp^2 hops; bwd sums add one row_dot per call. train: "
+                  "the driver's loop on a 1-rank NCCL mesh, checkpoints "
+                  "gathered but not written"})
+    launches = dict.fromkeys(COUNTERS, 0)
+    launches.update(K1=ring_launches + 2 + ULYSSES_SP, K2=2 + ULYSSES_SP,
+                    K3=ring_launches, K4=ring_launches)
+    for key, n in SFT_LAUNCHES.items():
+        launches[key] += 3 * PARALLEL_STEPS * n
+    return launches
+
+
 VAE_PAIRS, VAE_SIZE, VAE_FRAMES = 3, 256, 17  # examples/train_vae.py defaults
 
 
@@ -4028,6 +4414,11 @@ def main():
     del model, vae
     torch.cuda.empty_cache()
     path_run("sft", lambda: phase_sft(args.seed + 6))
+    # the multi-GPU path at world size 1: ring hops, Ulysses head slices,
+    # the driver with --distributed and --distributed --fsdp
+    with tempfile.TemporaryDirectory() as root:
+        expect_parallel = path_run("parallel",
+                                   lambda: phase_parallel(args.seed + 120, root))
     # the MagViT's GAN training: no attention kernel of ours (the mid
     # block's attention is plain)
     path_run("vae_train", lambda: phase_vae_train(args.seed + 82),
@@ -4096,7 +4487,7 @@ def main():
             + expect_requests.get(k, 0) + expect_control[k]
             + expect_samplers[k] + expect_quant[k] + expect_v5[k]
             + expect_lora_v5[k] + expect_v4_t2v[k] + expect_v4_i2v[k]
-            + sum(e[k] for e in expect_legacy.values())
+            + sum(e[k] for e in expect_legacy.values()) + expect_parallel[k]
             for k in COUNTERS}
     if totals != want or not all(totals.values()):
         raise AssertionError(f"path launches {totals} != {want}")

@@ -222,11 +222,29 @@ class EasyAnimateTransformer3D(nn.Module):
                               self.norm_final.bias, self.cfg.norm_eps)
         return self.norm_out(vid, temb)
 
+    def shard_tokens(self, vid, rope=None):
+        """Under a sequence-parallel scope (parallel/context.py): this sp
+        rank's contiguous slice of the video tokens [B, S, dim] and of the
+        RoPE rows (JAX's sp_constraint marks, blocks.py:225-228); the
+        text, timestep and latents stay whole on every rank. Without a
+        scope: (vid, rope)."""
+        from ..parallel.context import sp_constraint
+
+        if rope is not None:
+            rope = tuple(sp_constraint(r, ("sp", None)) for r in rope)
+        return sp_constraint(vid, ("dp", "sp", None)), rope
+
     def head(self, vid_tokens, t: int, h: int, w: int):
-        """proj_out + unpatchify; (t, h, w) are latent-grid sizes."""
+        """proj_out + unpatchify; (t, h, w) are latent-grid sizes. Under a
+        sequence-parallel scope proj_out runs on the rank's tokens and
+        every rank's are gathered before the unpatchify (JAX
+        mmdit.py:226-228), so it, the sampler step and the loss run whole
+        on every rank."""
+        from ..parallel.context import gather_tokens
+
         p = self.cfg.patch_size
-        return unpatchify(self.proj_out(vid_tokens), t, h // p, w // p, p,
-                          self.cfg.out_channels)
+        return unpatchify(gather_tokens(self.proj_out(vid_tokens), 1), t,
+                          h // p, w // p, p, self.cfg.out_channels)
 
     def modulated_input(self, vid, txt, temb):
         """Block 0's norm1 AdaLN modulation of the video stream, the
@@ -255,6 +273,7 @@ class EasyAnimateTransformer3D(nn.Module):
                                     encoder_hidden_states, inpaint_latents,
                                     ref_latents, clip_encoder_hidden_states,
                                     control_latents, encoder_hidden_states_t5)
+        vid, rope = self.shard_tokens(vid, rope)
         vid = self.backbone(vid, txt, temb, rope,
                             grid_size=(t, hh // p, ww // p))
         return self.head(vid, t, hh, ww)

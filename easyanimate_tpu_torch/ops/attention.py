@@ -5,8 +5,9 @@ composition.
 Reference behaviour (easyanimate/models/processor.py:218-312): concat text
 first, RoPE on the video slice of q and k, one attention over the concat.
 Unlike the JAX entry, no pad-to-block copy is needed: the kernel masks the
-ragged edge itself. Without a sequence-parallel scope the JAX
-`dispatch_attention` is this `attention`.
+ragged edge itself. Model code calls `dispatch_attention`, which is this
+`attention` without a sequence-parallel scope and the scope's ring or
+all-gather attention (parallel/context.py) within one.
 """
 from typing import Optional
 
@@ -74,11 +75,28 @@ def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
+def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       replicated: int = 0) -> torch.Tensor:
+    """Attention for model code [B, H, S, D] (JAX attention.py:157-169):
+    `attention`, or -- inside parallel.context.sequence_parallel(mesh)
+    with sp > 1 -- the scope's sequence-parallel attention, where the
+    first `replicated` rows of q, k and v are the same on every sp rank
+    (the text) and the rest are the rank's slice of the video tokens."""
+    from ..parallel.context import current_sp, make_sp_attention
+
+    scope = current_sp()
+    if scope is None:
+        return attention(q, k, v)
+    return make_sp_attention(scope.mesh, scope.mode)(q, k, v, replicated)
+
+
 def joint_attention(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid,
                     rope_cos: Optional[torch.Tensor] = None,
                     rope_sin: Optional[torch.Tensor] = None):
     """Fused text+video attention: concat (text first), RoPE on video q/k,
-    one attention pass, split back. All tensors [B, H, S, D]. Like the
+    one attention pass (dispatch_attention: under a sequence-parallel
+    scope the video tensors are the rank's token slice and the text is
+    every rank's), split back. All tensors [B, H, S, D]. Like the
     reference, it runs unmasked over text padding (pad the embeddings with
     zeros). Returns (out_txt, out_vid)."""
     if rope_cos is not None:
@@ -88,5 +106,5 @@ def joint_attention(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid,
     q = torch.cat([q_txt, q_vid], dim=2)
     k = torch.cat([k_txt, k_vid], dim=2)
     v = torch.cat([v_txt, v_vid], dim=2)
-    o = attention(q, k, v)
+    o = dispatch_attention(q, k, v, replicated=st)
     return o[:, :, :st], o[:, :, st:]

@@ -117,16 +117,18 @@ def flash_attention_bwd_plain(qf: torch.Tensor, kf: torch.Tensor,
                               vf: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor,
                               kv_valid: Optional[int] = None,
-                              block_q: int = 256) -> Triple:
+                              block_q: int = 256,
+                              di: Optional[torch.Tensor] = None) -> Triple:
     """K3 + K4's plain version: q-chunked float32 recompute of
     p = exp2(q k^T - lse2) from the saved lse, O(block_q * S_kv) live memory
     like the forward's plain version. Returns (dq, dk, dv) in the inputs'
     dtypes, with respect to the pre-scaled q; dk and dv rows at or past
-    kv_valid are 0."""
+    kv_valid are 0. `di`, row_dot(o, do), may be given (a ring's hops
+    share one)."""
     sq = qf.shape[1]
     kv = kf.shape[1] if kv_valid is None else kv_valid
     k32, v32 = kf[:, :kv].float(), vf[:, :kv].float()
-    di = row_dot(o, do)
+    di = row_dot(o, do) if di is None else di
     dq = torch.empty_like(qf)
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=kf.device)
     dv = torch.zeros(vf.shape, dtype=torch.float32, device=vf.device)
@@ -144,7 +146,8 @@ def flash_attention_bwd_plain(qf: torch.Tensor, kf: torch.Tensor,
 
 def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        kv_valid: Optional[int] = None) -> Triple:
+                        kv_valid: Optional[int] = None,
+                        di: Optional[torch.Tensor] = None) -> Triple:
     """Gradients (dq, dk, dv) of flash_attention_fwd's o, given its
     residuals (qf, kf, vf, o, lse2) and the cotangent do [bh, Sq, d].
 
@@ -154,12 +157,15 @@ def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     d 88 instance: the JAX package trains no V4). A CPU tensor takes
     flash_attention_bwd_plain. `flash_attention_bwd.launches` counts calls
     that launched the pair, `.launches_sm90` those in which both ran their
-    TMA + wgmma kernels (d 64; d 16 and 32 run the mma.sync ones)."""
+    TMA + wgmma kernels (d 64; d 16 and 32 run the mma.sync ones). `di`,
+    row_dot(o, do) [bh, Sq, 1] float32, may be given: a ring's hops over
+    kv blocks share the one of their global o and do."""
     bh, sq, d = qf.shape
     skv = kf.shape[1]
     kv_valid = _kv_valid(kf, kv_valid)
     if qf.device.type == "cpu":
-        return flash_attention_bwd_plain(qf, kf, vf, o, lse, do, kv_valid)
+        return flash_attention_bwd_plain(qf, kf, vf, o, lse, do, kv_valid,
+                                         di=di)
     _build.check_kernel_inputs(qf, kf, vf, o, do, kernel=_build.K3_K4)
     _build.check_row_stats(lse, qf)
     if (kf.shape != vf.shape or kf.shape[0] != bh or kf.shape[2] != d
@@ -167,7 +173,10 @@ def flash_attention_bwd(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
         raise ValueError(f"shapes q {tuple(qf.shape)} k {tuple(kf.shape)} "
                          f"v {tuple(vf.shape)} o {tuple(o.shape)} "
                          f"do {tuple(do.shape)}")
-    di = row_dot(o, do)
+    if di is None:
+        di = row_dot(o, do)
+    else:
+        _build.check_row_stats(di, qf)
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
     ptrs = [x.data_ptr() for x in (qf, kf, vf, do, lse, di)]
     _build.launch("ea_flash_bwd_dq_bf16", qf.device, *ptrs, dq.data_ptr(),

@@ -12,8 +12,13 @@ EasyAnimateSWAttnProcessor2_0, processor.py:320-459):
     attention banded to |i - j| <= window (window = tokens per frame);
   - video out = local + cross; text out = 2 x cross (the reference adds
     the cross output to the concat -- kept verbatim).
-This is the single-device path; the head-parallel form is not ported. The
-banded pass is differentiable: its backward is K6 (dq) and K7 (dk, dv),
+Under a sequence-parallel scope (parallel/context.py) the streams run
+Ulysses-style (JAX swa.py:807-905): the video tokens' slices become head
+slices over all tokens (an all-to-all), the cross pass and the 6-direction
+local pass run on the rank's heads -- each head in the direction group of
+its GLOBAL index -- and a second all-to-all brings the video output back to
+token slices (the text output's heads are all-gathered). The banded pass
+is differentiable: its backward is K6 (dq) and K7 (dk, dv),
 csrc/swa_bwd.cu (both TMA + wgmma kernels at d 64). With fuse_cross=True
 (off by default, as in JAX) the video queries' cross pass runs inside K5
 (a TMA + wgmma kernel at d 64 too), whose backward recomputes through the
@@ -325,6 +330,23 @@ def _permute_tokens(x: torch.Tensor, f: int, h: int, w: int, order,
     return grid.reshape(b, nh, s, d)
 
 
+def _direction_groups(num_heads: int, start: int, count: int):
+    """(slice of the local heads, axis order) of each direction group met
+    by heads [start, start + count) of num_heads: groups as
+    torch.tensor_split(heads, 6) makes them (the first num_heads % 6 carry
+    the extra head), over the GLOBAL head index, so a rank's head slice
+    keeps its heads' groups (JAX swa.py:880-885)."""
+    base, rem = divmod(num_heads, len(_AXIS_ORDERS))
+    out, lo = [], 0
+    for g, order in enumerate(_AXIS_ORDERS):
+        hi = lo + base + (1 if g < rem else 0)
+        a, b = max(lo, start), min(hi, start + count)
+        if a < b:
+            out.append((slice(a - start, b - start), order))
+        lo = hi
+    return out
+
+
 def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
                           num_frames: int, height: int, width: int,
                           cross_attention_size: int = 1024,
@@ -334,10 +356,56 @@ def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
 
     fuse_cross=True runs the video queries' cross pass inside the local
     kernel (swa_local_global, K5) and only the text queries' cross pass as
-    its own attention call; the result is the same function."""
+    its own attention call; the result is the same function. Under a
+    sequence-parallel scope the video tensors are the rank's token slice,
+    the text every rank's, and the Ulysses form runs (fuse_cross off, as
+    JAX swa.py:844)."""
+    from ..parallel.context import current_sp
+
+    scope = current_sp()
+    kw = dict(num_frames=num_frames, height=height, width=width,
+              cross_attention_size=cross_attention_size)
+    if scope is None:
+        return swa_streams_heads(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid,
+                                 fuse_cross=fuse_cross, **kw)
+    return _ulysses_streams(scope, q_txt, k_txt, v_txt, q_vid, k_vid, v_vid,
+                            **kw)
+
+
+def _ulysses_streams(scope, q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, **kw):
+    """The streams over the rank's heads and all tokens: video token
+    slices -> head slices (all-to-all), both passes, and back
+    (parallel/context.py's to_heads / from_heads, as head_parallel_call).
+    When sp does not divide the heads every rank gathers the video
+    tokens, runs all heads and keeps its token slice."""
+    from ..parallel import context as ctx
+
+    nh = q_txt.shape[1]
+    heads, vid = ctx.to_heads(scope, nh, (q_vid, k_vid, v_vid))
+    txt = (q_txt, k_txt, v_txt)
+    if heads is None:
+        o_t, o_v = swa_streams_heads(*txt, *vid, **kw)
+    else:
+        o_t, o_v = swa_streams_heads(*(x[:, heads] for x in txt), *vid,
+                                     head_start=heads.start, num_heads=nh,
+                                     **kw)
+        o_t = ctx.allgather(o_t, 1, scope)
+    return o_t, ctx.from_heads(scope, heads, o_v)
+
+
+def swa_streams_heads(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
+                      num_frames: int, height: int, width: int,
+                      cross_attention_size: int = 1024,
+                      fuse_cross: bool = False, head_start: int = 0,
+                      num_heads: Optional[int] = None):
+    """swa_attention_streams on one device, over heads [head_start,
+    head_start + H) of num_heads (all of them by default): the body one sp
+    rank runs on its head slice in the Ulysses form."""
     st = q_txt.shape[2]
     sv = q_vid.shape[2]
     window = height * width
+    groups = _direction_groups(num_heads or q_txt.shape[1], head_start,
+                               q_txt.shape[1])
 
     # global cross pass: every query against text + strided video kv
     interval = max(sv // max(cross_attention_size - st, 1), 1)
@@ -352,10 +420,9 @@ def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
     # local pass: the 6 head groups share one window, so their permuted
     # tokens batch into one kernel call over all heads
     def permuted(x):
-        groups = torch.tensor_split(x, len(_AXIS_ORDERS), dim=1)
         return torch.cat([
-            _permute_tokens(g, num_frames, height, width, order)
-            for g, order in zip(groups, _AXIS_ORDERS)], dim=1)
+            _permute_tokens(x[:, sl], num_frames, height, width, order)
+            for sl, order in groups], dim=1)
 
     qq, kk, vv = permuted(q_vid), permuted(k_vid), permuted(v_vid)
     if fuse_cross:
@@ -367,9 +434,9 @@ def swa_attention_streams(q_txt, k_txt, v_txt, q_vid, k_vid, v_vid, *,
     else:
         oo = sliding_window_attention(qq, kk, vv, window=window)
     local = torch.cat([
-        _permute_tokens(g, num_frames, height, width, order, inverse=True)
-        for g, order in zip(torch.tensor_split(oo, len(_AXIS_ORDERS), dim=1),
-                            _AXIS_ORDERS)], dim=1)
+        _permute_tokens(oo[:, sl], num_frames, height, width, order,
+                        inverse=True)
+        for sl, order in groups], dim=1)
     # reference: video = local + cross_video; text = 2 x cross_text
     if cross_vid is None:
         return cross_txt * 2.0, local

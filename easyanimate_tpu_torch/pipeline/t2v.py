@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.mmdit import EasyAnimateTransformer3D
@@ -41,6 +42,7 @@ from ..models.vae.magvit import (AutoencoderKLMagvit, latent_frame_count,
                                  smooth_output, vae_decode, vae_decode_tiled)
 from ..ops.rope import (get_2d_rotary_pos_embed, get_3d_rotary_pos_embed,
                         get_resize_crop_region_for_grid)
+from ..parallel.context import check_serving_mesh, current_sp
 from ..utils.transfer import HostCopy
 from .schedulers import (FlowMatchEulerConfig, SamplerLoop, init_noise_sigma,
                          rescale_noise_cfg)
@@ -74,9 +76,18 @@ def teacache_gate(mod: torch.Tensor, prev_mod: torch.Tensor,
     1e-8) over the whole batch; acc + poly(rel) (np.polyval order);
     compute when that reaches `threshold`, and always at the first and last
     step. At a computed step the accumulator resets to 0 without keeping
-    the polynomial. Returns (should (0-d bool tensor), rel, acc_out)."""
+    the polynomial. Under a sequence-parallel scope the tensors are the
+    rank's token slices and the means run over all of them. Returns
+    (should (0-d bool tensor), rel, acc_out)."""
     mod, prev = mod.float(), prev_mod.float()
-    rel = (mod - prev).abs().mean() / prev.abs().mean().clamp_min(1e-8)
+    scope = current_sp()
+    if scope is None:
+        rel = (mod - prev).abs().mean() / prev.abs().mean().clamp_min(1e-8)
+    else:  # token slices: the means over every sp rank's tokens
+        sums = torch.stack([(mod - prev).abs().sum(), prev.abs().sum()])
+        dist.all_reduce(sums, group=scope.group)
+        sums /= mod.numel() * scope.size
+        rel = sums[0] / sums[1].clamp_min(1e-8)
     poly = torch.zeros_like(rel)
     for c in torch.tensor(coefficients, dtype=torch.float32):
         poly = poly * rel + c
@@ -139,9 +150,12 @@ class _TeaCache:
 
 
 class EasyAnimatePipeline:
-    """T2V generation on one device: `device`, by default the one that holds
-    the transformer's parameters (the card for a model built with the
-    defaults)."""
+    """T2V generation on `device`, by default the one that holds the
+    transformer's parameters (the card for a model built with the
+    defaults). Inside parallel.sequence_parallel(mesh) -- every sp rank
+    calling with the same inputs -- the MMDiT's video tokens split over
+    the ranks (models/mmdit.py::shard_tokens) and each rank returns the
+    whole result; a mesh with dp > 1 raises (not ported)."""
 
     def __init__(self, transformer: EasyAnimateTransformer3D,
                  vae: AutoencoderKLMagvit, device=None,
@@ -266,6 +280,7 @@ class EasyAnimatePipeline:
         Euler-A's step noise. With clip_apply_ratio, cond's CLIP states and
         mask are zeros before step (1 - ratio) * n (V4's I2V, JAX
         :305-315). callback(i, latents) after each."""
+        check_serving_mesh()
         do_cfg = guidance_scale > 1.0
         latent_channels = self.vae.cfg.latent_channels
         rope = build_rope(self.transformer.cfg, height, width,
@@ -279,9 +294,13 @@ class EasyAnimatePipeline:
         tea = None
         if threshold is not None:
             p = self.transformer.cfg.patch_size
+            # under a sequence-parallel scope the carry holds the rank's
+            # token slice (JAX t2v.py:447-452)
+            scope = current_sp()
             tea = _TeaCache(b * (2 if do_cfg else 1),
                             latents.shape[2] * (latents.shape[3] // p)
-                            * (latents.shape[4] // p),
+                            * (latents.shape[4] // p)
+                            // (1 if scope is None else scope.size),
                             self.transformer.cfg.inner_dim, latents.dtype,
                             self.device)
         # cfg_skip: the last round(ratio * n) steps run cond-only (the
@@ -351,6 +370,7 @@ class EasyAnimatePipeline:
         t_vec = torch.full((lat_in.shape[0],), t, dtype=torch.float32,
                            device=self.device)
         vid0, txt_tok, temb = model.embed(lat_in, t_vec, txt, **cond)
+        vid0, rope = model.shard_tokens(vid0, rope)
         mod = model.modulated_input(vid0, txt_tok, temb)
         should, _, tea.acc = teacache_gate(mod, tea.prev_mod, tea.acc, idx,
                                            n_steps, threshold,

@@ -1,4 +1,4 @@
-"""SFT / LoRA training driver on one GPU.
+"""SFT / LoRA training driver, on one GPU or many.
 
     python -m easyanimate_tpu_torch.train --train_data_meta train.json \\
         --output_dir runs/x [--model_path model_dir] \\
@@ -8,6 +8,8 @@
          txt_ff] [--gradient_accumulation_steps 4 --lr_scheduler cosine] \\
         [--enable_inpaint] [--train_mode sft|control|control_camera_ref] \\
         [--resume_from_checkpoint] [--tiny_demo]
+    torchrun --nproc_per_node 8 -m easyanimate_tpu_torch.train ... \\
+        --distributed --mesh dp=2,sp=4 [--fsdp]
 
 Parity: examples/train.py of the JAX package (reference scripts/train.py,
 train_lora.py, train_control.py), with every flag and default. The loop:
@@ -21,9 +23,16 @@ batch while the card runs the step. With --lora_rank the trained factors
 are exported as a kohya file, <output_dir>/lora_diffusion_pytorch_model
 .safetensors. --tiny_demo trains tiny random models at 32 px, 5 frames.
 
-Runs on the card unless main(device=...) asks for another device. Not
-ported: --fsdp, --distributed and a --mesh of more than one device
-(ROADMAP queue 1 item 10).
+Runs on the card unless main(device=...) asks for another device.
+--distributed joins one process per GPU (parallel/multihost.py; torchrun's
+environment or --coordinator_address / --num_processes / --process_id) on
+the --mesh: each dp rank draws its own batches from the bucket sampler,
+the sp ranks of a sample split its video tokens, and the optimizer state
+is ZeRO-2 sharded over them (--fsdp: the parameters too, FSDP2); the first
+data rank writes the checkpoints, logs and media, the others log under
+<output_dir>/rank<r>. Not ported (ROADMAP queue 1 item 10): tp > 1, and
+under --distributed: --lora_rank, CAME and 8-bit Adam,
+--report_model_info.
 """
 import argparse
 import dataclasses
@@ -40,6 +49,9 @@ from .data import (AspectRatioBatchSampler, DataLoader,
 from .device import resolve_device
 from .models.vae import (MagvitVAEConfig, gaussian_mode, gaussian_sample,
                          vae_encode)
+from .parallel import (ZeroShards, create_mesh, fsdp_shard, init_distributed,
+                       parse_mesh)
+from .parallel.mesh import NOT_PORTED
 from .pipeline.inpaint import add_noise_to_reference_video, resize_mask_to_latent
 from .pipeline.t2v import build_rope
 from .training.checkpoints import CheckpointManager
@@ -49,16 +61,13 @@ from .training.trainer import (TrainConfig, create_train_state, draw_inputs,
                                make_param_grad_norms, make_train_step)
 from .utils.observability import MetricLogger, StepTimer
 
-_MULTI_GPU = "is not ported (ROADMAP queue 1 item 10: multi-GPU)"
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m easyanimate_tpu_torch.train",
-        description="SFT / LoRA training of the EasyAnimate MMDiT on one GPU")
+        description="SFT / LoRA training of the EasyAnimate MMDiT")
     ap.add_argument("--fsdp", action="store_true",
-                    help="data-shard the params too (ZeRO-3/FSDP layout; "
-                         "not ported: queue 1 item 10)")
+                    help="data-shard the params too (FSDP2 per block, "
+                         "ZeRO-3 layout); needs --distributed")
     ap.add_argument("--train_data_meta", required=True)
     ap.add_argument("--train_data_dir", default=None)
     ap.add_argument("--output_dir", default="runs/train")
@@ -123,9 +132,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help=">0: render a validation sample every N steps "
                          "(log_validation parity)")
     ap.add_argument("--mesh", default="dp=-1,sp=1,tp=1",
-                    help="one device only (dp, sp and tp of 1 or -1)")
+                    help="ranks per axis: dp (-1: the rest), sp (video "
+                         "tokens of a sample), tp (1: not ported)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training (not ported: queue 1 item 10)")
+                    help="one process per GPU (torchrun, or the three "
+                         "flags below); ZeRO-2 over the mesh")
     ap.add_argument("--coordinator_address", default=None)
     ap.add_argument("--num_processes", type=int, default=None)
     ap.add_argument("--process_id", type=int, default=None)
@@ -139,14 +150,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
-    if args.fsdp:
-        raise NotImplementedError(f"--fsdp {_MULTI_GPU}")
+    mesh = parse_mesh(args.mesh)
+    if mesh.tp != 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: tensor parallelism "
+                                  f"(tp > 1) {NOT_PORTED}")
+    if not args.distributed and (args.fsdp or mesh.dp > 1 or mesh.sp > 1):
+        raise ValueError(f"--mesh {args.mesh}{' --fsdp' * args.fsdp} needs "
+                         "--distributed (one process per GPU, e.g. torchrun)")
     if args.distributed:
-        raise NotImplementedError(f"--distributed {_MULTI_GPU}")
-    mesh = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
-    if any(v not in (-1, 1) for v in mesh.values()):
-        raise NotImplementedError(f"--mesh {args.mesh}: a mesh of more than "
-                                  f"one device {_MULTI_GPU}")
+        unported = [flag for flag, on in (
+            ("--lora_rank", args.lora_rank > 0),
+            ("--report_model_info", args.report_model_info),
+            (f"--optimizer {args.optimizer}", args.optimizer != "adamw"))
+            if on]
+        if unported:
+            raise NotImplementedError(f"{unported[0]} under --distributed "
+                                      f"{NOT_PORTED}")
     if args.tiny_demo:
         args.sample_height = args.sample_width = 32
         args.video_sample_n_frames = 5
@@ -157,6 +176,17 @@ def main(argv=None, device=None):
     """Parse `argv` (sys.argv[1:] by default), load or build the models on
     `device` (the card by default) and train; returns train()'s result."""
     args = parse_args(argv)
+    mesh = None
+    if args.distributed:
+        device = init_distributed(args.coordinator_address,
+                                  args.num_processes, args.process_id,
+                                  device=device)
+        mesh = create_mesh(parse_mesh(args.mesh))
+        print(f"rank {torch.distributed.get_rank()}/"
+              f"{torch.distributed.get_world_size()} on {device}, {mesh}")
+        if not mesh.contains_rank():
+            print("outside the mesh: nothing to do")
+            return None
     device = resolve_device(device)
     if args.tiny_demo:
         transformer, vae = _tiny_models(
@@ -178,7 +208,7 @@ def main(argv=None, device=None):
             device=device)
     else:
         raise SystemExit("pass --model_path or --tiny_demo")
-    return train(args, transformer, vae, encode_text, device)
+    return train(args, transformer, vae, encode_text, device, mesh)
 
 
 @dataclasses.dataclass
@@ -213,12 +243,19 @@ def draw_inpaint_inputs(generator, pixels: torch.Tensor) -> InpaintDraws:
         flag=torch.rand(b, generator=generator, device=dev))
 
 
-def train(args, transformer, vae, encode_text: Callable, device=None
-          ) -> TrainResult:
+def train(args, transformer, vae, encode_text: Callable, device=None,
+          mesh=None) -> TrainResult:
     """The training loop on built models: `transformer` (the MMDiT),
     `vae` (MagViT), `encode_text(prompts) -> {"text": (B, S, D)}`, all on
-    `device` (the card by default)."""
+    `device` (the card by default). With a mesh (parallel/mesh.py; every
+    rank calls train with the same weights) the loop runs data- and
+    sequence-parallel, as the module docstring says."""
     device = resolve_device(device)
+    lead = mesh is None or mesh.rank("data") == 0
+    dp_rank = 0 if mesh is None else mesh.rank("dp")
+    # the first data rank writes the run's files; the others log apart
+    out_dir = (args.output_dir if lead else
+               os.path.join(args.output_dir, f"rank{mesh.rank('data')}"))
     enable_camera = args.train_mode == "control_camera_ref"
     kw = dict(video_sample_n_frames=args.video_sample_n_frames,
               height=args.sample_height, width=args.sample_width,
@@ -231,9 +268,12 @@ def train(args, transformer, vae, encode_text: Callable, device=None
         dataset = ImageVideoDataset(args.train_data_meta, args.train_data_dir,
                                     enable_inpaint=args.enable_inpaint, **kw)
     sampler = ResumableRandomSampler(len(dataset), seed=args.seed)
+    # every rank iterates the same permutation; each dp rank takes its own
+    # batches, the sp peers of a dp rank the same ones
     batch_sampler = AspectRatioBatchSampler(
         sampler=sampler, batch_size=args.train_batch_size,
-        sample_info=dataset.sample_info())
+        sample_info=dataset.sample_info(), shard_rank=dp_rank,
+        shard_count=1 if mesh is None else mesh.shape["dp"])
 
     tcfg = TrainConfig(
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
@@ -252,6 +292,8 @@ def train(args, transformer, vae, encode_text: Callable, device=None
         motion_sub_loss_ratio=args.motion_sub_loss_ratio,
         loss=FlowMatchLossConfig(uniform_bands=args.uniform_sampling_bands))
     lora = args.lora_rank > 0
+    if lora and mesh is not None:
+        raise NotImplementedError(f"--lora_rank under a mesh {NOT_PORTED}")
     if lora:
         # the LoRA step trains the flow loss whatever --loss_type says, as
         # JAX's make_lora_train_step does
@@ -260,12 +302,18 @@ def train(args, transformer, vae, encode_text: Callable, device=None
         state = init_fn(torch.Generator(device=device).manual_seed(args.seed))
         draw_cfg = dataclasses.replace(tcfg, loss_type="flow")
     else:
-        state = create_train_state(transformer, tcfg)
-        step_fn = make_train_step(transformer, tcfg)
+        if args.fsdp:
+            fsdp_shard(transformer, mesh)
+        state = create_train_state(transformer, tcfg, mesh)
+        step_fn = make_train_step(transformer, tcfg, mesh)
         draw_cfg = tcfg
+    # under a mesh the first data rank writes the checkpoints
+    shards = (None if mesh is None else
+              ZeroShards(dict(transformer.named_parameters()), mesh))
 
     ckpts = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
-                              max_to_keep=args.checkpoints_total_limit)
+                              max_to_keep=args.checkpoints_total_limit,
+                              shards=shards)
     load_s = None
     if args.resume_from_checkpoint:
         t0 = time.perf_counter()
@@ -274,7 +322,7 @@ def train(args, transformer, vae, encode_text: Callable, device=None
             del state
             state = restored
             sampler.load_state_dict(sampler_state)
-            _adopt_state(state, transformer, lora)
+            _adopt_state(state, transformer, lora, shards)
             load_s = time.perf_counter() - t0
             print(f"resumed from step {step}")
     # the loader starts its producer thread on iter(): built AFTER the
@@ -282,9 +330,10 @@ def train(args, transformer, vae, encode_text: Callable, device=None
     # epoch 0
     loader = iter(DataLoader(dataset, batch_sampler,
                              num_workers=args.dataloader_num_workers))
-    logger = MetricLogger(args.output_dir)
+    logger = MetricLogger(out_dir)
     timer = StepTimer()
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    # dp ranks draw apart; the sp peers of a sample draw alike
+    gen = torch.Generator(device=device).manual_seed(args.seed + dp_rank)
     shape_rng = np.random.RandomState(args.seed)
     scale = vae.cfg.scaling_factor
     vdtype = vae.cfg.torch_dtype
@@ -302,6 +351,7 @@ def train(args, transformer, vae, encode_text: Callable, device=None
         host = {k: np.asarray(loaded[k], np.float32)
                 for k in ("pixel_values", "control_pixel_values", "mask",
                           "control_camera_values") if k in loaded}
+        # the sampler gave this dp rank its own rows
         dev = to_device(host, device)
         pixels = dev["pixel_values"] * 2.0 - 1.0  # [-1, 1] for the VAE
         latents = encode(pixels, sample=True)
@@ -345,7 +395,7 @@ def train(args, transformer, vae, encode_text: Callable, device=None
             # guarded so a resume of a finished run does not pull (and move
             # the sampler cursor past) a batch that is never trained
             shaped, pending = prepare_batch(next(loader))
-            if args.sanity_check:
+            if args.sanity_check and lead:
                 _sanity_dump(args, shaped)
         t_last = time.perf_counter()
         for step in range(step0, args.max_train_steps):
@@ -376,7 +426,7 @@ def train(args, transformer, vae, encode_text: Callable, device=None
                 save_s.append(_timed_save(ckpts, step + 1, state, sampler))
             if args.validation_steps and (step + 1) % args.validation_steps == 0:
                 _log_validation(args, transformer, vae, state, encode_text,
-                                step + 1, device)
+                                step + 1, device, out_dir)
             t_last = time.perf_counter()
     finally:
         loader.close()
@@ -404,15 +454,20 @@ def _timed_save(ckpts, step, state, sampler) -> float:
 
 
 @torch.no_grad()
-def _adopt_state(state, transformer, lora: bool) -> None:
+def _adopt_state(state, transformer, lora: bool, shards=None) -> None:
     """A restored state takes over: LoRA factors train again; SFT masters
-    are copied into the model's parameters (the step keeps the two equal)."""
+    are copied into the model's parameters (the step keeps the two equal;
+    under a mesh, the chunks gathered: ZeroShards.write_params)."""
     if lora:
         for fac in state.params.values():
             for t in fac.values():
                 t.requires_grad_(True)
         return
-    for n, p in transformer.named_parameters():
+    named = dict(transformer.named_parameters())
+    if shards is not None:
+        shards.write_params(named, state.params)
+        return
+    for n, p in named.items():
         p.copy_(state.params[n])
 
 
@@ -564,9 +619,12 @@ def _report_param_grad_norms(logger, step, prev_params, batch, draws,
           + ", ".join(f"{k}={v:.3f}" for k, v in top[:3]))
 
 
-def _log_validation(args, transformer, vae, state, encode_text, step, device):
-    """Render a sample with the current weights (train.py:246-384 parity);
-    LoRA states are skipped (the predict scripts merge them)."""
+def _log_validation(args, transformer, vae, state, encode_text, step, device,
+                    out_dir):
+    """Render a sample with the current weights (train.py:246-384 parity)
+    into `out_dir`; LoRA states are skipped (the predict scripts merge
+    them). Under a mesh every rank renders (FSDP's forward needs them all),
+    unsharded."""
     if not isinstance(next(iter(state.params.values())), torch.Tensor):
         return
     from .pipeline import (EasyAnimateControlPipeline,
@@ -586,7 +644,7 @@ def _log_validation(args, transformer, vae, state, encode_text, step, device):
                  video_length=args.video_sample_n_frames,
                  num_inference_steps=4, guidance_scale=3.0,
                  generator=torch.Generator(device=device).manual_seed(step))
-    out = os.path.join(args.output_dir, f"validation_{step}.gif")
+    out = os.path.join(out_dir, f"validation_{step}.gif")
     save_videos_grid(np.asarray(video), out, fps=8)
     print("validation sample ->", out)
 

@@ -15,6 +15,13 @@ has neither orbax nor safetensors):
     tuples, ints and floats such as the step and optimizer counters), with
     each tensor's name, dtype and shape.
 Both are read back bit-exactly.
+
+Under a mesh (parallel/sharding.py, ZeRO-2 or FSDP) each rank holds chunks
+of the masters, moments and EMA: a CheckpointManager given the ranks'
+`shards` all-gathers them at `save` and the mesh's first data rank writes
+the whole tensors, in the same layout (barriers around the write);
+`restore_latest` reads the whole tensors and keeps this rank's chunks, so
+a checkpoint restores at any rank count, one process included.
 """
 import dataclasses
 import importlib
@@ -24,6 +31,7 @@ import shutil
 from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..utils.safetensors_io import DTYPES, load_file, save_file
@@ -109,14 +117,24 @@ def save_state(path: str, state: Any) -> None:
         json.dump(spec, f)
 
 
-def load_state(path: str, template: Any = None, device=None) -> Any:
+def load_state(path: str, template: Any = None, device=None,
+               shards=None) -> Any:
     """save_state's files -> the state. With a template, the structure,
     every dtype and shape must match it, and each tensor goes to its
     template tensor's device; without one, to `device` (the card by
-    default)."""
+    default). With `shards` (a ZeroShards) the template holds this rank's
+    chunks, and only those are read from the whole tensors of the file."""
     with open(os.path.join(path, "state.json")) as f:
         spec = json.load(f)
     raw = load_file(os.path.join(path, "state.safetensors"))
+    if shards is not None:
+        if template is None:
+            raise ValueError("a sharded restore needs the template state")
+        # the rank's chunks of the file's whole tensors, renamed in order
+        chunks: List[torch.Tensor] = []
+        spec = flatten_state(shards.shard_state(unflatten_state(spec, raw)),
+                             chunks)
+        raw = {f"t{i}": t for i, t in enumerate(chunks)}
     if template is not None:
         like: List[torch.Tensor] = []
         if _structure(flatten_state(template, like)) != _structure(spec):
@@ -133,10 +151,14 @@ def load_state(path: str, template: Any = None, device=None) -> Any:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    """Checkpoints under `directory`; with `shards` (a ZeroShards) every
+    rank of the mesh saves and restores its chunks (module docstring)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 5, shards=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.shards = shards
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"checkpoint-{step}")
@@ -153,7 +175,19 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any,
              sampler_state: Optional[dict] = None) -> None:
-        """Write a snapshot; re-saving a step replaces it; then rotate."""
+        """Write a snapshot; re-saving a step replaces it; then rotate.
+        With shards every rank of the mesh calls it: the chunks are
+        gathered and the first data rank writes."""
+        shards = self.shards
+        if shards is not None:
+            whole = shards.gather_state(state)
+            if shards.index == 0:
+                self._write(step, whole, sampler_state)
+            dist.barrier(group=shards.group)
+        else:
+            self._write(step, state, sampler_state)
+
+    def _write(self, step: int, state: Any, sampler_state: Optional[dict]):
         path = self._path(step)
         if os.path.exists(path):
             shutil.rmtree(path)
@@ -189,11 +223,14 @@ class CheckpointManager:
                        ) -> Tuple[Any, Optional[dict], Optional[int]]:
         """(state, sampler_state, step) of the newest checkpoint that loads,
         or (None, None, None); a checkpoint that fails to load (a
-        truncated file, a mismatched template) is passed over."""
+        truncated file, a mismatched template) is passed over. With
+        shards, this rank's chunks (load_state)."""
+        if self.shards is not None:  # no rank reads before the writer is done
+            dist.barrier(group=self.shards.group)
         for step in reversed(self.steps()):
             try:
                 state = load_state(os.path.join(self._path(step), "state"),
-                                   template, device)
+                                   template, device, self.shards)
             except (OSError, ValueError, KeyError, TypeError) as e:
                 print(f"checkpoint-{step} did not load ({type(e).__name__}: "
                       f"{e}); trying the previous one")

@@ -56,10 +56,14 @@ def scale_by_name(mult: Dict[str, float]) -> GradientTransformation:
                                  for k, g in u.items()})
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
-    """optax.clip_by_global_norm: t if norm < max_norm else t / norm * max."""
+def clip_by_global_norm(max_norm: float,
+                        norm_fn: Callable[[Params], torch.Tensor] = global_norm
+                        ) -> GradientTransformation:
+    """optax.clip_by_global_norm: t if norm < max_norm else t / norm * max.
+    `norm_fn` is the tree's global norm (a sharded tree's sums over its
+    ranks: parallel/sharding.py::ZeroShards.global_norm)."""
     def clip(updates):
-        norm = global_norm(updates)
+        norm = norm_fn(updates)
         keep = norm < max_norm
         return {k: torch.where(keep, g, g / norm * max_norm)
                 for k, g in updates.items()}

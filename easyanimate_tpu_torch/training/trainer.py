@@ -1,4 +1,6 @@
-"""SFT train step for the MMDiT (flow matching) on one device.
+"""SFT train step for the MMDiT (flow matching), on one device or over a
+mesh (ZeRO-2 / FSDP2 and sequence parallelism: make_train_step's
+docstring, parallel/sharding.py).
 
 Parity: easyanimate_tpu/training/trainer.py (reference accelerate +
 DeepSpeed loop, train.py:1649-2207). Carried over:
@@ -34,8 +36,12 @@ import math
 from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.context import sequence_parallel
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import ZeroShards
 from ..pipeline.schedulers import DDIMConfig
 from ..utils.diffusion import GaussianDiffusion
 from . import optim
@@ -143,7 +149,9 @@ def make_lr_schedule(cfg: TrainConfig) -> optim.Schedule:
 
 
 def adaptive_clip_by_global_norm(max_grad_norm: float, initial_ratio: float,
-                                 decay_steps: int) -> optim.GradientTransformation:
+                                 decay_steps: int,
+                                 norm_fn: Callable = optim.global_norm
+                                 ) -> optim.GradientTransformation:
     """torch clip_grad_norm_ with the reference's decaying/abnormal rules.
 
     threshold(step) decays linearly from initial_ratio*max_grad_norm to
@@ -153,7 +161,7 @@ def adaptive_clip_by_global_norm(max_grad_norm: float, initial_ratio: float,
     def update(updates, step, params=None):
         frac = min(max(step / max(decay_steps, 1), 0.0), 1.0)
         thresh = (initial_ratio + (1.0 - initial_ratio) * frac) * max_grad_norm
-        norm = optim.global_norm(updates)
+        norm = norm_fn(updates)
         ratio = norm / thresh
         actual = torch.where((ratio > 5.0) & (step > decay_steps),
                              thresh / torch.clamp(ratio, max=10.0),
@@ -183,10 +191,13 @@ def lr_multiplier_tree(names: Iterable[str], cfg: TrainConfig) -> Dict[str, floa
             else 0.5 if any(m in n for m in low) else 0.0 for n in names}
 
 
-def make_optimizer(cfg: TrainConfig, names: Optional[Iterable[str]] = None
+def make_optimizer(cfg: TrainConfig, names: Optional[Iterable[str]] = None,
+                   norm_fn: Callable = optim.global_norm
                    ) -> optim.GradientTransformation:
     """The optimizer chain; `names` (the parameter names) is needed
-    whenever a trainable filter or dual LR is configured."""
+    whenever a trainable filter or dual LR is configured. `norm_fn` is the
+    clips' global norm (ZeroShards.global_norm when the tree holds this
+    rank's chunks)."""
     mult = None
     if cfg.trainable_modules is not None or cfg.trainable_modules_low_lr:
         if names is None:
@@ -205,9 +216,9 @@ def make_optimizer(cfg: TrainConfig, names: Optional[Iterable[str]] = None
     if cfg.adaptive_grad_clip:
         parts.append(adaptive_clip_by_global_norm(
             cfg.max_grad_norm, cfg.initial_grad_norm_ratio,
-            cfg.abnormal_norm_clip_start))
+            cfg.abnormal_norm_clip_start, norm_fn))
     else:
-        parts.append(optim.clip_by_global_norm(cfg.max_grad_norm))
+        parts.append(optim.clip_by_global_norm(cfg.max_grad_norm, norm_fn))
     if cfg.optimizer == "came":
         # came(1.0) emits already-negated unit-lr updates (the reference
         # passes CAME no weight decay, train.py:1195-1203): multiply by +lr
@@ -244,14 +255,31 @@ def _accumulate(tx: optim.GradientTransformation, cfg: TrainConfig
 # -- state, loss, step -------------------------------------------------------
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
-    """float32 master copies of every parameter, optimizer state, EMA."""
-    params = {n: p.detach().float().clone() for n, p in model.named_parameters()}
+def create_train_state(model: nn.Module, cfg: TrainConfig,
+                       mesh: Optional[Mesh] = None) -> TrainState:
+    """float32 master copies of every parameter, optimizer state, EMA.
+    Under a mesh, this rank's chunks of them (ZeRO-2, or FSDP's chunks
+    when fsdp_shard ran on the model: parallel/sharding.py)."""
+    named = dict(model.named_parameters())
+    if mesh is None:
+        params = {n: p.detach().float().clone() for n, p in named.items()}
+    else:
+        _check_sharded_optimizer(cfg)
+        params = ZeroShards(named, mesh).masters(named)
     tx = make_optimizer(cfg, params)
     return TrainState(
         step=0, params=params, opt_state=tx.init(params),
         ema_params=({n: p.clone() for n, p in params.items()}
                     if cfg.use_ema else None))
+
+
+def _check_sharded_optimizer(cfg: TrainConfig) -> None:
+    """ZeRO-2 / FSDP chunk the state elementwise: CAME's factored row and
+    column statistics and 8-bit Adam's blocks do not chunk so."""
+    if cfg.optimizer != "adamw":
+        raise NotImplementedError(
+            f"optimizer {cfg.optimizer!r} under a mesh (ZeRO-2 / FSDP) is "
+            "not ported (ROADMAP queue 1 item 10: multi-GPU); use adamw")
 
 
 def draw_flow_inputs(generator: Optional[torch.Generator],
@@ -332,24 +360,53 @@ def _grads(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             else p.grad.float() for n, p in named.items()}
 
 
-def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
+def make_train_step(model: nn.Module, cfg: TrainConfig,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns step(state, batch, generator=None, draws=None) ->
     (state, metrics). One forward + backward through the model, the
     optimizer update on the float32 masters (in place), EMA, and the
-    masters copied back into the model's parameters."""
+    masters copied back into the model's parameters.
+
+    Under a mesh (state from create_train_state(model, cfg, mesh)): the
+    batch and draws are this rank's dp rows; with sp > 1 the model runs
+    inside sequence_parallel(mesh, "allgather") (JAX shards the same
+    tokens through data_spec), every sp rank computing the loss over all
+    tokens of its rows. The gradient is the mean over dp, reduce-
+    scattered into this rank's chunks (ZeRO-2; FSDP's own reduce-scatter
+    with fsdp_shard), the optimizer and EMA run on the chunks, and the
+    updated chunks are all-gathered into the parameters. The reported
+    loss is the mean over dp."""
     named = dict(model.named_parameters())
-    tx = make_optimizer(cfg, named)
+    shards = None if mesh is None else ZeroShards(named, mesh)
+    if shards is not None:
+        _check_sharded_optimizer(cfg)
+    tx = make_optimizer(cfg, named, optim.global_norm if shards is None
+                        else shards.global_norm)
     loss_fn = make_loss_fn(model, cfg)
+
+    def forward_backward(batch, draws):
+        loss, metrics = loss_fn(batch, draws)
+        (loss if shards is None or shards.loss_scale == 1.0
+         else loss * shards.loss_scale).backward()
+        return metrics
 
     def step(state: TrainState, batch, generator=None, draws=None):
         if draws is None:
             draws = draw_inputs(generator, batch["latents"], cfg)
         model.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, draws)
-        loss.backward()
-        grads = _grads(named)
+        if mesh is None:
+            metrics = forward_backward(batch, draws)
+            grads = _grads(named)
+        else:
+            with sequence_parallel(mesh, "allgather"):
+                metrics = forward_backward(batch, draws)
+            grads = shards.grads(named)
+            for k in ("loss", "mean_sigma"):
+                if k in metrics:
+                    metrics[k] = dp_mean(metrics[k], mesh)
         model.zero_grad(set_to_none=True)
-        metrics["grad_norm"] = optim.global_norm(grads)
+        metrics["grad_norm"] = (optim.global_norm(grads) if shards is None
+                                else shards.global_norm(grads))
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         del grads
         optim.apply_updates(state.params, updates)
@@ -360,12 +417,24 @@ def make_train_step(model: nn.Module, cfg: TrainConfig) -> Callable:
                 d = cfg.ema_decay
                 for n, e in ema.items():
                     e.mul_(d).add_(state.params[n], alpha=1 - d)
-            for n, p in named.items():
-                p.copy_(state.params[n])
+            if shards is None:
+                for n, p in named.items():
+                    p.copy_(state.params[n])
+            else:
+                shards.write_params(named, state.params)
         return dataclasses.replace(state, step=state.step + 1,
                                    opt_state=opt_state), metrics
 
     return step
+
+
+def dp_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mean over the dp ranks of a 0-d metric (the sp peers agree)."""
+    x = x.detach().float().clone()
+    if mesh.shape["dp"] > 1:
+        dist.all_reduce(x, group=mesh.group("dp"))
+        x /= mesh.shape["dp"]
+    return x
 
 
 def make_param_grad_norms(model: nn.Module, cfg: TrainConfig) -> Callable:

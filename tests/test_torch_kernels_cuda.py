@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (forward K1/K2/K5, K1 also at V4's
 head dim 88 and the V1-V3 Transformer3D's 72 and 144, backward K3/K4 and
-K6/K7, and the quantized linears' Q1-Q3)
+K6/K7, the sequence-parallel ring's hops on K1 and K3/K4, and the
+quantized linears' Q1-Q3)
 against their plain PyTorch versions, on the card. Every test here needs a CUDA device and nvcc, and
 skips without one; the CPU tests (test_torch_ops.py) hold the plain versions
 against the JAX package.
@@ -394,6 +395,46 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, sq, skv,
                                                        kv_valid)):
         _grad_close(got, want)
     assert not dk[:, kv_valid:].any() and not dv[:, kv_valid:].any()
+
+
+@pytest.mark.cuda
+def test_ring_hops_match_one_call_on_card(cuda_device):
+    """The sequence-parallel ring's hop code (parallel/context.py) in one
+    process: K1 over 3 kv shards merged in float32 against one K1 call
+    over all keys (o within a bf16 rounding of the whole call's, lse to
+    float32 sums), then K3 + K4 per shard from that o and lse with one di,
+    dq summed and dk, dv per shard, against one K3 + K4 call."""
+    from easyanimate_tpu_torch.parallel.context import (ring_bwd_hop,
+                                                        ring_fwd_hop,
+                                                        ring_merge)
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    bh, sq, skv, d, shards = 8, 1200, 3 * 700, 64, 3
+    q, k, v, do = (torch.randn(bh, n, d, generator=g, device=cuda_device
+                               ).to(torch.bfloat16) for n in (sq, skv, skv, sq))
+    q = (q.float() * d ** -0.5 * tfa.LOG2E).to(torch.bfloat16)
+    o_w, lse_w = tfa.flash_attention_fwd(q, k, v)
+    before = tfa.flash_attention_fwd.launches_sm90
+    o = torch.zeros(bh, sq, d, device=cuda_device)
+    lse = torch.full((bh, sq, 1), -torch.inf, device=cuda_device)
+    ks, vs = k.chunk(shards, 1), v.chunk(shards, 1)
+    for kb, vb in zip(ks, vs):
+        o, lse = ring_merge(o, lse, *ring_fwd_hop(q, kb.contiguous(),
+                                                  vb.contiguous()))
+    assert tfa.flash_attention_fwd.launches_sm90 == before + shards
+    _close(o.to(torch.bfloat16).float(), o_w.float(), 2e-2)
+    _close(lse, lse_w, 1e-3)
+    o = o.to(torch.bfloat16)
+    dq_w, dk_w, dv_w = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    di = tfa.row_dot(o, do)
+    before = tfa.flash_attention_bwd.launches_sm90
+    hops = [ring_bwd_hop(q, kb.contiguous(), vb.contiguous(), o, lse, do, di)
+            for kb, vb in zip(ks, vs)]
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches_sm90 == before + shards
+    _grad_close(sum(h[0].float() for h in hops), dq_w)
+    _grad_close(torch.cat([h[1] for h in hops], 1), dk_w)
+    _grad_close(torch.cat([h[2] for h in hops], 1), dv_w)
 
 
 @pytest.mark.cuda
